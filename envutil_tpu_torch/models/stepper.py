@@ -121,11 +121,16 @@ def target_rays(projection: Projection, width: int, height: int, extent,
                 bias=(0.0, 0.0),
                 dtype=np.float32,
                 window=None,
-                device="cpu"):
+                device="cpu",
+                planar_to_ray=None):
     """Rays for every pixel of the target raster (or ``window``), in the
     coordinate system selected by ``basis`` (3x3 host matrix; None =
-    target CS), as tensors on ``device``."""
-    if (dtype == np.float32
+    target CS), as tensors on ``device``.
+
+    ``planar_to_ray`` overrides the projection-based transform: the
+    'generic stepper' case (stepper.h:356-490) where lens correction or
+    translation chains replace the plain projection."""
+    if (planar_to_ray is None and dtype == np.float32
             and projection in (Projection.SPHERICAL,
                                Projection.CYLINDRICAL)):
         ray = _separable_target_rays(projection, width, height,
@@ -133,7 +138,9 @@ def target_rays(projection: Projection, width: int, height: int, extent,
     else:
         px, py = planar_grid(width, height, extent, bias, dtype, window,
                              device)
-        if projection in (Projection.CUBEMAP, Projection.BIATAN6):
+        if planar_to_ray is not None:
+            ray = planar_to_ray(px, py)
+        elif projection in (Projection.CUBEMAP, Projection.BIATAN6):
             y_lo = 0 if window is None else window[0]
             rows = torch.arange(y_lo, y_lo + px.shape[0],
                                 device=px.device)[:, None].expand(px.shape)

@@ -1,19 +1,25 @@
-"""Inline-coordinates b-spline resampling: the CUDA kernel, its wrapper
-and its plain PyTorch version.
+"""B-spline resampling on the card: the two CUDA kernels, their
+wrappers and their plain PyTorch versions.
 
-Counterpart of envutil_tpu/ops/pallas_resample.py:resample_inline_into.
-Per output pixel the coordinate chain (target axis features -> ray ->
-per-face 3x3 matrix -> lon/lat -> gates -> spline affine) and the
-degree-n b-spline evaluation run in one pass, so no coordinate plane
-ever goes through device memory.
+``resample_inline`` is the counterpart of
+envutil_tpu/ops/pallas_resample.py:resample_inline_into. Per output
+pixel the coordinate chain (target axis features -> ray -> per-face
+3x3 matrix -> source pickup -> spline coordinates) and the degree-n
+b-spline evaluation run in one pass, so no coordinate plane ever goes
+through device memory.
 
-``resample_inline`` launches the hand-written kernel
-(csrc/resample_inline.cu, built with nvcc at first use) for CUDA
-tensors and takes ``resample_inline_plain`` only for CPU tensors;
-``resample_inline.launches`` counts kernel launches. The kernel source
-note says what bounds it and what its design leaves for later.
+``resample_planar`` is the counterpart of resample_planar_into (with
+a merge mask) and resample_planar (without one, over the whole frame):
+the spline at precomputed padded coordinates (sx, sy).
 
-Operands (all float32, contiguous):
+Each wrapper launches its hand-written kernel (csrc/resample_inline.cu,
+csrc/resample_planar.cu, built with nvcc at first use by ops/kernels.py)
+for CUDA tensors, raises if it cannot, and takes its plain version
+only for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
+The kernel source notes say what bounds each and what its design
+leaves for later.
+
+Operands of ``resample_inline`` (all float32, contiguous):
 
 - ``out``: (H, W, C) output window, rewritten in place and returned.
 - ``coeff``: (Hp, Wp, C) braced spline coefficients.
@@ -27,112 +33,56 @@ Operands (all float32, contiguous):
   first absolute row.
 - ``consts``: (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy,
   pad), the model->spline affine and the gates, as the JAX kernel
-  takes them.
+  takes them; for the cubemap/biatan6 source modes a twelfth entry,
+  the IR rows per cube face (``section_px``), and gates "none".
+- ``smode``: the source side, "sph" (full-spherical mount: lon/lat,
+  gates) or "cubemap"/"biatan6" (IR pickup: dominant-axis face,
+  in-face coordinates, biatan6 atan, section offset).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
-import time
+import math
 
 import torch
 
+from ..core import geometry as geo
 from . import basis as _basis
+from . import kernels as K
 from . import spline as S
 
 _TMODES = {"affine": 0, "sph": 1, "cyl": 2}
-_GATES = {"periodic": 0, "mirror": 1, "clamp": 2}
+_SMODES = {"sph": 0, "cubemap": 1, "biatan6": 2}
+_GATES = {"periodic": 0, "mirror": 1, "clamp": 2, "none": 3}
 MAX_DEGREE = 7
 
-_PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "resample_inline.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-class _Library:
-    """The compiled kernel library, built on first use into
-    ``_build/`` under a name keyed on a hash of the source."""
-
-    lib = None
-    build_seconds = 0.0
-    build_log = ""
-
-    @classmethod
-    def get(cls):
-        if cls.lib is None:
-            cls.lib = cls._load()
-        return cls.lib
-
-    @staticmethod
-    def _nvcc() -> str:
-        home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-        path = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
-        if not os.path.exists(path):
-            raise RuntimeError(
-                "nvcc not found (looked on PATH and in $CUDA_HOME/bin); "
-                "the resample_inline kernel cannot be built")
-        return path
-
-    @classmethod
-    def _load(cls):
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        so = BUILD_DIR / f"resample_inline_{digest}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            t0 = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [cls._nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                    capture_output=True, text=True)
-                cls.build_log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}) building "
-                        f"{SOURCE.name}:\n{cls.build_log}")
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            cls.build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(so))
-        fn = lib.envutil_resample_inline
-        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_float)
-        fn.argtypes = [p, p, p, p, p, p, ll, ll, ll, ll, i, i, i, i, i,
-                       i, f, f, i, f, f, f, f, f, f, f, p]
-        fn.restype = ctypes.c_int
-        return lib
+_p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+_INLINE = K.Library(
+    "resample_inline.cu", "envutil_resample_inline",
+    [_p] * 6 + [_ll] * 4 + [_i] * 7 + [_f, _f, _i] + [_f] * 8 + [_p])
+_PLANAR = K.Library(
+    "resample_planar.cu", "envutil_resample_planar",
+    [_p] * 6 + [_ll] * 4 + [_i, _i, _p])
+LIBRARIES = (_INLINE, _PLANAR)
 
 
 def build():
-    """Build (if needed) and load the kernel library; returns the
-    seconds the build took in this process (0.0 if it was cached)."""
-    _Library.get()
-    return _Library.build_seconds
+    """Build (if needed, one nvcc per source in parallel) and load both
+    kernel libraries; returns the wall seconds this took."""
+    return K.build_all(LIBRARIES)
 
 
-def build_log() -> str:
-    """nvcc's output (register and spill counts) from this process's
-    build, or '' when the library was already built."""
-    return _Library.build_log
+def _wmat(degree):
+    return ctypes.cast((ctypes.c_float * ((degree + 1) ** 2))(
+        *_basis.weight_matrix(degree).reshape(-1).tolist()), ctypes.c_void_p)
 
 
 def _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
            row0, face_rows, smode):
-    if smode != "sph":
-        raise NotImplementedError(
-            f"smode={smode!r}: cubemap/biatan6 source modes wait for "
-            "the cubemap-source slice of the PyTorch port")
+    if smode not in _SMODES:
+        raise ValueError(f"unknown smode {smode!r}")
     if coeff.dtype != torch.float32:
         raise NotImplementedError(
             f"{coeff.dtype} coefficient tables wait for a later slice; "
@@ -141,9 +91,10 @@ def _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
         raise ValueError(f"unknown tmode {tmode!r}")
     if not 0 <= degree <= MAX_DEGREE:
         raise ValueError(f"degree {degree} outside 0..{MAX_DEGREE}")
-    if len(consts) != 11:
+    if len(consts) != (11 if smode == "sph" else 12):
         raise ValueError("consts must be (kx, cx, ky, cy, gate_x, glx, "
-                         "gux, gate_y, gly, guy, pad)")
+                         "gux, gate_y, gly, guy, pad), plus section_px "
+                         "for the cubemap/biatan6 source modes")
     h, w, nch = out.shape
     if coeff.dim() != 3 or coeff.shape[2] != nch:
         raise ValueError(f"coeff {tuple(coeff.shape)} does not match "
@@ -183,20 +134,18 @@ def resample_inline(out, coeff, xfeat, yfeat, bmats, *, degree: int,
                                      face_rows=face_rows, smode=smode)
     if out.device.type != "cuda":
         raise ValueError(f"unsupported device {out.device}")
-    lib = _Library.get()
-    (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts
-    wmat = (ctypes.c_float * ((degree + 1) ** 2))(
-        *_basis.weight_matrix(degree).reshape(-1).tolist())
+    fn = _INLINE.get()
+    (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts[:11]
+    section_px = consts[11] if smode != "sph" else 0.0
     h, w, nch = out.shape
     hp, wp, _ = coeff.shape
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = lib.envutil_resample_inline(
+    err = fn(
         out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
-        yfeat.data_ptr(), bmats.data_ptr(), ctypes.cast(wmat,
-                                                        ctypes.c_void_p),
-        h, w, hp, wp, int(row0), int(face_rows), int(degree), int(nch),
-        _TMODES[tmode], _GATES[gate_x], glx, gux, _GATES[gate_y], gly,
-        guy, kx, cx, ky, cy, pad, stream)
+        yfeat.data_ptr(), bmats.data_ptr(), _wmat(degree), h, w, hp, wp,
+        int(row0), int(face_rows), int(degree), int(nch), _TMODES[tmode],
+        _SMODES[smode], _GATES[gate_x], glx, gux, _GATES[gate_y], gly, guy,
+        kx, cx, ky, cy, pad, section_px, stream)
     if err != 0:
         raise RuntimeError(f"resample_inline kernel launch failed: CUDA "
                            f"error {err}")
@@ -236,16 +185,24 @@ def inline_rays(xfeat, yfeat, bmats, *, tmode: str, row0: int = 0,
 
 
 def inline_coords(xfeat, yfeat, bmats, *, tmode: str, consts: tuple,
-                  row0: int = 0, face_rows: int = 0):
+                  row0: int = 0, face_rows: int = 0, smode: str = "sph"):
     """Padded spline coordinates (sx, sy) of every pixel of the window,
-    as the kernel computes them (smode "sph")."""
-    (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts
+    as the kernel computes them."""
+    (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts[:11]
     rx, ry, rz = inline_rays(xfeat, yfeat, bmats, tmode=tmode, row0=row0,
                              face_rows=face_rows)
-    lon = torch.atan2(rx, rz)
-    lat = torch.atan2(ry, torch.sqrt(rx * rx + rz * rz))
-    sx = _gate(lon * kx + cx, gate_x, glx, gux) + pad
-    sy = _gate(lat * ky + cy, gate_y, gly, guy) + pad
+    if smode == "sph":
+        lon = torch.atan2(rx, rz)
+        lat = torch.atan2(ry, torch.sqrt(rx * rx + rz * rz))
+        sx = _gate(lon * kx + cx, gate_x, glx, gux) + pad
+        sy = _gate(lat * ky + cy, gate_y, gly, guy) + pad
+        return sx, sy
+    face, fx, fy = geo.ray_to_cubeface(rx, ry, rz)
+    if smode == "biatan6":
+        fx = (4.0 / math.pi) * torch.atan(fx)
+        fy = (4.0 / math.pi) * torch.atan(fy)
+    sx = fx * kx + cx + pad
+    sy = fy * ky + cy + face.to(fy.dtype) * consts[11] + pad
     return sx, sy
 
 
@@ -269,9 +226,92 @@ def resample_inline_plain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
     _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
            row0, face_rows, smode)
     sx, sy = inline_coords(xfeat, yfeat, bmats, tmode=tmode,
-                           consts=consts, row0=row0, face_rows=face_rows)
+                           consts=consts, row0=row0, face_rows=face_rows,
+                           smode=smode)
     table = S.Spline2D(coeff=coeff, pad=0, degree=degree,
                        bcs=(S.CONSTANT, S.CONSTANT),
                        core_shape=tuple(coeff.shape[:2]))
     out.copy_(S.eval_spline(table, sx, sy, apply_gate=False))
+    return out
+
+
+def _check_planar(out, coeff, sx, sy, degree, merge_mask):
+    if coeff.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{coeff.dtype} coefficient tables wait for a later slice; "
+            "the kernel takes float32")
+    if not 0 <= degree <= MAX_DEGREE:
+        raise ValueError(f"degree {degree} outside 0..{MAX_DEGREE}")
+    if out.dim() != 3 or coeff.dim() != 3 or coeff.shape[2] != out.shape[2]:
+        raise ValueError(f"coeff {tuple(coeff.shape)} does not match "
+                         f"out {tuple(out.shape)}")
+    if not 1 <= out.shape[2] <= 4:
+        raise ValueError(f"{out.shape[2]} channels; the kernel takes 1..4")
+    planes = (sx, sy) if merge_mask is None else (sx, sy, merge_mask)
+    if any(tuple(t.shape) != tuple(out.shape[:2]) for t in planes):
+        raise ValueError("sx, sy and merge_mask must be (H, W) like out")
+    for t in (out, coeff) + planes:
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != out.device:
+            raise ValueError("operands must be contiguous float32 "
+                             "tensors on one device")
+
+
+def resample_planar(out, coeff, sx, sy, *, degree: int, merge_mask=None):
+    """Evaluate the degree-``degree`` spline of the braced (Hp, Wp, C)
+    table ``coeff`` at padded table coordinates ``sx``, ``sy`` (H, W)
+    into ``out`` (H, W, C), in place, and return ``out``. With
+    ``merge_mask`` (H, W), pixels whose mask is <= 0.5 keep the prior
+    contents of ``out`` bit for bit; without it every pixel is written.
+    CUDA tensors go through the kernel; CPU tensors through
+    ``resample_planar_plain``."""
+    _check_planar(out, coeff, sx, sy, degree, merge_mask)
+    if out.device.type == "cpu":
+        return resample_planar_plain(out, coeff, sx, sy, degree=degree,
+                                     merge_mask=merge_mask)
+    if out.device.type != "cuda":
+        raise ValueError(f"unsupported device {out.device}")
+    fn = _PLANAR.get()
+    h, w, nch = out.shape
+    hp, wp, _ = coeff.shape
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = fn(out.data_ptr(), coeff.data_ptr(), sx.data_ptr(),
+             sy.data_ptr(),
+             None if merge_mask is None else merge_mask.data_ptr(),
+             _wmat(degree), h, w, hp, wp, int(degree), int(nch), stream)
+    if err != 0:
+        raise RuntimeError(f"resample_planar kernel launch failed: CUDA "
+                           f"error {err}")
+    resample_planar.launches += 1
+    return out
+
+
+resample_planar.launches = 0
+
+
+def clamp_coords(s, extent: int, degree: int):
+    """The kernel's float clamp of a coordinate plane to
+    [-(n+1), extent + n]: NaN and -inf go to the lower bound, +inf to
+    the upper, so no non-finite value reaches the integer split."""
+    lo, hi = -(degree + 1.0), float(extent + degree)
+    return torch.nan_to_num(s, nan=lo, posinf=hi, neginf=lo).clamp(lo, hi)
+
+
+def resample_planar_plain(out, coeff, sx, sy, *, degree: int,
+                          merge_mask=None):
+    """The kernel's computation in plain PyTorch, with its signature:
+    clamp the coordinates, ``eval_spline`` (ungated) on the padded
+    table, overlay by the mask. Finite wherever the table is, whatever
+    the coordinates. Runs on any device."""
+    _check_planar(out, coeff, sx, sy, degree, merge_mask)
+    hp, wp, _ = coeff.shape
+    table = S.Spline2D(coeff=coeff, pad=0, degree=degree,
+                       bcs=(S.CONSTANT, S.CONSTANT), core_shape=(hp, wp))
+    val = S.eval_spline(table, clamp_coords(sx, wp, degree),
+                        clamp_coords(sy, hp, degree), apply_gate=False)
+    if merge_mask is None:
+        out.copy_(val)
+    else:
+        keep = (merge_mask > 0.5)[..., None]
+        out.copy_(torch.where(keep, val, out))
     return out

@@ -263,6 +263,17 @@ def make_spline(image: torch.Tensor, spline_degree: int,
                     spherical=spherical)
 
 
+def make_spline_from_coeffs(coeffs: torch.Tensor, spline_degree: int,
+                            bcs=(REFLECT, REFLECT)) -> Spline2D:
+    """Wrap already-computed spline coefficients (e.g. the per-section
+    prefiltered cubemap IR) in a braced Spline2D without prefiltering."""
+    pad = _basis.eval_half_width(spline_degree) + EXTRA_BRACE
+    c = extend_axis(coeffs, 0, pad, pad, bcs[0])
+    c = extend_axis(c, 1, pad, pad, bcs[1])
+    return Spline2D(coeff=c.contiguous(), pad=pad, degree=spline_degree,
+                    bcs=tuple(bcs), core_shape=tuple(coeffs.shape[:2]))
+
+
 def split(c, degree: int):
     """Split a gated spline coordinate into cell index (int64) and
     fraction, following the even/odd convention (zimt/eval.h:595-610):

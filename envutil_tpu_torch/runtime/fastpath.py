@@ -1,17 +1,29 @@
-"""Fast single-facet render path: one launch of the inline-coordinates
-kernel over the whole frame.
+"""Fast single-facet render path on the card: one kernel launch over
+the whole frame.
 
 Counterpart of envutil_tpu/runtime/fastpath.py (eligible :106-126,
-_inline_setup :569-685, the fused frame :1373-1734). The JAX fast path
-plans window classes, tile passes and rolled/pitched source variants
-because the TPU's Mosaic compiler offers only an (8,128) in-register
-gather; on Hopper the kernel gathers through L1/L2 directly, so one
-launch covers every output pixel exactly, poles and seam included, and
-none of that planner is carried over.
+_coords :283-389, _inline_setup :569-685, _inline_eligible :688-704,
+the fused frame :1373-1734). The JAX fast path plans window classes,
+tile passes, forced-face cubemap sections, face-boundary merge passes
+and rolled/pitched source variants because the TPU's Mosaic compiler
+offers only an (8,128) in-register gather; on Hopper the kernels gather
+through L1/L2 directly, so one launch covers every output pixel
+exactly, poles, seam and cube edges included, and none of that planner
+is carried over.
 
-This slice covers full-spherical mount sources with float32 tables
-rendered to rectilinear, cubemap, biatan6, spherical or cylindrical
-targets without twining. Other jobs on CUDA raise
+Two routes, chosen per job (``inline_mode``):
+
+* ``fused_frame``: full-spherical mount or cubemap/biatan6 IR sources
+  rendered to rectilinear, cubemap, biatan6, spherical or cylindrical
+  targets by a plain rotation: the coordinate chain runs inside the
+  inline kernel (K1, ``resample_inline``).
+* ``planar_frame``: every other single-facet job (partial mounts, PTO
+  lens/shift/shear, translated facets, stereographic and fisheye
+  targets): the coordinate pass (``coords``) runs as PyTorch
+  operations, then one launch of the planar kernel (K2/K5,
+  ``resample_planar``) evaluates the spline at those coordinates.
+
+Twining, multi-facet synopses, masking jobs and bf16 tables raise
 ``NotImplementedError`` naming the slice that will cover them.
 """
 
@@ -47,26 +59,18 @@ _INLINE_TARGETS = (Projection.RECTILINEAR, Projection.CUBEMAP,
 
 def uncovered(plan, sources):
     """Why this slice has no kernel for the job (a message naming the
-    later slice), or None when ``fused_frame`` covers it."""
+    later slice), or None when ``fused_frame`` or ``planar_frame``
+    covers it."""
     if len(sources) != 1:
         return "multi-facet synopses wait for the multi-facet slice"
     if plan.spread is not None:
         return "twining waits for the twining slice (kernels K3/K4)"
     src = sources[0]
     st = src.static
-    if st.kind != "mount":
-        return f"{st.kind} sources wait for the cubemap-source slice"
+    if st.kind not in ("mount", "cubemap"):
+        return f"{st.kind} sources wait for the masking slice"
     if st.masked != -1:
         return "masked (--mask_for) jobs wait for the masking slice"
-    if not (st.projection == Projection.SPHERICAL and src.spl is not None
-            and src.spl.spherical):
-        return ("partial mounts wait for the K2 slice "
-                "(resample_planar_into)")
-    if st.has_lcp or st.has_shift or st.has_shear:
-        return "PTO planar transforms wait for the K2/PTO slice"
-    if plan.projection not in _INLINE_TARGETS:
-        return (f"{Projection(plan.projection).name.lower()} targets "
-                "wait for the K2 slice")
     if src.spl.degree > R.MAX_DEGREE:
         return f"degree {src.spl.degree} exceeds the kernel's {R.MAX_DEGREE}"
     if src.spl.coeff.dtype != torch.float32:
@@ -76,9 +80,23 @@ def uncovered(plan, sources):
     return None
 
 
-def eligible(plan, sources) -> bool:
-    """Does one kernel launch cover this job (see ``uncovered``)?"""
-    return uncovered(plan, sources) is None
+def inline_mode(plan, src):
+    """The inline kernel's source mode for this job ("sph" for
+    full-spherical mounts, "cubemap"/"biatan6" for IR sources), or None
+    when the job goes through ``planar_frame`` (JAX
+    ``_inline_eligible``)."""
+    if plan.planar_to_ray[0] is not None \
+            or plan.projection not in _INLINE_TARGETS:
+        return None
+    st = src.static
+    if st.kind == "cubemap":
+        return "biatan6" if st.projection == Projection.BIATAN6 \
+            else "cubemap"
+    if (st.kind == "mount" and st.projection == Projection.SPHERICAL
+            and src.spl.spherical and not (st.has_lcp or st.has_shift
+                                           or st.has_shear)):
+        return "sph"
+    return None
 
 
 def _gate_bounds(bc, n):
@@ -91,13 +109,16 @@ def _gate_bounds(bc, n):
     return ("clamp", lower, upper)
 
 
-def inline_setup(plan, window, core_shape, pad, bcs, statics):
+def inline_setup(plan, window, core_shape, pad, bcs, statics,
+                 smode: str = "sph"):
     """Host-side axis features and constants for one kernel launch over
     ``window = (y0, y1, x0, x1)``: returns (tmode, xfeat (Fx, W),
     yfeat (Fy, H), P (nf, 3, 3), consts), the features float32 numpy
-    built from the same float64 axes the exact path uses. ``statics``
-    is (total extent x0, x1, y0, y1, total width, total height, window
-    x offset, window y offset) of the source."""
+    built from the same float64 axes the exact path uses. For
+    ``smode`` "sph", ``statics`` is (total extent x0, x1, y0, y1, total
+    width, total height, window x offset, window y offset) of the
+    source; for "cubemap"/"biatan6" it is the IR's (refc_md,
+    model_to_px, section_px)."""
     y0, y1, x0, x1 = window
     ext = plan.extent
     xs = ST.planar_axis(plan.width, ext.x0, ext.x1, 0.0, np.float64,
@@ -135,6 +156,17 @@ def inline_setup(plan, window, core_shape, pad, bcs, statics):
     xfeat = np.stack([a.astype(np.float32) for a in xf])
     yfeat = np.stack([a.astype(np.float32) for a in yf])
 
+    if smode in ("cubemap", "biatan6"):
+        # IR pickup (metrics.get_pickup_coordinate_px): scale fx/fy by
+        # model_to_px around the section centre; the face's section
+        # offset rides as consts[11] (the face is chosen in-kernel)
+        refc_md, model_to_px, section_px = statics
+        k = float(model_to_px)
+        c = float(refc_md * model_to_px - 0.5)
+        consts = (k, c, k, c, "none", 0.0, 0.0, "none", 0.0, 0.0,
+                  float(pad), float(section_px))
+        return tmode, xfeat, yfeat, P, consts
+
     # model -> spline affine (environment._md_to_spline)
     (tex0, tex1, tey0, tey1, tw, th, wxo, wyo) = statics
     kx = tw / (tex1 - tex0)
@@ -157,17 +189,27 @@ def frame_window(plan):
     return (0, plan.height, 0, plan.width)
 
 
+def _source_mode(static):
+    """(smode, statics) of ``inline_setup`` for a source."""
+    if static.kind == "cubemap":
+        m = static.metrics
+        smode = ("biatan6" if static.projection == Projection.BIATAN6
+                 else "cubemap")
+        return smode, (m.refc_md, m.model_to_px, m.section_px)
+    te = static.total_extent
+    return "sph", (te.x0, te.x1, te.y0, te.y1, static.total_width,
+                   static.total_height, static.window_x_offset,
+                   static.window_y_offset)
+
+
 @functools.lru_cache(maxsize=16)
 def _operands(plan, static, core_shape, pad, bcs, device):
     """Device-resident kernel operands of one plan (a RenderPlan hashes
     by identity), built once so a steady-state frame is one launch."""
     window = frame_window(plan)
-    te = static.total_extent
-    statics = (te.x0, te.x1, te.y0, te.y1, static.total_width,
-               static.total_height, static.window_x_offset,
-               static.window_y_offset)
+    smode, statics = _source_mode(static)
     tmode, xfeat, yfeat, P, consts = inline_setup(
-        plan, window, core_shape, pad, bcs, statics)
+        plan, window, core_shape, pad, bcs, statics, smode)
     basis = np.asarray(plan.bases[0], np.float32)
     bm = np.einsum("ij,fjk->fik", basis, P).reshape(-1, 9)
     face_rows = plan.width if P.shape[0] == 6 else 0
@@ -175,7 +217,7 @@ def _operands(plan, static, core_shape, pad, bcs, device):
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)
                                 ).to(device)
-    return dict(tmode=tmode, consts=consts, xfeat=dev(xfeat),
+    return dict(tmode=tmode, smode=smode, consts=consts, xfeat=dev(xfeat),
                 yfeat=dev(yfeat), bmats=dev(bm), row0=window[0],
                 face_rows=face_rows)
 
@@ -189,14 +231,9 @@ def frame_operands(plan, src):
     return dict(ops, degree=spl.degree)
 
 
-def fused_frame(plan, src, out=None, device=None):
-    """Render the frame of a single full-spherical mount source with one
-    kernel launch, then adapt channels (repix) and brighten. ``out``
-    is a caller-held (H, W, C_source) float32 buffer that the launch
-    rewrites completely (the steady-state 'reuse' contract: no
-    zero-fill, no allocation); without it a fresh buffer is made.
-    Returns the (H, W, nchannels) image tensor on the source's device,
-    which is ``out`` itself when no adaptation applies."""
+def _frame_buffer(plan, src, out, device):
+    """Check the job and return the (H, W, C_source) output buffer:
+    ``out`` itself or a fresh one on the source's device."""
     reason = uncovered(plan, [src])
     if reason is not None:
         raise NotImplementedError(reason)
@@ -206,30 +243,103 @@ def fused_frame(plan, src, out=None, device=None):
     y0, y1, x0, x1 = frame_window(plan)
     shape = (y1 - y0, x1 - x0, coeff.shape[-1])
     if out is None:
-        out = torch.empty(shape, dtype=torch.float32, device=coeff.device)
-    elif tuple(out.shape) != shape or out.device != coeff.device:
+        return torch.empty(shape, dtype=torch.float32, device=coeff.device)
+    if tuple(out.shape) != shape or out.device != coeff.device:
         raise ValueError(f"out must be {shape} on {coeff.device}")
-    ops = frame_operands(plan, src)
-    R.resample_inline(out, coeff, ops["xfeat"], ops["yfeat"],
-                      ops["bmats"], degree=ops["degree"],
-                      tmode=ops["tmode"], consts=ops["consts"],
-                      row0=ops["row0"], face_rows=ops["face_rows"])
+    return out
+
+
+def _finish(plan, src, out):
     img = E.repix(out, plan.nchannels)
     if src.static.brighten != 1.0:
         img = E.apply_brighten(img, src.static.brighten)
     return img
 
 
+def fused_frame(plan, src, out=None, device=None):
+    """Render the frame of a single full-spherical mount or cubemap
+    source with one launch of the inline kernel, then adapt channels
+    (repix) and brighten. ``out`` is a caller-held (H, W, C_source)
+    float32 buffer that the launch rewrites completely (the
+    steady-state 'reuse' contract: no zero-fill, no allocation);
+    without it a fresh buffer is made. Returns the (H, W, nchannels)
+    image tensor on the source's device, which is ``out`` itself when
+    no adaptation applies."""
+    out = _frame_buffer(plan, src, out, device)
+    if inline_mode(plan, src) is None:
+        raise ValueError("the inline kernel does not cover this job "
+                         "(partial or PTO source, generic chain, or a "
+                         "stereographic/fisheye target): use planar_frame")
+    ops = frame_operands(plan, src)
+    R.resample_inline(out, src.spl.coeff, ops["xfeat"], ops["yfeat"],
+                      ops["bmats"], degree=ops["degree"],
+                      tmode=ops["tmode"], consts=ops["consts"],
+                      row0=ops["row0"], face_rows=ops["face_rows"],
+                      smode=ops["smode"])
+    return _finish(plan, src, out)
+
+
+def coords(plan, window, src):
+    """Padded spline coordinates (sx, sy) and the validity mask, each
+    (H, W) over ``window``: the counterpart of the JAX ``_coords`` for
+    the source itself (no forced-face, pitched or rolled variant). The
+    target rays come from the stepper (the plan's rotation or generic
+    chain), normalised, as the exact path makes them; then the
+    source's pickup, the spline gates and the brace pad. Where the mask
+    is False the coordinates may be non-finite (grazing or backward
+    rays of a partial facet); only the mask hides them."""
+    spl = src.spl
+    ray = ST.target_rays(plan.projection, plan.width, plan.height,
+                         plan.extent, basis=plan.bases[0], normalize=True,
+                         planar_to_ray=plan.planar_to_ray[0],
+                         window=window, device=spl.coeff.device)
+    sx, sy, mask = E.source_spline_coords(src, ray)
+    h, w = spl.core_shape
+    sx = S.gate(sx, spl.bcs[1], w) + spl.pad
+    sy = S.gate(sy, spl.bcs[0], h) + spl.pad
+    return sx, sy, mask
+
+
+def planar_frame(plan, src, out=None, device=None):
+    """Render the frame of a single source with the coordinate pass
+    (``coords``) and one launch of the planar kernel, then adapt
+    channels and brighten. Cubemap sources cover every ray, so the
+    launch writes the whole window (the K5 form); other sources are
+    drawn over a zero-filled canvas through the validity mask (the K2
+    form), which is the JAX finish ``where(mask, canvas, 0)``. ``out``
+    and the return value are as for ``fused_frame``; the coordinates
+    are computed anew every frame."""
+    out = _frame_buffer(plan, src, out, device)
+    sx, sy, mask = coords(plan, frame_window(plan), src)
+    if src.static.kind == "cubemap":
+        R.resample_planar(out, src.spl.coeff, sx, sy,
+                          degree=src.spl.degree)
+    else:
+        out.zero_()
+        R.resample_planar(out, src.spl.coeff, sx, sy,
+                          degree=src.spl.degree,
+                          merge_mask=mask.to(torch.float32))
+    return _finish(plan, src, out)
+
+
 def render_fast(plan, sources, verbose: bool = False) -> np.ndarray:
-    """The CUDA render path of ``render.render_frame``: one fused frame,
-    returned as a host (H, W, C) float32 array. Raises
-    ``NotImplementedError`` for jobs this slice does not cover."""
+    """The CUDA render path of ``render.render_frame``: one frame
+    through ``fused_frame`` or ``planar_frame``, returned as a host
+    (H, W, C) float32 array. Raises ``NotImplementedError`` for jobs
+    this slice does not cover."""
     reason = uncovered(plan, sources)
     if reason is not None:
         raise NotImplementedError(
             f"no CUDA kernel for this job yet: {reason}")
-    img = fused_frame(plan, sources[0])
+    src = sources[0]
+    mode = inline_mode(plan, src)
+    if mode is not None:
+        img = fused_frame(plan, src)
+        what = f"resample_inline (smode {mode})"
+    else:
+        img = planar_frame(plan, src)
+        what = "resample_planar after the coordinate pass"
     if verbose:
-        print(f"fastpath: 1 launch of resample_inline over "
+        print(f"fastpath: 1 launch of {what} over "
               f"{img.shape[0]}x{img.shape[1]} px")
     return img.cpu().numpy()

@@ -1,32 +1,82 @@
-"""Facet loading: image file -> FacetSource (prefiltered spline on the
+"""Facet loading: image file(s) -> FacetSource (prefiltered spline on the
 render device + static lookup config), with asset caching.
 
-Counterpart of envutil_tpu/runtime/loader.py for mount facets. Cubemap
-facets, the on-disk coefficient cache, bf16 tables, the twining
-pyramid and the TPU fast path's rolled/pitched source variants wait for
-later slices (the variants are not needed on Hopper at all).
+Counterpart of envutil_tpu/runtime/loader.py: cubemap/biatan6 facets
+(a 1:6 stripe or a ``%s`` cubeface series) build the IR spline,
+everything else a mount source. The on-disk coefficient cache, bf16
+tables and the twining pyramid wait for later slices; the TPU fast
+path's rolled/pitched/section source variants are not needed on the
+card at all.
 """
 
 from __future__ import annotations
 
-from ..core.conventions import Projection
+import numpy as np
+
+from ..core.conventions import FACE_NAMES, Projection
 from ..core.facet import Facet
+from ..core.metrics import CubemapMetrics
 from ..io import imgio
+from ..models import cubemap as CBM
 from ..models import environment as E
 from . import assets
+
+_CUBE = (Projection.CUBEMAP, Projection.BIATAN6)
+
+
+def _read_facet_image(fct: Facet, args) -> np.ndarray:
+    """Read the facet's pixel data (single file or %s cubeface series,
+    envutil_basic.h:265-356) in the working colour space."""
+    def read(name):
+        return imgio.read_image(name, fct.colour_space,
+                                args.working_colour_space, args.verbose,
+                                oiio_options=args.oiio_options)
+    if "%s" in fct.filename:
+        return np.stack([read(fct.filename % name)
+                         for name in FACE_NAMES])  # (6, F, F, C)
+    return read(fct.filename)
+
+
+def _build(fct: Facet, args, img: np.ndarray, device) -> E.FacetSource:
+    if fct.projection in _CUBE:
+        if img.ndim == 3:
+            f = img.shape[1]
+            if img.shape[0] != 6 * f:
+                raise ValueError(
+                    "cubemap input must be a 1:6 stripe or %s series")
+            faces = img.reshape(6, f, f, img.shape[2])
+        else:
+            faces = img
+        # the facet's width is the face width for cubemaps (the JAX
+        # package sets it on the facet itself, and so does the port)
+        fct.width = faces.shape[1]
+        return CBM.make_cubemap_source(
+            fct, faces, args.spline_degree, args.prefilter_degree,
+            args.support_min, args.tile_size, device=device)
+    return E.make_mount_source(fct, img, args.spline_degree,
+                               args.prefilter_degree, args.verbose,
+                               device=device)
+
+
+def _make_source_from(fct: Facet, args, spl) -> E.FacetSource:
+    """Recreate the static config around a cached spline (the brighten
+    may differ between jobs)."""
+    nch = spl.coeff.shape[-1]
+    if fct.projection in _CUBE:
+        m = CubemapMetrics.create(fct.width, fct.hfov, args.support_min,
+                                  args.tile_size)
+        return E.FacetSource(static=CBM.cubemap_static(fct, nch, m),
+                             spl=spl)
+    return E.FacetSource(static=E.mount_static(fct, nch), spl=spl)
 
 
 def load_source(fct: Facet, args, device=None) -> E.FacetSource:
     """Build (or fetch from the asset cache) the FacetSource for a
-    mount facet, on ``device``."""
+    facet, on ``device``."""
     if fct.masked != -1 and args.nchannels in (1, 3):
         raise NotImplementedError(
             "--mask_for paint sources wait for the masking slice of the "
             "PyTorch port")
-    if fct.projection in (Projection.CUBEMAP, Projection.BIATAN6):
-        raise NotImplementedError(
-            "cubemap/biatan6 sources wait for the cubemap-source slice "
-            "of the PyTorch port")
     if getattr(args, "coeff_dtype", "f32") != "f32":
         raise NotImplementedError(
             "bf16 coefficient tables wait for a later slice of the "
@@ -42,15 +92,7 @@ def load_source(fct: Facet, args, device=None) -> E.FacetSource:
     if cached is not None:
         if args.verbose:
             print(f"asset {fct.asset_key} is already present in RAM")
-        # rebind the cached spline to this facet's static config (the
-        # brighten may differ between jobs)
-        return E.FacetSource(
-            static=E.mount_static(fct, cached.coeff.shape[-1]), spl=cached)
-    img = imgio.read_image(fct.filename, fct.colour_space,
-                           args.working_colour_space, args.verbose,
-                           oiio_options=args.oiio_options)
-    src = E.make_mount_source(fct, img, args.spline_degree,
-                              args.prefilter_degree, args.verbose,
-                              device=device)
+        return _make_source_from(fct, args, cached)
+    src = _build(fct, args, _read_facet_image(fct, args), device)
     assets.cache.add(key, src.spl)
     return src

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from envutil_tpu_torch.core.conventions import Projection
+from envutil_tpu_torch.core.conventions import FACE_NAMES, Projection
 from envutil_tpu_torch.io import imgio
 from envutil_tpu_torch.runtime import cli
 from envutil_tpu_torch.runtime.args import parse_args
@@ -45,6 +45,39 @@ def test_cli_writes_the_library_render(tmp_path, monkeypatch):
                        device="cpu")
     assert written.shape == lib.shape == (192, 32, 3)
     np.testing.assert_array_equal(written, lib)
+
+
+def test_cli_renders_cubemap_stripe_and_face_series(tmp_path, monkeypatch):
+    """A 1:6 cubemap stripe and the same faces as a ``%s`` series render
+    back to an equirect through the CLI, identically, and as the library
+    call does."""
+    monkeypatch.setenv("ENVUTIL_PLATFORM", "cpu")
+    env = tmp_path / "env.tif"
+    imgio.save_image(str(env), _equirect())
+    stripe = tmp_path / "cm.tif"
+    assert cli.main(["--facet", str(env), "spherical", "360", "0", "0", "0",
+                     "--projection", "cubemap", "--hfov", "90", "--width",
+                     "32", "--twine", "0", "--output", str(stripe)]) == 0
+    faces = imgio.read_image(str(stripe)).reshape(6, 32, 32, 3)
+    for name, face in zip(FACE_NAMES, faces):
+        imgio.save_image(str(tmp_path / f"face_{name}.tif"), face)
+    written = []
+    for facet in (str(stripe), str(tmp_path / "face_%s.tif")):
+        out = tmp_path / f"eq{len(written)}.tif"
+        argv = ["--facet", facet, "cubemap", "90", "0", "0", "0",
+                "--projection", "spherical", "--hfov", "360", "--width",
+                "64", "--degree", "3", "--twine", "0", "--output", str(out)]
+        assert cli.main(list(argv)) == 0
+        written.append(imgio.read_image(str(out)))
+    assert written[0].shape == (32, 64, 3)
+    np.testing.assert_array_equal(written[0], written[1])
+
+    args = parse_args(argv)
+    args.twine_setup()
+    plan = build_plan(args, args.facets)
+    lib = render_frame(plan, [load_source(args.facets[0], args, "cpu")],
+                       device="cpu")
+    np.testing.assert_array_equal(written[1], lib)
 
 
 def test_cli_uncovered_modes_raise(tmp_path, monkeypatch):

@@ -11,6 +11,7 @@ move pixel values by ~1e-6, so 1e-5 holds with margin. Against the
 oracle the bar is BASELINE.md's 50 dB.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -118,7 +119,8 @@ def test_render_matches_jax_and_oracle(env, oracle_sources, name, proj, w,
 
 def test_uncovered_jobs_raise(env):
     """No plain path stands in for a kernel: jobs this slice has no
-    kernel for raise NotImplementedError naming the later slice."""
+    kernel for (twining, multi-facet synopses, bf16 tables, --mask_for
+    paint) raise NotImplementedError naming the later slice."""
     tf = port_facet(TP.SPHERICAL, 256, 128, 2 * math.pi)
     src = TE.make_mount_source(tf, env, 3, 3, device="cpu")
     twined = build_plan(port_args(TP.RECTILINEAR, 32, 32, 60.0, [tf], 3,
@@ -127,14 +129,38 @@ def test_uncovered_jobs_raise(env):
         FP.fused_frame(twined, src)
     with pytest.raises(NotImplementedError, match="twining"):
         render_frame(twined, [src], device="cpu")
+    plan = build_plan(port_args(TP.FISHEYE, 32, 32, 120.0, [tf], 3), [tf])
+    with pytest.raises(NotImplementedError, match="multi-facet"):
+        FP.render_fast(plan, [src, src])
+    bf16 = TE.FacetSource(static=src.static, spl=dataclasses.replace(
+        src.spl, coeff=src.spl.coeff.to(torch.bfloat16)))
+    with pytest.raises(NotImplementedError, match="bf16"):
+        FP.planar_frame(plan, bf16)
+    painted = TE.FacetSource(
+        static=dataclasses.replace(src.static, masked=1), spl=src.spl)
+    with pytest.raises(NotImplementedError, match="mask_for"):
+        FP.render_fast(plan, [painted])
+
+
+def test_fisheye_and_partial_mount_render(env):
+    """A fisheye target and a partial mount, which the inline kernel does
+    not cover, render through ``planar_frame`` (the planar kernel's
+    plain version on the CPU) as ``render_frame`` does; ``fused_frame``
+    refuses them."""
+    tf = port_facet(TP.SPHERICAL, 256, 128, 2 * math.pi)
+    src = TE.make_mount_source(tf, env, 3, 3, device="cpu")
     fish = build_plan(port_args(TP.FISHEYE, 32, 32, 120.0, [tf], 3), [tf])
-    with pytest.raises(NotImplementedError, match="K2"):
-        FP.fused_frame(fish, src)
-    # a partial mount renders on the CPU's exact path, but has no kernel
     pf = port_facet(TP.SPHERICAL, 128, 64, math.radians(200))
     partial = TE.make_mount_source(pf, env[:64, :128], 3, 3, device="cpu")
-    plan = build_plan(port_args(TP.RECTILINEAR, 32, 32, 60.0, [pf], 3),
-                      [pf])
-    assert np.isfinite(render_frame(plan, [partial], device="cpu")).all()
-    with pytest.raises(NotImplementedError, match="K2"):
-        FP.fused_frame(plan, partial)
+    rect = build_plan(port_args(TP.RECTILINEAR, 32, 32, 60.0, [pf], 3,
+                                yaw=80.0), [pf])
+    for plan, source in ((fish, src), (rect, partial)):
+        want = render_frame(plan, [source], device="cpu")
+        assert np.isfinite(want).all()
+        got = FP.planar_frame(plan, source, device="cpu")
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=JAX_TOL)
+        with pytest.raises(ValueError, match="planar_frame"):
+            FP.fused_frame(plan, source)
+    # the view at yaw 80 reaches past the partial facet's 200 degrees
+    assert 0 < int((want == 0).all(axis=-1).sum()) < want.shape[0] * \
+        want.shape[1]
