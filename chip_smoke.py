@@ -19,7 +19,16 @@ events. The paths:
   fisheye (hfov 170, yaw -25, pitch 15) (resample_planar);
 - a partial lens-corrected facet (1536x1152 rectilinear, hfov 72,
   a, b, c = 0.01, -0.02, 0.005) -> 4096x2048 equirect, and a small
-  translated facet (resample_planar with the validity mask).
+  translated facet (resample_planar with the validity mask);
+- twined, config 4: the 8K ramp equirect at degree 1 -> 2048x1280
+  rectilinear, hfov 100, automatic twine (4 taps), the same view at
+  pitch 80, yaw 180 (it holds a pole and the periodic seam), and the
+  16384x8192 equirect -> the same view (16 taps)
+  (resample_inline_twined);
+- twined, config 3: a smooth biatan6 source -> 1920x1152 stereographic,
+  --twine 2 (resample_twined over the whole frame), and the lens facet
+  -> 4096x2048 equirect, --twine 2 (resample_twined with per-pixel tap
+  weights).
 
 Every phase runs; any failure raises and the script exits non-zero. It
 exits non-zero without a result when no CUDA card is available. The
@@ -79,6 +88,26 @@ ROUNDTRIP_BOUND = 1e-3
 # noise table's gradient that stays below 1e-2
 LIBRARY_BOUND = 1e-2
 
+# the twined inline route against the exact path: both linearise in ray
+# space from the same three ray grids, so only float32 order differs, as
+# for PATH_BOUND; the 16K table's coordinates reach 16392, where a
+# float32 ulp is 2e-3 px and the ramp's seam step has gradient ~1 per px
+TWINED_INLINE_BOUND = 5e-3
+# the twined planar route against the exact path: the kernel deflects
+# in coordinate space (its operands are coordinate derivative planes)
+# where the exact path deflects the ray, so the taps sit a second-order
+# term apart: half the tap offset squared times the mapping's curvature,
+# ~1e-4 source px at these sizes, times the source's gradient (uniform
+# noise: up to ~4 per px). Taps of a cubemap source that cross a face
+# edge read the centre face's support frame, which the IR build filled
+# by bilinear reprojection, where the exact path reads the other face;
+# config 3 twined therefore runs on a smooth source.
+TWINED_PLANAR_BOUND = 5e-3
+# pixels within this many degrees of a cube-face edge or of a pole, or
+# this many pixels of the periodic seam, form the named regions whose
+# error is reported on its own
+REGION_DEG = 1.0
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 
@@ -132,7 +161,7 @@ def make_facet(projection, w, h, hfov, **kw):
 
 
 def make_args(fct, projection, w, h, hfov_deg, degree, ypr=(0, 0, 0),
-              nch=3):
+              nch=3, twine=0):
     from envutil_tpu_torch.core.metrics import get_extent
     from envutil_tpu_torch.runtime.args import Args
     a = Args()
@@ -148,13 +177,20 @@ def make_args(fct, projection, w, h, hfov_deg, degree, ypr=(0, 0, 0),
     a.nchannels = nch
     a.facets = [fct]
     a.solo = 0
+    if isinstance(twine, int) and twine:
+        # -1: automatic, from the magnification; n > 0: an n x n box
+        a.twine = twine
+        a.twine_setup()
+    elif twine:
+        a.twine, a.twine_spread = 1, list(twine)   # the taps themselves
     return a
 
 
-def plan_for(fct, projection, w, h, hfov_deg, degree, ypr=(0, 0, 0), nch=3):
+def plan_for(fct, projection, w, h, hfov_deg, degree, ypr=(0, 0, 0), nch=3,
+             twine=0):
     from envutil_tpu_torch.runtime.render import build_plan
     return build_plan(make_args(fct, projection, w, h, hfov_deg, degree, ypr,
-                                nch), [fct])
+                                nch, twine), [fct])
 
 
 def near_face_edge(rx, ry, rz):
@@ -334,23 +370,26 @@ def ramp_fixture(w=8192, h=4096):
     return np.stack([xx, yy, (xx * yy)], axis=-1)
 
 
-def touched_bytes(coeff, sx, sy, n):
+def touched_bytes(coeff, sx, sy, n, more=()):
     """Bytes of the coefficient table that the frame's taps read, for
-    padded coordinates (sx, sy) of the pixels evaluated: every entry
-    that some pixel's (n+1)^2 window covers, counted once."""
+    padded coordinates (sx, sy) of the pixels evaluated (and the further
+    (sx, sy) pairs of ``more``, one per twining tap): every entry that
+    some (n+1)^2 window covers, counted once."""
+    import itertools
     import torch
     from envutil_tpu_torch.ops import resample as R
     hp, wp, nch = coeff.shape
     shift = 0.0 if n % 2 else 0.5
-    bx = torch.floor(R.clamp_coords(sx, wp, n) + shift).to(torch.int64) \
-        - n // 2
-    by = torch.floor(R.clamp_coords(sy, hp, n) + shift).to(torch.int64) \
-        - n // 2
     touched = torch.zeros(hp * wp, dtype=torch.bool, device=coeff.device)
-    for j in range(n + 1):
-        for k in range(n + 1):
-            idx = ((by + j) * wp + bx + k).clamp_(0, hp * wp - 1)
-            touched[idx.reshape(-1)] = True
+    for px, py in itertools.chain([(sx, sy)], more):
+        bx = torch.floor(R.clamp_coords(px, wp, n) + shift).to(torch.int64) \
+            - n // 2
+        by = torch.floor(R.clamp_coords(py, hp, n) + shift).to(torch.int64) \
+            - n // 2
+        for j in range(n + 1):
+            for k in range(n + 1):
+                idx = ((by + j) * wp + bx + k).clamp_(0, hp * wp - 1)
+                touched[idx.reshape(-1)] = True
     return int(touched.sum()) * nch * 4
 
 
@@ -430,29 +469,34 @@ def band_errors(plan, src, frame, bands, ir_edges):
     return worst, n_edge
 
 
-def render(plan, src, name, want_inline, want_planar):
-    """render_frame with the launch counts set to 0 just before and read
-    just after; checks the route and returns (frame, ms, launches)."""
+WRAPPERS = ("resample_inline", "resample_planar", "resample_inline_twined",
+            "resample_twined")
+
+
+def render(plan, src, name, want_inline=0, want_planar=0, want=None):
+    """render_frame with every wrapper's launch count set to 0 just
+    before and read just after; checks that exactly the expected kernel
+    was launched (``want`` names it for the twined wrappers) and returns
+    (frame, ms, launches)."""
     import torch
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.runtime import render as RD
+    expect = dict.fromkeys(WRAPPERS, 0)
+    expect.update(want or {"resample_inline": want_inline,
+                           "resample_planar": want_planar})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    R.resample_inline.launches = 0
-    R.resample_planar.launches = 0
+    for wrapper in WRAPPERS:
+        getattr(R, wrapper).launches = 0
     t0 = time.perf_counter()
     frame = RD.render_frame(plan, [src], device="cuda")
     ms = (time.perf_counter() - t0) * 1000.0
-    n = {"resample_inline": R.resample_inline.launches,
-         "resample_planar": R.resample_planar.launches}
+    n = {wrapper: getattr(R, wrapper).launches for wrapper in WRAPPERS}
     peak = torch.cuda.max_memory_allocated()
     print(f"{name}: render_frame {frame.shape} in {ms:.1f} ms (first call,"
           f" host copy included); launches {n}; peak device memory "
           f"{peak / 2**20:.1f} MiB", flush=True)
-    check(n["resample_inline"] == want_inline
-          and n["resample_planar"] == want_planar,
-          f"{name}: launches {n}, expected inline {want_inline}, planar "
-          f"{want_planar}")
+    check(n == expect, f"{name}: launches {n}, expected {expect}")
     check(frame.shape == (plan.height, plan.width, plan.nchannels),
           f"{name}: frame shape {frame.shape}")
     check(bool(np.isfinite(frame).all()), f"{name}: frame not finite")
@@ -572,6 +616,405 @@ def library_bilinear(src, sx, sy):
                 bound_ms=bound[0], bound_by=bound[1])
 
 
+# ---------------------------------------------------------------- twining
+
+def small_spreads():
+    """1, 4 and 9 taps: the centre alone, the 2x2 box, and a 3x3
+    gaussian whose weights differ."""
+    from envutil_tpu_torch.models import twining
+    return {1: [(0.0, 0.0, 1.0)], 4: twining.make_spread(2),
+            9: twining.make_spread(3, 3, 1.2, 0.8)}
+
+
+def twined_inline_operands(plan, src):
+    """(tensors (xfeat, yfeat, bmats, spread), keywords) of one inline
+    twined launch over the plan's frame."""
+    from envutil_tpu_torch.runtime import fastpath as FP
+    ops = FP.frame_operands(plan, src)
+    tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats", "spread")]
+    return tensors, ops
+
+
+def twined_kernel_vs_plain(plan, src):
+    """Launch the inline twined kernel and its plain version on the same
+    operands; returns (max abs difference over the compared pixels,
+    pixels excluded because a tap's ray lies at a cube-face edge)."""
+    import torch
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    tensors, kw = twined_inline_operands(plan, src)
+    coeff = src.spl.coeff
+    y0, y1, x0, x1 = FP.frame_window(plan)
+    shape = (y1 - y0, x1 - x0, coeff.shape[-1])
+    out_k = R.resample_inline_twined(
+        torch.empty(shape, device="cuda"), coeff, *tensors, **kw)
+    out_p = R.resample_inline_twined_plain(
+        torch.empty(shape, device="cuda"), coeff, *tensors, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out_k).all()),
+          "inline twined kernel output not finite")
+    skip = torch.zeros(shape[:2], dtype=torch.bool, device="cuda")
+    edge = torch.zeros_like(skip)
+    if kw["degree"] == 0 or kw["smode"] != "sph":
+        for ray, _w in R.inline_tap_rays(
+                *tensors, tmode=kw["tmode"], row0=kw["row0"],
+                face_rows=kw["face_rows"], precise=kw["precise"]):
+            if kw["smode"] != "sph":
+                edge |= near_face_edge(*ray)
+            if kw["degree"] == 0:
+                sx, sy = R.ray_coords(*ray, consts=kw["consts"],
+                                      smode=kw["smode"])
+                skip |= near_cell_edge(sx) | near_cell_edge(sy)
+    diff = torch.where((skip | edge)[..., None], 0.0, (out_k - out_p).abs())
+    return float(diff.max()), int(edge.sum())
+
+
+def phase_small_inline_twined():
+    """Inline twined kernel against its plain version at small shapes:
+    {sph, cubemap, biatan6 sources} x {affine, sph, cyl targets} x
+    degrees {0, 1, 3} x channels {1, 3, 4} x taps {1, 4, 9} x precise
+    {off, on}. The spherical target is pitched so that it holds a pole
+    and the seam of the sph source."""
+    import dataclasses
+    from envutil_tpu_torch.core.conventions import Projection as P
+    from envutil_tpu_torch.models import cubemap as CBM
+    from envutil_tpu_torch.models import environment as E
+    rng = np.random.default_rng(17)
+    targets = [(P.RECTILINEAR, 96, 64, 100, (175, 70, 5)),
+               (P.SPHERICAL, 128, 64, 360, (20, -80, 10)),
+               (P.CYLINDRICAL, 128, 64, 200, (170, 5, 0))]
+    mfct = make_facet(P.SPHERICAL, 256, 128, 2 * math.pi)
+    sources = [("sph", mfct, None)]
+    for kind, fov in ((P.CUBEMAP, 90), (P.BIATAN6, 100)):
+        sources.append((kind.name.lower(), make_facet(
+            kind, 32, 192, math.radians(fov)), kind))
+    worst, n_cases, n_edge = 0.0, 0, 0
+    for sname, fct, kind in sources:
+        for degree in (0, 1, 3):
+            for nch in (1, 3, 4):
+                if kind is None:
+                    img = rng.uniform(0, 1, (128, 256, nch)).astype(
+                        np.float32)
+                    src = E.make_mount_source(fct, img, degree, degree,
+                                              device="cuda")
+                else:
+                    faces = rng.uniform(0, 1, (6, 32, 32, nch)).astype(
+                        np.float32)
+                    src = CBM.make_cubemap_source(fct, faces, degree, degree,
+                                                  8, 16, device="cuda")
+                for proj, w, h, hfov, ypr in targets:
+                    for taps, spread in small_spreads().items():
+                        base = plan_for(fct, proj, w, h, hfov, degree, ypr,
+                                        nch, twine=spread)
+                        for precise in (False, True):
+                            plan = dataclasses.replace(
+                                base, twine_precise=precise)
+                            err, edge = twined_kernel_vs_plain(plan, src)
+                            check(err <= KERNEL_BOUND,
+                                  f"inline twined kernel ({sname} source, "
+                                  f"degree {degree}, C {nch}, "
+                                  f"{proj.name.lower()}, {taps} taps, precise"
+                                  f" {precise}) disagrees: {err}")
+                            worst = max(worst, err)
+                            n_cases += 1
+                            n_edge += edge
+        print(f"inline twined vs plain: {sname} source, degrees 0/1/3 x C "
+              f"1/3/4 x 3 target modes x taps 1/4/9 x precise off/on: worst "
+              f"so far {worst:.3e} (bound {KERNEL_BOUND:g})", flush=True)
+    print(f"inline twined vs plain: {n_cases} cases, {n_edge} pixels with a"
+          f" tap within {FACE_EDGE_REL:g} of a face edge excluded; worst "
+          f"{worst:.3e}", flush=True)
+    return worst
+
+
+def phase_small_twined():
+    """Planar twined kernel against its plain version: degrees {0, 1, 3}
+    x 1/3/4 channels x taps {1, 4, 9} x {no mask, merge mask, 8-bit tap
+    weights, float tap weights, periodic wrap}, over a NaN sentinel, with
+    NaN/inf in all six planes where the mask (or every tap weight) is
+    0."""
+    import torch
+    from envutil_tpu_torch.models import synopsis as SYN
+    from envutil_tpu_torch.ops import resample as R
+    rng = np.random.default_rng(18)
+    h, w = 40, 56
+    mask = (rng.uniform(size=(h, w)) < 0.5).astype(np.float32)
+    off = mask <= 0.5
+    # no huge finite value here: the kernel's fused multiply-add would
+    # keep cx * 3e38 + s finite where the plain version's product is inf
+    bad = np.array([np.nan, np.inf, -np.inf], np.float32)
+    planes = [rng.uniform(-3, 83, (h, w)), rng.uniform(-3, 73, (h, w))] + \
+        [rng.uniform(-0.6, 0.6, (h, w)) for _ in range(4)]
+    clean = [torch.from_numpy(a.astype(np.float32)).cuda() for a in planes]
+    dirty = []
+    for a in planes:
+        a = a.astype(np.float32)
+        a[off] = bad[rng.integers(0, 3, int(off.sum()))]
+        dirty.append(torch.from_numpy(a).cuda())
+    dmask = torch.from_numpy(mask).cuda()
+    keep = dmask <= 0.5
+    worst = 0.0
+    for degree in (0, 1, 3):
+        for nch in (1, 3, 4):
+            table = torch.from_numpy(rng.uniform(
+                -1, 1, (70, 80, nch)).astype(np.float32)).cuda()
+            for taps, spread in small_spreads().items():
+                sp = torch.tensor(SYN.scaled_spread(spread),
+                                  dtype=torch.float32, device="cuda")
+                live = torch.from_numpy(
+                    rng.uniform(size=(taps, h, w)) < 0.7).cuda() & ~keep
+                frac = torch.from_numpy(rng.uniform(
+                    0.1, 1.0, (taps, h, w)).astype(np.float32)).cuda() * live
+                forms = [("no mask", dirty, {}),
+                         ("mask", dirty, dict(merge_mask=dmask)),
+                         ("u8 weights", dirty,
+                          dict(tap_weights=live.to(torch.uint8))),
+                         ("f32 weights", dirty, dict(tap_weights=frac)),
+                         ("wrap", clean, dict(wrap_x=(9.5, 60.0)))]
+                for form, pl, extra in forms:
+                    kw = dict(degree=degree, n_taps=taps, **extra)
+                    nan = torch.full((h, w, nch), float("nan"),
+                                     device="cuda")
+                    k = R.resample_twined(nan.clone(), table, *pl, sp, **kw)
+                    p = R.resample_twined_plain(nan.clone(), table, *pl, sp,
+                                                **kw)
+                    torch.cuda.synchronize()
+                    if form == "mask":
+                        check(bool(k[keep].isnan().all())
+                              and bool(torch.isfinite(k[~keep]).all()),
+                              "twined kernel touched a pixel its mask keeps")
+                    else:
+                        check(bool(torch.isfinite(k).all()),
+                              f"twined kernel not finite ({form})")
+                    if "tap_weights" in extra:
+                        check(bool((k[keep] == 0).all()), "a pixel whose "
+                              "tap weights are all 0 is not 0")
+                    skip = torch.zeros((h, w), dtype=torch.bool,
+                                       device="cuda")
+                    if degree == 0:
+                        for x, y, _w in R.twined_tap_coords(
+                                *pl, sp, 70, 80, 0, extra.get("wrap_x")):
+                            skip |= near_cell_edge(x) | near_cell_edge(y)
+                    diff = torch.where(skip[..., None], 0.0,
+                                       (k - p).nan_to_num().abs())
+                    err = float(diff.max())
+                    check(err <= KERNEL_BOUND
+                          and torch.equal(k.isnan(), p.isnan()),
+                          f"twined kernel disagrees (degree {degree}, C "
+                          f"{nch}, {taps} taps, {form}): {err}")
+                    worst = max(worst, err)
+    print(f"twined vs plain: degrees 0/1/3 x C 1/3/4 x taps 1/4/9 x (no "
+          f"mask, mask, u8 and f32 tap weights, periodic wrap), NaN "
+          f"sentinel kept under the mask, 0 where all weights are 0: max "
+          f"abs diff {worst:.3e} (bound {KERNEL_BOUND:g})", flush=True)
+    return worst
+
+
+def frame_errors(plan, src, frame, extra=None, chunk=128):
+    """Max abs difference of ``frame`` against the port's exact path on
+    the card over the whole frame (rendered in row chunks), overall and
+    over named regions of it: within REGION_DEG of a pole or of the
+    periodic seam (spherical sources), within REGION_DEG of a cube-face
+    edge (cubemap sources), and the boolean (H, W) planes of ``extra``.
+    Returns {region: (max abs diff, pixels)}."""
+    import torch
+    from envutil_tpu_torch.core import geometry as geo
+    from envutil_tpu_torch.models import stepper as ST
+    from envutil_tpu_torch.runtime import render as RD
+    h, w = frame.shape[:2]
+    diff = torch.empty((h, w), device="cuda")
+    for r0 in range(0, h, chunk):
+        r1 = min(r0 + chunk, h)
+        exact = RD._render_window(plan, [src], (r0, r1, 0, w))
+        diff[r0:r1] = (torch.from_numpy(frame[r0:r1]).cuda()
+                       - exact).abs().amax(dim=-1)
+    ray = ST.target_rays(plan.projection, plan.width, plan.height,
+                         plan.extent, basis=plan.bases[0], normalize=True,
+                         planar_to_ray=plan.planar_to_ray[0], device="cuda")
+    near = math.radians(REGION_DEG)
+    regions = {"all": torch.ones_like(diff, dtype=torch.bool)}
+    if src.static.kind == "cubemap":
+        a = torch.stack([r.abs() for r in ray])
+        top2 = torch.topk(a, 2, dim=0).values
+        regions["face edges"] = (top2[0] - top2[1]) <= math.tan(near) * top2[0]
+    elif src.spl.spherical:
+        lon, lat = geo.ray_to_ll(*ray)
+        regions["poles"] = lat.abs() >= math.pi / 2 - near
+        regions["seam"] = lon.abs() >= math.pi - near
+    regions.update(extra or {})
+    return {k: (float(diff[m].max()) if bool(m.any()) else 0.0, int(m.sum()))
+            for k, m in regions.items()}
+
+
+def errors_text(errs):
+    return "; ".join(f"{k}: {v[0]:.3e} over {v[1]} px" for k, v in errs.items())
+
+
+def twined_inline_path(name, plan, src):
+    """One twined frame through render_frame and the inline twined
+    kernel: launches, the whole frame against the exact path, the kernel
+    against its plain version at this shape, the timings and the
+    bound."""
+    import torch
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    taps = len(plan.spread)
+    frame, _ms, n = render(plan, src, name,
+                           want={"resample_inline_twined": 1})
+    peak = torch.cuda.max_memory_allocated()
+    errs = frame_errors(plan, src, frame)
+    print(f"{name} ({taps} taps) vs exact path, whole frame: "
+          f"{errors_text(errs)} (bound {TWINED_INLINE_BOUND:g})", flush=True)
+    check(max(v[0] for v in errs.values()) <= TWINED_INLINE_BOUND,
+          f"{name} disagrees with the exact path")
+    err_k, _edge = twined_kernel_vs_plain(plan, src)
+    print(f"{name}: inline twined vs plain at full shape: max abs diff "
+          f"{err_k:.3e} (bound {KERNEL_BOUND:g})", flush=True)
+    check(err_k <= KERNEL_BOUND, f"inline twined kernel disagrees at {name}")
+
+    tensors, kw = twined_inline_operands(plan, src)
+    coeff, n_deg, nch = src.spl.coeff, src.spl.degree, src.spl.coeff.shape[-1]
+    buf = torch.empty((plan.height, plan.width, nch), device="cuda")
+    for _ in range(3):
+        R.resample_inline_twined(buf, coeff, *tensors, **kw)
+    kernel_ms = events_ms(lambda: R.resample_inline_twined(
+        buf, coeff, *tensors, **kw), 20)
+    plain_ms = events_ms(lambda: R.resample_inline_twined_plain(
+        buf, coeff, *tensors, **kw), 3)
+    frame_ms = events_ms(lambda: FP.fused_frame(plan, src, out=buf), 20)
+    n_px = plan.height * plan.width
+    coords = [(sx, sy) for sx, sy, _w in R.inline_tap_coords(
+        *tensors, tmode=kw["tmode"], consts=kw["consts"], row0=kw["row0"],
+        face_rows=kw["face_rows"], smode=kw["smode"], precise=kw["precise"])]
+    table = touched_bytes(coeff, *coords[0], n_deg, coords[1:])
+    del coords
+    feat = sum(t.numel() * 4 for t in tensors)
+    bytes_ms = (table + n_px * nch * 4 + feat) / HBM_BYTES_PER_S * 1e3
+    # per pixel: three rays (15 flops each), their normalisation (12
+    # each) and differencing (6); per tap: the deflection (12), the
+    # pickup as for the inline kernel, the spline and the weighted sum
+    src_flops = {"sph": 53, "cubemap": 20, "biatan6": 60}[kw["smode"]]
+    ops_ms = n_px * (3 * 27 + 6 + taps * (12 + src_flops + spline_flops(
+        n_deg, nch) + 2 * nch)) / F32_FLOPS * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"{name}: steady-state frame (fused_frame into one reused buffer,"
+          f" median of 20) {frame_ms:.4f} ms = {n_px / 1e3 / frame_ms:.1f} "
+          f"Mpix/s; kernel alone {kernel_ms:.4f} ms; plain version "
+          f"{plain_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.4f} ms by {by} "
+          f"(table bytes under all taps {table / 1e6:.1f} MB of "
+          f"{coeff.numel() * 4 / 1e6:.1f} MB; bytes {bytes_ms:.4f} ms, "
+          f"operations {ops_ms:.4f} ms); peak device memory of the first "
+          f"frame {peak / 2**20:.1f} MiB; clocks/power/temp after: "
+          f"{smi_now()}", flush=True)
+    return dict(taps=taps, launches=n["resample_inline_twined"],
+                max_abs_err=err_k, ms=kernel_ms, plain_ms=plain_ms,
+                frame_ms=frame_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by=by, peak_mib=peak / 2**20,
+                vs_exact={k: v[0] for k, v in errs.items()},
+                region_px={k: v[1] for k, v in errs.items()})
+
+
+def twined_planar_path(name, plan, src):
+    """One twined frame through render_frame, the twined coordinate pass
+    and the planar twined kernel: launches, the whole frame against the
+    exact path, the kernel against its plain version at this shape, the
+    timings and the bound."""
+    import torch
+    from envutil_tpu_torch.models import synopsis as SYN
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    taps = len(plan.spread)
+    frame, _ms, n = render(plan, src, name, want={"resample_twined": 1})
+    window = FP.frame_window(plan)
+    ops = FP.twined_coords(plan, window, src)
+    planes = [ops[k] for k in ("sx", "sy", "dux", "duy", "dvx", "dvy")]
+    tapw = ops["tap_weights"]
+    extra, covered = {}, None
+    if tapw is not None:
+        count = tapw.sum(dim=0)
+        extra["facet edge (taps differ)"] = (count > 0) & (count < taps)
+        covered = float((count > 0).float().mean())
+    errs = frame_errors(plan, src, frame, extra)
+    print(f"{name} ({taps} taps"
+          + ("" if covered is None else f", {100 * covered:.1f}% covered")
+          + f") vs exact path, whole frame: {errors_text(errs)} (bound "
+          f"{TWINED_PLANAR_BOUND:g})", flush=True)
+    check(max(v[0] for v in errs.values()) <= TWINED_PLANAR_BOUND,
+          f"{name} disagrees with the exact path")
+
+    coeff, n_deg, nch = src.spl.coeff, src.spl.degree, src.spl.coeff.shape[-1]
+    sp = torch.tensor(SYN.scaled_spread(plan.spread), dtype=torch.float32,
+                      device="cuda")
+    kw = dict(degree=n_deg, n_taps=taps, tap_weights=tapw,
+              wrap_x=ops["wrap_x"])
+    nan = torch.full((plan.height, plan.width, nch), float("nan"),
+                     device="cuda")
+    k = R.resample_twined(nan.clone(), coeff, *planes, sp, **kw)
+    p = R.resample_twined_plain(nan.clone(), coeff, *planes, sp, **kw)
+    err_k = float((k - p).abs().max())
+    print(f"{name}: twined vs plain at full shape: max abs diff "
+          f"{err_k:.3e} (bound {KERNEL_BOUND:g})", flush=True)
+    check(err_k <= KERNEL_BOUND and bool(torch.isfinite(k).all()),
+          f"twined kernel disagrees at {name}")
+    del nan, k, p
+
+    buf = torch.empty((plan.height, plan.width, nch), device="cuda")
+    for _ in range(2):
+        FP.planar_frame(plan, src, out=buf)
+    frame_ms = events_ms(lambda: FP.planar_frame(plan, src, out=buf), 10)
+    coords_ms = events_ms(lambda: FP.twined_coords(plan, window, src), 10)
+    kernel_ms = events_ms(lambda: R.resample_twined(
+        buf, coeff, *planes, sp, **kw), 20)
+    plain_ms = events_ms(lambda: R.resample_twined_plain(
+        buf, coeff, *planes, sp, **kw), 3)
+
+    # the work depends on the tap weights: a tap of weight 0 reads
+    # nothing, and a pixel with no live tap reads only its weights
+    n_px = plan.height * plan.width
+    live = [None] * taps if tapw is None else [tapw[i] > 0 for i in range(taps)]
+    coords, pairs = [], 0
+    for (x, y, _w), m in zip(R.twined_tap_coords(
+            *planes, sp, coeff.shape[0], coeff.shape[1], n_deg,
+            ops["wrap_x"]), live):
+        coords.append((x, y) if m is None else (x[m], y[m]))
+        pairs += x.numel() if m is None else int(m.sum())
+    table = touched_bytes(coeff, *coords[0], n_deg, coords[1:])
+    del coords
+    n_live = n_px if tapw is None else int((tapw.sum(dim=0) > 0).sum())
+    moved = table + n_px * nch * 4 + n_live * 6 * 4 + \
+        (0 if tapw is None else tapw.numel() * tapw.element_size())
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = pairs * (8 + spline_flops(n_deg, nch) + 2 * nch) \
+        / F32_FLOPS * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"{name}: steady-state frame (planar_frame into one reused "
+          f"buffer, median of 10) {frame_ms:.4f} ms = "
+          f"{n_px / 1e3 / frame_ms:.1f} Mpix/s; twined coordinate pass "
+          f"alone {coords_ms:.4f} ms ({100 * coords_ms / frame_ms:.1f}% of "
+          f"the frame); kernel alone {kernel_ms:.4f} ms; plain version "
+          f"{plain_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.4f} ms by {by} "
+          f"(table bytes under all live taps {table / 1e6:.1f} MB of "
+          f"{coeff.numel() * 4 / 1e6:.1f} MB, {pairs} live pixel-taps; bytes"
+          f" {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms); "
+          f"clocks/power/temp after: {smi_now()}", flush=True)
+    return dict(taps=taps, launches=n["resample_twined"], max_abs_err=err_k,
+                ms=kernel_ms, plain_ms=plain_ms, frame_ms=frame_ms,
+                coords_ms=coords_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by=by, covered=covered,
+                vs_exact={k: v[0] for k, v in errs.items()},
+                region_px={k: v[1] for k, v in errs.items()})
+
+
+def smooth_environment(ray):
+    """A smooth, seamless RGB function of the unit ray: low and medium
+    frequencies with gradients of a few per radian."""
+    import torch
+    x, y, z = ray
+    return torch.stack([0.5 + 0.3 * x + 0.2 * torch.sin(5.0 * y + 2.0 * z),
+                        0.5 + 0.3 * y + 0.2 * torch.cos(4.0 * z - 3.0 * x),
+                        0.5 + 0.3 * z + 0.2 * torch.sin(6.0 * x * y)], dim=-1)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -604,13 +1047,19 @@ def main():
               f"{len(regs)} instantiations, registers "
               f"{min(regs) if regs else '?'}..{max(regs) if regs else '?'}"
               f", spill lines: {len(spills)}", flush=True)
-    print(f"kernel build, both sources in parallel: {build_s:.1f} s wall",
-          flush=True)
-    print('kernels: ["resample_inline", "resample_planar"]', flush=True)
+        for line in spills:
+            entry = log[log.index(line) - 2] if log.index(line) >= 2 else ""
+            print(f"  spill: {line.strip()} <- {entry.strip()[:160]}",
+                  flush=True)
+    print(f"kernel build, {len(R.LIBRARIES)} sources in parallel: "
+          f"{build_s:.1f} s wall", flush=True)
+    print(f"kernels: {json.dumps(list(WRAPPERS))}", flush=True)
 
     # ---- 2. kernels against plain versions at small shapes ------------
     worst_inline = phase_small_inline()
     worst_planar = phase_small_planar()
+    worst_inline_twined = phase_small_inline_twined()
+    worst_twined = phase_small_twined()
 
     # ---- 3. main path at full width -----------------------------------
     w, h = 8192, 4096
@@ -663,6 +1112,22 @@ def main():
     check(err_main <= KERNEL_BOUND, "kernel disagrees at main-path shape")
     t_main = time_inline(plan, src, "main path")
     del src
+    torch.cuda.empty_cache()
+
+    # ---- 3b. config 4 twined: 8K -> 2048x1280, automatic twine --------
+    src1 = E.make_mount_source(fct, img, 1, 1, device="cuda")
+    del img
+    plan4 = plan_for(fct, P.RECTILINEAR, 2048, 1280, 100, 1, twine=-1)
+    check(len(plan4.spread) == 4, f"config 4 spread {plan4.spread}")
+    t_twined = {"config 4": twined_inline_path("config 4", plan4, src1)}
+    plan4p = plan_for(fct, P.RECTILINEAR, 2048, 1280, 100, 1, (180, 80, 0),
+                      twine=-1)
+    t_twined["pole and seam"] = twined_inline_path(
+        "pole-and-seam view (pitch 80, yaw 180)", plan4p, src1)
+    for region in ("poles", "seam"):
+        check(t_twined["pole and seam"]["region_px"][region] > 0,
+              f"the pole-and-seam view holds no pixel of the {region}")
+    del src1
     torch.cuda.empty_cache()
 
     # ---- 4. config 2r: the cubemap frame back to an 8K equirect -------
@@ -742,6 +1207,26 @@ def main():
     del bsrc
     torch.cuda.empty_cache()
 
+    # ---- 5b. config 3 twined: smooth biatan6 -> stereographic ---------
+    # a smooth source, so that the error along cube-face edges (taps
+    # that read the centre face's support frame) measures the route and
+    # not the bilinear support fill of uniform noise
+    from envutil_tpu_torch.core.metrics import get_extent
+    from envutil_tpu_torch.models import stepper as ST
+    ext = get_extent(P.BIATAN6, 1024, 6144, math.radians(100))
+    sfaces = smooth_environment(ST.target_rays(
+        P.BIATAN6, 1024, 6144, ext, device="cuda")).cpu().numpy()
+    ssrc = CBM.make_cubemap_source(bfct, sfaces.reshape(6, 1024, 1024, 3),
+                                   3, 3, 128, 64, device="cuda")
+    del sfaces
+    plan3t = plan_for(bfct, P.STEREOGRAPHIC, 1920, 1152, 150, 3, (35, 20, 0),
+                      twine=2)
+    t_twined["config 3"] = twined_planar_path("config 3 twined", plan3t, ssrc)
+    check(t_twined["config 3"]["region_px"]["face edges"] > 0,
+          "config 3 twined crosses no cube-face edge")
+    del ssrc
+    torch.cuda.empty_cache()
+
     # ---- 6. a partial lens-corrected facet and a translated facet -----
     lf = make_facet(P.RECTILINEAR, 1536, 1152, math.radians(72),
                     a=0.01, b=-0.02, c=0.005)
@@ -761,6 +1246,13 @@ def main():
     t_planar["lens facet"] = time_planar(p5, lsrc, "lens facet")
     t_planar["lens facet"].pop("sx")
     t_planar["lens facet"].pop("sy")
+    p5t = plan_for(lf, P.SPHERICAL, 4096, 2048, 360, 3, twine=2)
+    t_twined["lens facet"] = twined_planar_path("lens facet twined", p5t,
+                                                lsrc)
+    check(0.02 < t_twined["lens facet"]["covered"] < 0.5
+          and t_twined["lens facet"]["region_px"][
+              "facet edge (taps differ)"] > 0,
+          "lens facet twined: coverage or facet edge implausible")
 
     tf = make_facet(P.RECTILINEAR, 640, 480, math.radians(80),
                     tr_x=0.2, tr_y=-0.1, tr_z=0.15, yaw=math.radians(10))
@@ -778,9 +1270,26 @@ def main():
     check(0.05 < covered < 0.95, "translated facet coverage implausible")
     check(errt <= PATH_BOUND, "translated facet disagrees with exact path")
     del lsrc, tsrc
+    torch.cuda.empty_cache()
+
+    # ---- 6b. the 16K / 16-tap job (config 4b's geometry, float32) -----
+    w16, h16 = 16384, 8192
+    fct16 = make_facet(P.SPHERICAL, w16, h16, 2 * math.pi)
+    src16 = E.make_mount_source(fct16, ramp_fixture(w16, h16), 1, 1,
+                                device="cuda")
+    print(f"16K source: {w16}x{h16} RGB, table "
+          f"{tuple(src16.spl.coeff.shape)} "
+          f"({src16.spl.coeff.numel() * 4 / 1e9:.2f} GB, float32)",
+          flush=True)
+    plan16 = plan_for(fct16, P.RECTILINEAR, 2048, 1280, 100, 1, twine=-1)
+    check(len(plan16.spread) == 16, f"16K spread has {len(plan16.spread)}")
+    t_twined["16K"] = twined_inline_path("16K job", plan16, src16)
+    del src16
+    torch.cuda.empty_cache()
 
     # ---- 7. the record ------------------------------------------------
     t3 = t_planar["config 3"]
+    t4, t3t = t_twined["config 4"], t_twined["config 3"]
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
         {"name": "resample_inline", "route": "cuda",
@@ -806,7 +1315,27 @@ def main():
          "degree1": dict(deg1, library="grid_sample bilinear"),
          "small_case_max_abs_err": worst_planar,
          "launches_by_path": planar_n,
-         "paths": t_planar}]}))
+         "paths": t_planar},
+        dict({k: t4[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by")},
+             name="resample_inline_twined", route="cuda",
+             source="envutil_tpu_torch/csrc/resample_inline_twined.cu",
+             replaces="envutil_tpu/ops/pallas_resample.py:1536",
+             library_ms=None,   # no PyTorch call sums a b-spline over
+             # deflected taps
+             small_case_max_abs_err=worst_inline_twined,
+             paths={k: t_twined[k] for k in ("config 4", "pole and seam",
+                                             "16K")}),
+        dict({k: t3t[k] for k in ("launches", "max_abs_err", "ms",
+                                  "plain_ms", "bound_ms", "bound_by")},
+             name="resample_twined", route="cuda",
+             source="envutil_tpu_torch/csrc/resample_twined.cu",
+             replaces="envutil_tpu/ops/pallas_resample.py:1736 (K3), "
+                      "envutil_tpu/ops/pallas_resample.py:2033 (K6)",
+             library_ms=None,   # as above
+             small_case_max_abs_err=worst_twined,
+             paths={k: t_twined[k] for k in ("config 3", "lens facet")}),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,251 @@
+// Device functions shared by the port's four resampling kernels
+// (resample_inline.cu, resample_inline_twined.cu, resample_planar.cu,
+// resample_twined.cu): the target half of the coordinate chain (axis
+// features -> ray), the source pickup (ray -> padded spline
+// coordinates), the gates, and the degree-n tensor-product b-spline at
+// one coordinate pair. Each kernel source includes this header, so
+// ops/kernels.py hashes it into every library's build name.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace envutil {
+
+constexpr int TMODE_AFFINE = 0;
+constexpr int TMODE_SPH = 1;
+constexpr int TMODE_CYL = 2;
+
+constexpr int SMODE_SPH = 0;
+constexpr int SMODE_CUBEMAP = 1;
+constexpr int SMODE_BIATAN6 = 2;
+
+constexpr int GATE_PERIODIC = 0;
+constexpr int GATE_MIRROR = 1;  // any other code clamps
+
+constexpr int MAX_DEGREE = 7;
+constexpr int BLOCK_X = 32;
+constexpr int BLOCK_Y = 8;
+
+// the padded coefficient table and the evaluation weight matrix
+struct Table {
+  int64_t hp, wp;
+  float wmat[(MAX_DEGREE + 1) * (MAX_DEGREE + 1)];
+};
+
+// the source side of the inline kernels
+struct Pickup {
+  int smode;                    // SMODE_*
+  int gate_x, gate_y;           // sph only
+  float glx, gux, gly, guy;     // gate bounds (sph only)
+  float kx, cx, ky, cy, pad;    // model (or in-face) -> spline affine
+  float section_px;             // IR rows per cube face (cubemap/biatan6)
+};
+
+// floor-mod, as torch.remainder and the JAX package's mod (not fmodf)
+__device__ __forceinline__ float floor_mod(float v, float p) {
+  return v - floorf(v / p) * p;
+}
+
+__device__ __forceinline__ float gate(float v, int mode, float lower,
+                                      float upper) {
+  if (mode == GATE_PERIODIC) return lower + floor_mod(v - lower, upper - lower);
+  if (mode == GATE_MIRROR) {
+    const float period = 2.0f * (upper - lower);
+    const float t = floor_mod(v - lower, period);
+    return lower + fminf(t, period - t);
+  }
+  return fminf(fmaxf(v, lower), upper);
+}
+
+// one row of the ray matrix applied to (a, b, c) as the plain version
+// rounds it: (m0 a + m1 b) + m2 c, with c == 1 adding m2 itself
+__device__ __forceinline__ float ray_row(const float* m, float a, float b,
+                                        float c, bool affine) {
+  const float ab = __fadd_rn(__fmul_rn(m[0], a), __fmul_rn(m[1], b));
+  return __fadd_rn(ab, affine ? m[2] : __fmul_rn(m[2], c));
+}
+
+// The target half: axis features of column x and row y -> ray by tmode,
+// rounded step by step in the plain version's order
+// (ops/resample.inline_rays), so nvcc contracts nothing and the ray is
+// bit-identical to the plain version's on the card. ``xf``/``yf`` point
+// at the feature set to use (the centre's, or a DERIV_BIAS-biased one).
+template <int TMODE>
+__device__ __forceinline__ void target_ray(const float* xf, const float* yf,
+                                           int64_t x, int64_t y,
+                                           int64_t width, int64_t height,
+                                           const float* bm, float& rx,
+                                           float& ry, float& rz) {
+  float a, b, c;
+  if (TMODE == TMODE_AFFINE) {
+    // rect / cubemap / biatan6 targets: (px, py', 1)
+    a = xf[x];
+    b = yf[y];
+    c = 1.0f;
+  } else if (TMODE == TMODE_SPH) {
+    // spherical target: (sin(lon) cos(lat), sin(lat), cos(lon) cos(lat))
+    const float ct = yf[height + y];
+    a = __fmul_rn(xf[x], ct);
+    b = yf[y];
+    c = __fmul_rn(xf[width + x], ct);
+  } else {
+    // cylindrical target: (sin(az), y, cos(az))
+    a = xf[x];
+    b = yf[y];
+    c = xf[width + x];
+  }
+  rx = ray_row(bm, a, b, c, TMODE == TMODE_AFFINE);
+  ry = ray_row(bm + 3, a, b, c, TMODE == TMODE_AFFINE);
+  rz = ray_row(bm + 6, a, b, c, TMODE == TMODE_AFFINE);
+}
+
+// guard the inactive divisions of the face cascade against 0/0
+__device__ __forceinline__ float safe(float d) { return d == 0.0f ? 1.0f : d; }
+
+// The source half: ray -> padded spline coordinates. The ray need not
+// be normalised: the atan2 forms and the face cascade are
+// scale-invariant.
+__device__ __forceinline__ void pickup(const Pickup& p, float rx, float ry,
+                                       float rz, float& sx, float& sy) {
+  if (p.smode == SMODE_SPH) {
+    // full-spherical mount (geometry.ray_to_ll)
+    const float lon = atan2f(rx, rz);
+    const float lat = atan2f(ry, sqrtf(rx * rx + rz * rz));
+    sx = gate(lon * p.kx + p.cx, p.gate_x, p.glx, p.gux) + p.pad;
+    sy = gate(lat * p.ky + p.cy, p.gate_y, p.gly, p.guy) + p.pad;
+    return;
+  }
+  // cubemap IR pickup (geometry.ray_to_cubeface with its tie rules,
+  // metrics.get_pickup_coordinate_px as an affine); the division and the
+  // affine are rounded step by step as the plain version's
+  const float ax = fabsf(rx), ay = fabsf(ry), az = fabsf(rz);
+  const bool m1 = ax >= ay, m2 = ax >= az, m3 = ay >= az;
+  const bool dom_x = m1 && m2;
+  const bool dom_z = !m2 && !m3;
+  float fx, fy, face;
+  if (dom_x) {
+    fx = __fdiv_rn(-rz, safe(rx));
+    fy = __fdiv_rn(ry, safe(ax));
+    face = rx < 0.0f ? 0.0f : 1.0f;
+  } else if (dom_z) {
+    fx = __fdiv_rn(rx, safe(rz));
+    fy = __fdiv_rn(ry, safe(az));
+    face = rz < 0.0f ? 5.0f : 4.0f;
+  } else {
+    fx = __fdiv_rn(-rx, safe(ay));
+    fy = __fdiv_rn(rz, safe(ry));
+    face = ry < 0.0f ? 2.0f : 3.0f;
+  }
+  if (p.smode == SMODE_BIATAN6) {
+    constexpr float k4pi = (float)(4.0 / 3.14159265358979323846);
+    fx = __fmul_rn(k4pi, atanf(fx));
+    fy = __fmul_rn(k4pi, atanf(fy));
+  }
+  sx = __fadd_rn(__fadd_rn(__fmul_rn(fx, p.kx), p.cx), p.pad);
+  sy = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(fy, p.ky), p.cy),
+                           __fmul_rn(face, p.section_px)), p.pad);
+}
+
+// float clamp of a coordinate to [-(n+1), extent + n]: fminf/fmaxf map
+// NaN to the bound, so no NaN or inf reaches a float->int conversion,
+// and an in-range coordinate is never changed
+template <int DEGREE>
+__device__ __forceinline__ float clamp_coord(float s, int64_t extent) {
+  return fminf(fmaxf(s, -(float)(DEGREE + 1)), (float)(extent + DEGREE));
+}
+
+template <int DEGREE>
+__device__ __forceinline__ void weights(const float* m, float t,
+                                        float (&w)[DEGREE + 1]) {
+  // w_j(t) = sum_k M[j, k] t^k in Horner form (ops/spline._weights)
+#pragma unroll
+  for (int j = 0; j <= DEGREE; ++j) {
+    float acc = m[j * (DEGREE + 1) + DEGREE];
+#pragma unroll
+    for (int k = DEGREE - 1; k >= 0; --k) acc = acc * t + m[j * (DEGREE + 1) + k];
+    w[j] = acc;
+  }
+}
+
+// The degree-n tensor-product b-spline of the (Hp, Wp, NCH)
+// channel-interleaved table at finite padded coordinates (sx, sy): each
+// of the (n+1)^2 taps is NCH contiguous floats read from global memory
+// through L1/L2. The flat table offset is 64-bit and clamped to the
+// table, as the JAX evaluator's take(mode="clip") does.
+template <int DEGREE, int NCH>
+__device__ __forceinline__ void spline_at(const float* __restrict__ coeff,
+                                          const Table& t, float sx, float sy,
+                                          float (&acc)[NCH]) {
+  // split (zimt/eval.h:595-610): floor for odd degrees, round for even
+  const float selx = (DEGREE & 1) ? floorf(sx) : floorf(sx + 0.5f);
+  const float sely = (DEGREE & 1) ? floorf(sy) : floorf(sy + 0.5f);
+  float wx[DEGREE + 1], wy[DEGREE + 1];
+  weights<DEGREE>(t.wmat, sx - selx, wx);
+  weights<DEGREE>(t.wmat, sy - sely, wy);
+  const int64_t bx = (int64_t)selx - DEGREE / 2;
+  const int64_t by = (int64_t)sely - DEGREE / 2;
+  const int64_t last = t.hp * t.wp - 1;
+
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
+#pragma unroll
+  for (int j = 0; j <= DEGREE; ++j) {
+    const int64_t row = (by + j) * t.wp + bx;
+    float racc[NCH];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) racc[c] = 0.0f;
+#pragma unroll
+    for (int k = 0; k <= DEGREE; ++k) {
+      int64_t idx = row + k;
+      idx = idx < 0 ? 0 : (idx > last ? last : idx);
+      const float* tap = coeff + idx * NCH;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) racc[c] += wx[k] * __ldg(tap + c);
+    }
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) acc[c] += wy[j] * racc[c];
+  }
+}
+
+inline dim3 frame_grid(int64_t height, int64_t width) {
+  return dim3((unsigned)((width + BLOCK_X - 1) / BLOCK_X),
+              (unsigned)((height + BLOCK_Y - 1) / BLOCK_Y));
+}
+
+inline void set_table(Table& t, long long hp, long long wp, int degree,
+                      const float* wmat) {
+  t.hp = hp;
+  t.wp = wp;
+  for (int i = 0; i < (degree + 1) * (degree + 1); ++i) t.wmat[i] = wmat[i];
+}
+
+// Dispatch a runtime (degree, nch) to ``F::template run<DEGREE, NCH>(args...)``
+template <typename F, int DEGREE, typename... A>
+cudaError_t by_nch(int nch, A&&... args) {
+  switch (nch) {
+    case 1: return F::template run<DEGREE, 1>(args...);
+    case 2: return F::template run<DEGREE, 2>(args...);
+    case 3: return F::template run<DEGREE, 3>(args...);
+    case 4: return F::template run<DEGREE, 4>(args...);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename F, typename... A>
+cudaError_t by_degree(int degree, int nch, A&&... args) {
+  switch (degree) {
+    case 0: return by_nch<F, 0>(nch, args...);
+    case 1: return by_nch<F, 1>(nch, args...);
+    case 2: return by_nch<F, 2>(nch, args...);
+    case 3: return by_nch<F, 3>(nch, args...);
+    case 4: return by_nch<F, 4>(nch, args...);
+    case 5: return by_nch<F, 5>(nch, args...);
+    case 6: return by_nch<F, 6>(nch, args...);
+    case 7: return by_nch<F, 7>(nch, args...);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace envutil

@@ -219,10 +219,17 @@ def _no_paint(st: SourceStatic):
             "the PyTorch port")
 
 
-def _cubemap_pickup(st: SourceStatic, ray):
+def _cubemap_pickup(st: SourceStatic, ray, face=None):
     """IR pixel coordinates of the rays (cubemap_view_t): dominant-axis
-    face, in-face coordinates, biatan6 in-plane atan, section offset."""
-    face, fx, fy = geo.ray_to_cubeface(*ray)
+    face, in-face coordinates, biatan6 in-plane atan, section offset.
+    With ``face`` given, the pickup is taken in that face's plane
+    whatever the ray's own dominant axis (twining keeps the derivative
+    rays in the centre ray's face; past the face's edge the coordinates
+    run on into the section's support frame)."""
+    if face is None:
+        face, fx, fy = geo.ray_to_cubeface(*ray)
+    else:
+        fx, fy = geo.ray_to_cubeface_fixed(*ray, face)
     if st.projection == Projection.BIATAN6:
         fx = (4.0 / math.pi) * torch.atan(fx)
         fy = (4.0 / math.pi) * torch.atan(fy)
@@ -262,15 +269,16 @@ def _md_to_spline(st: SourceStatic, px, py):
     return ix - st.window_x_offset, iy - st.window_y_offset
 
 
-def source_spline_coords(src: FacetSource, ray):
+def source_spline_coords(src: FacetSource, ray, face=None):
     """Continuous spline coordinates (core units, ungated) and the
     validity mask for the given rays - the coordinate half of
     lookup(). Cubemap sources give IR pixel coordinates and an
-    all-true mask."""
+    all-true mask; ``face`` (cubemap sources only) forces the cube face
+    of the pickup, see ``_cubemap_pickup``."""
     st = src.static
     _no_paint(st)
     if st.kind == "cubemap":
-        cx, cy = _cubemap_pickup(st, ray)
+        cx, cy = _cubemap_pickup(st, ray, face)
         return cx, cy, _all_true(ray)
     crd = _mount_planar(st, ray)
     mask = _window_mask(st, crd, ray)

@@ -11,8 +11,10 @@ system. Here the raster (or a window of it) is materialized at once:
     -> optional normalization
 
 Axes are computed host-side in float64 numpy and cast once to float32,
-as the JAX package does. The biased grids of the twining 'deriv
-stepper' wait for the twining slice of the port.
+as the JAX package does. ``target_ninepack`` gives the three grids of
+the twining 'deriv stepper' (centre and the two DERIV_BIAS-biased
+ones). The JAX package's traced-origin variants (``*_dyn``) serve its
+per-tile fallback and have no caller here.
 """
 
 from __future__ import annotations
@@ -25,6 +27,11 @@ import torch
 
 from ..core import geometry as geo
 from ..core.conventions import Projection
+
+# sub-pixel offset of the derivative grids, in sample steps: small
+# enough that differencing stays on one side of most discontinuities
+# (stepper.h:1587-1715)
+DERIV_BIAS = 0.25
 
 
 def planar_axis(n: int, lo: float, hi: float, bias: float,
@@ -153,3 +160,17 @@ def target_rays(projection: Projection, width: int, height: int, extent,
     if normalize:
         ray = geo.normalize(*ray)
     return ray
+
+
+def target_ninepack(projection, width, height, extent, basis=None,
+                    normalize=True, dtype=np.float32, planar_to_ray=None,
+                    window=None, device="cpu"):
+    """The three ray grids for twining: centre, +DERIV_BIAS in x,
+    +DERIV_BIAS in y (deriv_stepper, stepper.h:1587-1715). For cubemap
+    and biatan6 targets all three take their face from the integer row,
+    so a biased grid never leaves the centre's face."""
+    def mk(bias):
+        return target_rays(projection, width, height, extent, basis,
+                           normalize, bias, dtype, window, device,
+                           planar_to_ray)
+    return mk((0.0, 0.0)), mk((DERIV_BIAS, 0.0)), mk((0.0, DERIV_BIAS))

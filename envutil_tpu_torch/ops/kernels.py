@@ -2,7 +2,8 @@
 
 Each kernel source in ``csrc/`` has a plain C entry point. It is
 compiled with nvcc for sm_90a into ``_build/`` (git-ignored) under a
-name keyed on a hash of the source, at first use, and loaded with
+name keyed on a hash of the source and of the headers beside it (the
+device functions the kernels share), at first use, and loaded with
 ctypes; PyTorch's headers stay out of the build, which keeps it to
 seconds. ``build_all`` starts one nvcc per source together and waits
 for all of them.
@@ -49,7 +50,10 @@ class Library:
         self._proc = None
 
     def _so(self) -> pathlib.Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        text = self.source.read_bytes()
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            text += header.read_bytes()
+        digest = hashlib.sha256(text).hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}_{digest}.so"
 
     def start(self) -> None:

@@ -1,4 +1,4 @@
-"""B-spline resampling on the card: the two CUDA kernels, their
+"""B-spline resampling on the card: the four CUDA kernels, their
 wrappers and their plain PyTorch versions.
 
 ``resample_inline`` is the counterpart of
@@ -12,10 +12,23 @@ through device memory.
 a merge mask) and resample_planar (without one, over the whole frame):
 the spline at precomputed padded coordinates (sx, sy).
 
-Each wrapper launches its hand-written kernel (csrc/resample_inline.cu,
-csrc/resample_planar.cu, built with nvcc at first use by ops/kernels.py)
-for CUDA tensors, raises if it cannot, and takes its plain version
-only for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
+``resample_inline_twined`` is the counterpart of
+resample_inline_twined_into: the inline chain for the three rays of the
+twining ninepack, differenced into derivative rays, and the weighted
+sum of the spline over the spread's deflected taps. It linearises in ray
+space, as the exact path (models/synopsis.twined) does, so the periodic
+seam, the poles and cube edges are no special case.
+
+``resample_twined`` is the counterpart of resample_twined_into (with a
+merge mask, or with per-pixel tap weights in place of its champion
+planes) and resample_twined (without either, over the whole frame): the
+same weighted sum from the centre's padded coordinates and four
+coordinate derivative planes.
+
+Each wrapper launches its hand-written kernel (csrc/resample_*.cu,
+built with nvcc at first use by ops/kernels.py) for CUDA tensors,
+raises if it cannot, and takes its plain version only for CPU tensors;
+``<wrapper>.launches`` counts kernel launches.
 The kernel source notes say what bounds each and what its design
 leaves for later.
 
@@ -38,6 +51,13 @@ Operands of ``resample_inline`` (all float32, contiguous):
 - ``smode``: the source side, "sph" (full-spherical mount: lon/lat,
   gates) or "cubemap"/"biatan6" (IR pickup: dominant-axis face,
   in-face coordinates, biatan6 atan, section offset).
+
+``resample_inline_twined`` takes the same operands with doubled feature
+sets, ``xfeat`` (2 Fx, W) and ``yfeat`` (2 Fy, H): the centre's rows,
+then those of the axis biased by ``stepper.DERIV_BIAS``. Its ``spread``
+and that of ``resample_twined`` is a float32 tensor of ``n_taps``
+(cx, cy, w) triplets, flat or (K, 3), with 1/DERIV_BIAS folded into the
+offsets (``synopsis.scaled_spread``).
 """
 
 from __future__ import annotations
@@ -65,11 +85,17 @@ _INLINE = K.Library(
 _PLANAR = K.Library(
     "resample_planar.cu", "envutil_resample_planar",
     [_p] * 6 + [_ll] * 4 + [_i, _i, _p])
-LIBRARIES = (_INLINE, _PLANAR)
+_INLINE_TWINED = K.Library(
+    "resample_inline_twined.cu", "envutil_resample_inline_twined",
+    [_p] * 7 + [_ll] * 4 + [_i] * 9 + [_f, _f, _i] + [_f] * 8 + [_p])
+_TWINED = K.Library(
+    "resample_twined.cu", "envutil_resample_twined",
+    [_p] * 12 + [_ll] * 4 + [_i] * 4 + [_f, _f, _p])
+LIBRARIES = (_INLINE, _PLANAR, _INLINE_TWINED, _TWINED)
 
 
 def build():
-    """Build (if needed, one nvcc per source in parallel) and load both
+    """Build (if needed, one nvcc per source in parallel) and load the
     kernel libraries; returns the wall seconds this took."""
     return K.build_all(LIBRARIES)
 
@@ -79,8 +105,14 @@ def _wmat(degree):
         *_basis.weight_matrix(degree).reshape(-1).tolist()), ctypes.c_void_p)
 
 
+def _feature_rows(tmode):
+    """(Fx, Fy): feature rows of one set of ``xfeat`` and ``yfeat``."""
+    return (1, 1) if tmode == "affine" else \
+        ((2, 2) if tmode == "sph" else (2, 1))
+
+
 def _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
-           row0, face_rows, smode):
+           row0, face_rows, smode, sets: int = 1):
     if smode not in _SMODES:
         raise ValueError(f"unknown smode {smode!r}")
     if coeff.dtype != torch.float32:
@@ -101,9 +133,9 @@ def _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
                          f"out {tuple(out.shape)}")
     if not 1 <= nch <= 4:
         raise ValueError(f"{nch} channels; the kernel takes 1..4")
-    nfx, nfy = (1, 1) if tmode == "affine" else \
-        ((2, 2) if tmode == "sph" else (2, 1))
-    if tuple(xfeat.shape) != (nfx, w) or tuple(yfeat.shape) != (nfy, h):
+    nfx, nfy = _feature_rows(tmode)
+    if tuple(xfeat.shape) != (sets * nfx, w) \
+            or tuple(yfeat.shape) != (sets * nfy, h):
         raise ValueError(
             f"features {tuple(xfeat.shape)}/{tuple(yfeat.shape)} do not "
             f"fit tmode {tmode!r} and out {tuple(out.shape)}")
@@ -188,9 +220,15 @@ def inline_coords(xfeat, yfeat, bmats, *, tmode: str, consts: tuple,
                   row0: int = 0, face_rows: int = 0, smode: str = "sph"):
     """Padded spline coordinates (sx, sy) of every pixel of the window,
     as the kernel computes them."""
-    (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts[:11]
     rx, ry, rz = inline_rays(xfeat, yfeat, bmats, tmode=tmode, row0=row0,
                              face_rows=face_rows)
+    return ray_coords(rx, ry, rz, consts=consts, smode=smode)
+
+
+def ray_coords(rx, ry, rz, *, consts: tuple, smode: str = "sph"):
+    """The kernel's source half: padded spline coordinates (sx, sy) of
+    rays (which need not be normalised)."""
+    (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts[:11]
     if smode == "sph":
         lon = torch.atan2(rx, rz)
         lat = torch.atan2(ry, torch.sqrt(rx * rx + rz * rz))
@@ -232,6 +270,120 @@ def resample_inline_plain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
                        bcs=(S.CONSTANT, S.CONSTANT),
                        core_shape=tuple(coeff.shape[:2]))
     out.copy_(S.eval_spline(table, sx, sy, apply_gate=False))
+    return out
+
+
+def _spread_taps(spread, n_taps, device):
+    if spread.dtype != torch.float32 or spread.numel() != 3 * n_taps \
+            or n_taps < 1 or not spread.is_contiguous() \
+            or spread.device != device:
+        raise ValueError("spread must hold n_taps >= 1 contiguous float32 "
+                         "(cx, cy, w) triplets on the operands' device")
+
+
+def resample_inline_twined(out, coeff, xfeat, yfeat, bmats, spread, *,
+                           degree: int, n_taps: int, tmode: str,
+                           consts: tuple, row0: int = 0, face_rows: int = 0,
+                           smode: str = "sph", precise: bool = False):
+    """Fill ``out`` with the twined window: per pixel the weighted sum of
+    the spline over the spread's taps, each at the pickup of the ray
+    p0 + cx du + cy dv (see the module docstring for the operands).
+    ``precise`` takes the derivative rays in the centre ray's tangent
+    plane (--twine_precise). CUDA tensors go through the kernel; CPU
+    tensors through ``resample_inline_twined_plain``."""
+    _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
+           row0, face_rows, smode, sets=2)
+    _spread_taps(spread, n_taps, out.device)
+    kw = dict(degree=degree, n_taps=n_taps, tmode=tmode, consts=consts,
+              row0=row0, face_rows=face_rows, smode=smode, precise=precise)
+    if out.device.type == "cpu":
+        return resample_inline_twined_plain(out, coeff, xfeat, yfeat, bmats,
+                                            spread, **kw)
+    if out.device.type != "cuda":
+        raise ValueError(f"unsupported device {out.device}")
+    fn = _INLINE_TWINED.get()
+    (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts[:11]
+    section_px = consts[11] if smode != "sph" else 0.0
+    h, w, nch = out.shape
+    hp, wp, _ = coeff.shape
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = fn(
+        out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
+        yfeat.data_ptr(), bmats.data_ptr(), spread.data_ptr(),
+        _wmat(degree), h, w, hp, wp, int(row0), int(face_rows), int(degree),
+        int(nch), _TMODES[tmode], _SMODES[smode], int(n_taps), int(precise),
+        _GATES[gate_x], glx, gux, _GATES[gate_y], gly, guy,
+        kx, cx, ky, cy, pad, section_px, stream)
+    if err != 0:
+        raise RuntimeError(f"resample_inline_twined kernel launch failed: "
+                           f"CUDA error {err}")
+    resample_inline_twined.launches += 1
+    return out
+
+
+resample_inline_twined.launches = 0
+
+
+def inline_ninepack(xfeat, yfeat, bmats, *, tmode: str, row0: int = 0,
+                    face_rows: int = 0):
+    """The three normalised ray grids (p0, p10, p01) of the doubled
+    feature sets, as the twined kernel computes them."""
+    nfx, nfy = _feature_rows(tmode)
+    kw = dict(tmode=tmode, row0=row0, face_rows=face_rows)
+    return tuple(geo.normalize(*inline_rays(xf, yf, bmats, **kw))
+                 for xf, yf in ((xfeat[:nfx], yfeat[:nfy]),
+                                (xfeat[nfx:], yfeat[:nfy]),
+                                (xfeat[:nfx], yfeat[nfy:])))
+
+
+def inline_tap_rays(xfeat, yfeat, bmats, spread, *, tmode: str,
+                    row0: int = 0, face_rows: int = 0,
+                    precise: bool = False):
+    """Per tap of the spread, (ray, w): every pixel's deflected ray
+    p0 + cx du + cy dv, as the twined kernel computes it, and the tap's
+    weight."""
+    from ..models import synopsis as SYN
+    p0, p10, p01 = inline_ninepack(xfeat, yfeat, bmats, tmode=tmode,
+                                   row0=row0, face_rows=face_rows)
+    du, dv = SYN.derivative_rays(p0, p10, p01, precise)
+    for cx, cy, w in spread.reshape(-1, 3).tolist():
+        yield SYN.deflect(p0, du, dv, cx, cy), w
+
+
+def inline_tap_coords(xfeat, yfeat, bmats, spread, *, tmode: str,
+                      consts: tuple, row0: int = 0, face_rows: int = 0,
+                      smode: str = "sph", precise: bool = False):
+    """Per tap of the spread, (sx, sy, w): the padded spline coordinates
+    of every pixel's deflected ray and the tap's weight."""
+    for ray, w in inline_tap_rays(xfeat, yfeat, bmats, spread, tmode=tmode,
+                                  row0=row0, face_rows=face_rows,
+                                  precise=precise):
+        sx, sy = ray_coords(*ray, consts=consts, smode=smode)
+        yield sx, sy, w
+
+
+def resample_inline_twined_plain(out, coeff, xfeat, yfeat, bmats, spread, *,
+                                 degree: int, n_taps: int, tmode: str,
+                                 consts: tuple, row0: int = 0,
+                                 face_rows: int = 0, smode: str = "sph",
+                                 precise: bool = False):
+    """The twined kernel's computation in plain PyTorch, with its
+    signature: the three ``inline_rays`` grids normalised, the derivative
+    rays, and per tap the deflected ray's pickup and ``eval_spline``
+    (ungated) on the padded table. Runs on any device."""
+    _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
+           row0, face_rows, smode, sets=2)
+    _spread_taps(spread, n_taps, out.device)
+    table = S.Spline2D(coeff=coeff, pad=0, degree=degree,
+                       bcs=(S.CONSTANT, S.CONSTANT),
+                       core_shape=tuple(coeff.shape[:2]))
+    acc = None
+    for sx, sy, w in inline_tap_coords(
+            xfeat, yfeat, bmats, spread, tmode=tmode, consts=consts,
+            row0=row0, face_rows=face_rows, smode=smode, precise=precise):
+        term = w * S.eval_spline(table, sx, sy, apply_gate=False)
+        acc = term if acc is None else acc + term
+    out.copy_(acc)
     return out
 
 
@@ -314,4 +466,120 @@ def resample_planar_plain(out, coeff, sx, sy, *, degree: int,
     else:
         keep = (merge_mask > 0.5)[..., None]
         out.copy_(torch.where(keep, val, out))
+    return out
+
+
+def _check_twined(out, coeff, planes, spread, degree, n_taps, merge_mask,
+                  tap_weights, wrap_x):
+    _check_planar(out, coeff, planes[0], planes[1], degree, merge_mask)
+    _spread_taps(spread, n_taps, out.device)
+    for t in planes[2:]:
+        if tuple(t.shape) != tuple(out.shape[:2]) \
+                or t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != out.device:
+            raise ValueError("derivative planes must be contiguous float32 "
+                             "(H, W) tensors on out's device")
+    if tap_weights is not None:
+        if merge_mask is not None:
+            raise ValueError("merge_mask and tap_weights exclude each other")
+        if tuple(tap_weights.shape) != (n_taps,) + tuple(out.shape[:2]) \
+                or tap_weights.dtype not in (torch.float32, torch.uint8,
+                                             torch.bool) \
+                or not tap_weights.is_contiguous() \
+                or tap_weights.device != out.device:
+            raise ValueError("tap_weights must be contiguous (n_taps, H, W) "
+                             "float32, uint8 or bool planes on out's device")
+    if wrap_x is not None and not wrap_x[1] > 0:
+        raise ValueError("wrap_x is (lower, period) with period > 0")
+
+
+def resample_twined(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, *,
+                    degree: int, n_taps: int, merge_mask=None,
+                    tap_weights=None, wrap_x=None):
+    """Sum over the spread's taps of w_k times the degree-``degree``
+    spline of the braced (Hp, Wp, C) table ``coeff`` at the padded
+    coordinates (sx + cx_k dux + cy_k dvx, sy + cx_k duy + cy_k dvy),
+    into ``out`` (H, W, C), in place; returns ``out``. All planes are
+    (H, W) float32. With ``merge_mask``, pixels whose mask is <= 0.5
+    keep the prior contents of ``out`` bit for bit. With ``tap_weights``
+    (n_taps, H, W; float32, uint8 or bool) tap k's weight at a pixel is
+    w_k * tap_weights[k]: a tap of weight 0 reads nothing and a pixel
+    whose weights are all 0 is written 0. ``wrap_x`` = (lower, period),
+    in padded coordinates, wraps each deflected x into
+    [lower, lower + period) for horizontally periodic tables. CUDA
+    tensors go through the kernel; CPU tensors through
+    ``resample_twined_plain``."""
+    planes = (sx, sy, dux, duy, dvx, dvy)
+    _check_twined(out, coeff, planes, spread, degree, n_taps, merge_mask,
+                  tap_weights, wrap_x)
+    if out.device.type == "cpu":
+        return resample_twined_plain(
+            out, coeff, *planes, spread, degree=degree, n_taps=n_taps,
+            merge_mask=merge_mask, tap_weights=tap_weights, wrap_x=wrap_x)
+    if out.device.type != "cuda":
+        raise ValueError(f"unsupported device {out.device}")
+    fn = _TWINED.get()
+    h, w, nch = out.shape
+    hp, wp, _ = coeff.shape
+    lower, period = (0.0, 0.0) if wrap_x is None else wrap_x
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = fn(out.data_ptr(), coeff.data_ptr(),
+             *(t.data_ptr() for t in planes), spread.data_ptr(),
+             None if merge_mask is None else merge_mask.data_ptr(),
+             None if tap_weights is None else tap_weights.data_ptr(),
+             _wmat(degree), h, w, hp, wp, int(degree), int(nch), int(n_taps),
+             int(tap_weights is not None
+                 and tap_weights.dtype != torch.float32),
+             float(lower), float(period), stream)
+    if err != 0:
+        raise RuntimeError(f"resample_twined kernel launch failed: CUDA "
+                           f"error {err}")
+    resample_twined.launches += 1
+    return out
+
+
+resample_twined.launches = 0
+
+
+def twined_tap_coords(sx, sy, dux, duy, dvx, dvy, spread, hp: int, wp: int,
+                      degree: int, wrap_x=None):
+    """Per tap of the spread, (x, y, w): the deflected, wrapped and
+    clamped padded coordinates the twined kernel evaluates, and the
+    tap's weight."""
+    for cx, cy, w in spread.reshape(-1, 3).tolist():
+        x = sx + cx * dux + cy * dvx
+        y = sy + cx * duy + cy * dvy
+        if wrap_x is not None:
+            x = wrap_x[0] + torch.remainder(x - wrap_x[0], wrap_x[1])
+        yield clamp_coords(x, wp, degree), clamp_coords(y, hp, degree), w
+
+
+def resample_twined_plain(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, *,
+                          degree: int, n_taps: int, merge_mask=None,
+                          tap_weights=None, wrap_x=None):
+    """The twined kernel's computation in plain PyTorch, with its
+    signature: the tap loop over ``resample_planar_plain``'s pieces
+    (deflect, wrap, clamp, ``eval_spline`` ungated on the padded table),
+    the taps weighted per pixel by ``tap_weights``, the sum overlaid by
+    the mask. Runs on any device."""
+    planes = (sx, sy, dux, duy, dvx, dvy)
+    _check_twined(out, coeff, planes, spread, degree, n_taps, merge_mask,
+                  tap_weights, wrap_x)
+    hp, wp, _ = coeff.shape
+    table = S.Spline2D(coeff=coeff, pad=0, degree=degree,
+                       bcs=(S.CONSTANT, S.CONSTANT), core_shape=(hp, wp))
+    acc = None
+    for k, (x, y, w) in enumerate(twined_tap_coords(
+            *planes, spread, hp, wp, degree, wrap_x)):
+        val = S.eval_spline(table, x, y, apply_gate=False)
+        if tap_weights is None:
+            term = w * val
+        else:
+            term = (w * tap_weights[k].to(torch.float32))[..., None] * val
+        acc = term if acc is None else acc + term
+    if merge_mask is None:
+        out.copy_(acc)
+    else:
+        keep = (merge_mask > 0.5)[..., None]
+        out.copy_(torch.where(keep, acc, out))
     return out

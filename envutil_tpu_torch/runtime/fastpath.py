@@ -11,19 +11,37 @@ through L1/L2 directly, so one launch covers every output pixel
 exactly, poles, seam and cube edges included, and none of that planner
 is carried over.
 
-Two routes, chosen per job (``inline_mode``):
+Two routes, chosen per job (``inline_mode``), each with a twined form
+taken when the plan carries a spread:
 
 * ``fused_frame``: full-spherical mount or cubemap/biatan6 IR sources
   rendered to rectilinear, cubemap, biatan6, spherical or cylindrical
   targets by a plain rotation: the coordinate chain runs inside the
-  inline kernel (K1, ``resample_inline``).
+  inline kernel (K1, ``resample_inline``). Twined, the three rays of
+  the ninepack, their differencing and the tap loop run inside the
+  inline twined kernel (K4, ``resample_inline_twined``), which
+  linearises in ray space as the exact path does.
 * ``planar_frame``: every other single-facet job (partial mounts, PTO
   lens/shift/shear, translated facets, stereographic and fisheye
   targets): the coordinate pass (``coords``) runs as PyTorch
   operations, then one launch of the planar kernel (K2/K5,
   ``resample_planar``) evaluates the spline at those coordinates.
+  Twined, the pass (``twined_coords``) runs at the three grids of the
+  ninepack and differences the coordinates into derivative planes; one
+  launch of the planar twined kernel (K3/K6, ``resample_twined``) sums
+  the taps, over the whole frame for sources that cover every ray, and
+  with per-pixel tap weights (each tap's own deflected validity) for
+  partial, lens-corrected and translated facets. The JAX package
+  splits such a frame into a core and an edge band to keep most tiles
+  inside the TPU's window budgets; here every pixel may carry its own
+  tap weights, so one launch serves the frame.
 
-Twining, multi-facet synopses, masking jobs and bf16 tables raise
+Both kernel routes adapt channels and brighten after the taps are
+summed, where the exact path does so per tap; the two agree unless the
+channel adaptation divides by alpha (2 -> 1, 2 -> 3, 4 -> 1, 4 -> 3
+channels), as in the JAX package's fast path.
+
+Multi-facet synopses, masking jobs and bf16 tables raise
 ``NotImplementedError`` naming the slice that will cover them.
 """
 
@@ -35,9 +53,11 @@ import math
 import numpy as np
 import torch
 
+from ..core import geometry as geo
 from ..core.conventions import Projection
 from ..models import environment as E
 from ..models import stepper as ST
+from ..models import synopsis as SYN
 from ..ops import resample as R
 from ..ops import spline as S
 
@@ -52,19 +72,19 @@ _FACE_P = np.asarray([
     [[-1, 0, 0], [0, 1, 0], [0, 0, -1]],   # BACK
 ], np.float32)
 
+_TWINED_PLANES = ("sx", "sy", "dux", "duy", "dvx", "dvy")
+
 _INLINE_TARGETS = (Projection.RECTILINEAR, Projection.CUBEMAP,
                    Projection.BIATAN6, Projection.SPHERICAL,
                    Projection.CYLINDRICAL)
 
 
 def uncovered(plan, sources):
-    """Why this slice has no kernel for the job (a message naming the
+    """Why the port has no kernel for the job yet (a message naming the
     later slice), or None when ``fused_frame`` or ``planar_frame``
     covers it."""
     if len(sources) != 1:
         return "multi-facet synopses wait for the multi-facet slice"
-    if plan.spread is not None:
-        return "twining waits for the twining slice (kernels K3/K4)"
     src = sources[0]
     st = src.static
     if st.kind not in ("mount", "cubemap"):
@@ -74,7 +94,7 @@ def uncovered(plan, sources):
     if src.spl.degree > R.MAX_DEGREE:
         return f"degree {src.spl.degree} exceeds the kernel's {R.MAX_DEGREE}"
     if src.spl.coeff.dtype != torch.float32:
-        return "bf16 tables wait for the twining-pyramid slice"
+        return "bf16 tables wait for a later slice"
     if not 1 <= src.spl.coeff.shape[-1] <= 4:
         return f"{src.spl.coeff.shape[-1]}-channel sources are not covered"
     return None
@@ -110,7 +130,7 @@ def _gate_bounds(bc, n):
 
 
 def inline_setup(plan, window, core_shape, pad, bcs, statics,
-                 smode: str = "sph"):
+                 smode: str = "sph", twined: bool = False):
     """Host-side axis features and constants for one kernel launch over
     ``window = (y0, y1, x0, x1)``: returns (tmode, xfeat (Fx, W),
     yfeat (Fy, H), P (nf, 3, 3), consts), the features float32 numpy
@@ -118,13 +138,19 @@ def inline_setup(plan, window, core_shape, pad, bcs, statics,
     ``smode`` "sph", ``statics`` is (total extent x0, x1, y0, y1, total
     width, total height, window x offset, window y offset) of the
     source; for "cubemap"/"biatan6" it is the IR's (refc_md,
-    model_to_px, section_px)."""
+    model_to_px, section_px). ``twined`` doubles the feature sets: the
+    centre's rows, then those of the axis biased by DERIV_BIAS (the
+    twined kernel's derivative grids)."""
     y0, y1, x0, x1 = window
     ext = plan.extent
-    xs = ST.planar_axis(plan.width, ext.x0, ext.x1, 0.0, np.float64,
-                        x0, x1)
-    ys = ST.planar_axis(plan.height, ext.y0, ext.y1, 0.0, np.float64,
-                        y0, y1)
+
+    def axes(bias):
+        return (ST.planar_axis(plan.width, ext.x0, ext.x1, bias,
+                               np.float64, x0, x1),
+                ST.planar_axis(plan.height, ext.y0, ext.y1, bias,
+                               np.float64, y0, y1))
+
+    sets = [axes(0.0)] + ([axes(ST.DERIV_BIAS)] if twined else [])
 
     if plan.projection in (Projection.CUBEMAP, Projection.BIATAN6):
         tmode = "affine"
@@ -137,22 +163,21 @@ def inline_setup(plan, window, core_shape, pad, bcs, statics,
             return (np.tan(a * (math.pi / 4.0))
                     if plan.projection == Projection.BIATAN6 else a)
 
-        xf, yf = [fx(xs)], [fx(ys + shift)]
-        P = _FACE_P
+        tmode, P = "affine", _FACE_P
+        xf = [fx(xs) for xs, _ in sets]
+        yf = [fx(ys + shift) for _, ys in sets]
     elif plan.projection == Projection.RECTILINEAR:
-        tmode = "affine"
-        xf, yf = [xs], [ys]
-        P = np.eye(3, dtype=np.float32)[None]
+        tmode, P = "affine", np.eye(3, dtype=np.float32)[None]
+        xf = [xs for xs, _ in sets]
+        yf = [ys for _, ys in sets]
     elif plan.projection == Projection.SPHERICAL:
-        tmode = "sph"
-        xf = [np.sin(xs), np.cos(xs)]
-        yf = [np.sin(ys), np.cos(ys)]
-        P = np.eye(3, dtype=np.float32)[None]
+        tmode, P = "sph", np.eye(3, dtype=np.float32)[None]
+        xf = [f(xs) for xs, _ in sets for f in (np.sin, np.cos)]
+        yf = [f(ys) for _, ys in sets for f in (np.sin, np.cos)]
     else:  # CYLINDRICAL
-        tmode = "cyl"
-        xf = [np.sin(xs), np.cos(xs)]
-        yf = [ys]
-        P = np.eye(3, dtype=np.float32)[None]
+        tmode, P = "cyl", np.eye(3, dtype=np.float32)[None]
+        xf = [f(xs) for xs, _ in sets for f in (np.sin, np.cos)]
+        yf = [ys for _, ys in sets]
     xfeat = np.stack([a.astype(np.float32) for a in xf])
     yfeat = np.stack([a.astype(np.float32) for a in yf])
 
@@ -209,7 +234,8 @@ def _operands(plan, static, core_shape, pad, bcs, device):
     window = frame_window(plan)
     smode, statics = _source_mode(static)
     tmode, xfeat, yfeat, P, consts = inline_setup(
-        plan, window, core_shape, pad, bcs, statics, smode)
+        plan, window, core_shape, pad, bcs, statics, smode,
+        twined=plan.spread is not None)
     basis = np.asarray(plan.bases[0], np.float32)
     bm = np.einsum("ij,fjk->fik", basis, P).reshape(-1, 9)
     face_rows = plan.width if P.shape[0] == 6 else 0
@@ -222,13 +248,27 @@ def _operands(plan, static, core_shape, pad, bcs, device):
                 face_rows=face_rows)
 
 
+@functools.lru_cache(maxsize=16)
+def _spread_tensor(spread, device):
+    """The plan's spread with 1/DERIV_BIAS folded into the offsets, as
+    the (K, 3) float32 tensor the twined kernels take."""
+    return torch.tensor(SYN.scaled_spread(spread), dtype=torch.float32,
+                        device=device)
+
+
 def frame_operands(plan, src):
     """The kernel operands of ``fused_frame`` for this plan and source
-    (a dict of tensors on the source's device and static values)."""
+    (a dict of tensors on the source's device and static values); for a
+    twined plan the feature sets are doubled and ``spread``, ``n_taps``
+    and ``precise`` are added."""
     spl = src.spl
     ops = _operands(plan, src.static, tuple(spl.core_shape), spl.pad,
                     tuple(spl.bcs), spl.coeff.device)
-    return dict(ops, degree=spl.degree)
+    ops = dict(ops, degree=spl.degree)
+    if plan.spread is not None:
+        ops.update(spread=_spread_tensor(plan.spread, spl.coeff.device),
+                   n_taps=len(plan.spread), precise=plan.twine_precise)
+    return ops
 
 
 def _frame_buffer(plan, src, out, device):
@@ -258,8 +298,9 @@ def _finish(plan, src, out):
 
 def fused_frame(plan, src, out=None, device=None):
     """Render the frame of a single full-spherical mount or cubemap
-    source with one launch of the inline kernel, then adapt channels
-    (repix) and brighten. ``out`` is a caller-held (H, W, C_source)
+    source with one launch of the inline kernel (of the inline twined
+    kernel when the plan carries a spread), then adapt channels (repix)
+    and brighten. ``out`` is a caller-held (H, W, C_source)
     float32 buffer that the launch rewrites completely (the
     steady-state 'reuse' contract: no zero-fill, no allocation);
     without it a fresh buffer is made. Returns the (H, W, nchannels)
@@ -271,11 +312,12 @@ def fused_frame(plan, src, out=None, device=None):
                          "(partial or PTO source, generic chain, or a "
                          "stereographic/fisheye target): use planar_frame")
     ops = frame_operands(plan, src)
-    R.resample_inline(out, src.spl.coeff, ops["xfeat"], ops["yfeat"],
-                      ops["bmats"], degree=ops["degree"],
-                      tmode=ops["tmode"], consts=ops["consts"],
-                      row0=ops["row0"], face_rows=ops["face_rows"],
-                      smode=ops["smode"])
+    tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
+    if plan.spread is None:
+        R.resample_inline(out, src.spl.coeff, *tensors, **ops)
+    else:
+        R.resample_inline_twined(out, src.spl.coeff, *tensors,
+                                 ops.pop("spread"), **ops)
     return _finish(plan, src, out)
 
 
@@ -300,16 +342,97 @@ def coords(plan, window, src):
     return sx, sy, mask
 
 
+def _covers_every_ray(src):
+    """Cubemap sources and full-spherical mounts have no invalid ray, so
+    a twined frame needs no per-tap validity."""
+    return src.static.kind == "cubemap" or src.spl.spherical
+
+
+def twined_coords(plan, window, src):
+    """Operands of the planar twined kernel over ``window``, as a dict:
+    the centre's padded spline coordinates ``sx``, ``sy`` (ungated, see
+    below), the coordinate derivative planes ``dux``, ``duy``,
+    ``dvx``, ``dvy``, ``tap_weights`` (K, H, W) uint8 or None, and
+    ``wrap_x`` or None.
+
+    The rays are the exact path's: the ninepack, differenced into
+    derivative rays (in the tangent plane under --twine_precise). The
+    coordinate derivatives are the source's coordinates at p0 + du and
+    p0 + dv less those at p0, taken so that they mean something
+    everywhere: for cubemap sources all three pickups use the centre
+    ray's cube face (past an edge the coordinates run on into the
+    section's support frame instead of jumping by a section); on a
+    horizontally periodic source the x derivatives are wrapped by the
+    period, and the kernel wraps each deflected x; a derivative that is
+    not finite (a neighbour behind a rectilinear source's plane) is 0.
+    The centre's coordinates are not gated: a centre outside a partial
+    facet may still have valid taps, which must be deflected from where
+    the centre is and not from its mirror image; the kernel wraps
+    (periodic axis) or clamps each tap's coordinates itself.
+    For sources that do not cover every ray, tap k's weight plane is
+    the validity of the ray p0 + cx_k du + cy_k dv, the mask the exact
+    path applies to that tap."""
+    spl, st = src.spl, src.static
+    pad, w = spl.pad, spl.core_shape[1]
+    p0, p10, p01 = ST.target_ninepack(
+        plan.projection, plan.width, plan.height, plan.extent,
+        basis=plan.bases[0], normalize=True,
+        planar_to_ray=plan.planar_to_ray[0], window=window,
+        device=spl.coeff.device)
+    du, dv = SYN.derivative_rays(p0, p10, p01, plan.twine_precise)
+    if plan.twine_precise:
+        p10 = tuple(a + b for a, b in zip(p0, du))
+        p01 = tuple(a + b for a, b in zip(p0, dv))
+
+    face = geo.ray_to_cubeface(*p0)[0] if st.kind == "cubemap" else None
+    x0, y0, _m = E.source_spline_coords(src, p0, face)
+    periodic = st.kind != "cubemap" and spl.bcs[1] == S.PERIODIC
+
+    def derivative(ray):
+        x, y, _m = E.source_spline_coords(src, ray, face)
+        dx, dy = x - x0, y - y0
+        if periodic:
+            dx = torch.remainder(dx + 0.5 * w, float(w)) - 0.5 * w
+        return (torch.nan_to_num(dx, 0.0, 0.0, 0.0).contiguous(),
+                torch.nan_to_num(dy, 0.0, 0.0, 0.0).contiguous())
+
+    dux, duy = derivative(p10)
+    dvx, dvy = derivative(p01)
+    sx, sy = x0 + pad, y0 + pad
+
+    tap_weights = None
+    if not _covers_every_ray(src):
+        tap_weights = torch.stack([
+            E.source_spline_coords(src, SYN.deflect(p0, du, dv, cx, cy))[2]
+            for cx, cy, _w in SYN.scaled_spread(plan.spread)]
+        ).to(torch.uint8)
+    return dict(sx=sx.contiguous(), sy=sy.contiguous(), dux=dux, duy=duy,
+                dvx=dvx, dvy=dvy, tap_weights=tap_weights,
+                wrap_x=(pad - 0.5, float(w)) if periodic else None)
+
+
 def planar_frame(plan, src, out=None, device=None):
     """Render the frame of a single source with the coordinate pass
     (``coords``) and one launch of the planar kernel, then adapt
     channels and brighten. Cubemap sources cover every ray, so the
     launch writes the whole window (the K5 form); other sources are
     drawn over a zero-filled canvas through the validity mask (the K2
-    form), which is the JAX finish ``where(mask, canvas, 0)``. ``out``
-    and the return value are as for ``fused_frame``; the coordinates
-    are computed anew every frame."""
+    form), which is the JAX finish ``where(mask, canvas, 0)``. A twined
+    plan takes ``twined_coords`` and one launch of the planar twined
+    kernel instead, which writes every pixel: the whole frame for
+    sources that cover every ray, else each tap weighted by its own
+    validity (0 where no tap is valid). ``out`` and the return value
+    are as for ``fused_frame``; the coordinates are computed anew every
+    frame."""
     out = _frame_buffer(plan, src, out, device)
+    if plan.spread is not None:
+        ops = twined_coords(plan, frame_window(plan), src)
+        R.resample_twined(
+            out, src.spl.coeff, *(ops[k] for k in _TWINED_PLANES),
+            _spread_tensor(plan.spread, src.spl.coeff.device),
+            degree=src.spl.degree, n_taps=len(plan.spread),
+            tap_weights=ops["tap_weights"], wrap_x=ops["wrap_x"])
+        return _finish(plan, src, out)
     sx, sy, mask = coords(plan, frame_window(plan), src)
     if src.static.kind == "cubemap":
         R.resample_planar(out, src.spl.coeff, sx, sy,
@@ -326,20 +449,23 @@ def render_fast(plan, sources, verbose: bool = False) -> np.ndarray:
     """The CUDA render path of ``render.render_frame``: one frame
     through ``fused_frame`` or ``planar_frame``, returned as a host
     (H, W, C) float32 array. Raises ``NotImplementedError`` for jobs
-    this slice does not cover."""
+    the port does not cover yet."""
     reason = uncovered(plan, sources)
     if reason is not None:
         raise NotImplementedError(
             f"no CUDA kernel for this job yet: {reason}")
     src = sources[0]
     mode = inline_mode(plan, src)
+    twined = plan.spread is not None
     if mode is not None:
         img = fused_frame(plan, src)
-        what = f"resample_inline (smode {mode})"
+        what = f"resample_inline{'_twined' if twined else ''} (smode {mode})"
     else:
         img = planar_frame(plan, src)
-        what = "resample_planar after the coordinate pass"
+        what = (f"resample_{'twined' if twined else 'planar'} after the "
+                "coordinate pass")
     if verbose:
+        taps = f", {len(plan.spread)} taps" if twined else ""
         print(f"fastpath: 1 launch of {what} over "
-              f"{img.shape[0]}x{img.shape[1]} px")
+              f"{img.shape[0]}x{img.shape[1]} px{taps}")
     return img.cpu().numpy()

@@ -3,10 +3,11 @@ render device + static lookup config), with asset caching.
 
 Counterpart of envutil_tpu/runtime/loader.py: cubemap/biatan6 facets
 (a 1:6 stripe or a ``%s`` cubeface series) build the IR spline,
-everything else a mount source. The on-disk coefficient cache, bf16
-tables and the twining pyramid wait for later slices; the TPU fast
-path's rolled/pitched/section source variants are not needed on the
-card at all.
+everything else a mount source; a facet that ``--twine_pyramid``
+marked (``Args._apply_pyramid``) is box-decimated before its spline is
+built. The on-disk coefficient cache and bf16 tables wait for later
+slices; the TPU fast path's rolled/pitched/section source variants are
+not needed on the card at all.
 """
 
 from __future__ import annotations
@@ -35,6 +36,20 @@ def _read_facet_image(fct: Facet, args) -> np.ndarray:
         return np.stack([read(fct.filename % name)
                          for name in FACE_NAMES])  # (6, F, F, C)
     return read(fct.filename)
+
+
+def _decimate(img: np.ndarray, level: int) -> np.ndarray:
+    """--twine_pyramid 2^level x 2^level box decimation of (H, W, C)
+    pixel data. Box averaging preserves the edge-to-edge sample grid
+    exactly: decimated pixel centres coincide with the centroids of
+    the source blocks they replace (twine_setup already rewrote the
+    facet's geometry to the decimated size)."""
+    s = 1 << level
+    h, w, c = img.shape
+    if h % s or w % s:
+        raise ValueError(f"image {img.shape} does not divide by {s}")
+    return img.reshape(h // s, s, w // s, s, c).mean(
+        axis=(1, 3), dtype=np.float32)
 
 
 def _build(fct: Facet, args, img: np.ndarray, device) -> E.FacetSource:
@@ -81,18 +96,17 @@ def load_source(fct: Facet, args, device=None) -> E.FacetSource:
         raise NotImplementedError(
             "bf16 coefficient tables wait for a later slice of the "
             "PyTorch port")
-    if fct.pyramid_level > 0:
-        raise NotImplementedError(
-            "--twine_pyramid waits for the twining slice of the PyTorch "
-            "port")
 
     key = (fct.asset_key, args.spline_degree, args.prefilter_degree,
-           fct.projection, str(device))
+           fct.projection, str(device), fct.pyramid_level)
     cached = assets.cache.find(key)
     if cached is not None:
         if args.verbose:
             print(f"asset {fct.asset_key} is already present in RAM")
         return _make_source_from(fct, args, cached)
-    src = _build(fct, args, _read_facet_image(fct, args), device)
+    img = _read_facet_image(fct, args)
+    if fct.pyramid_level > 0:
+        img = _decimate(img, fct.pyramid_level)
+    src = _build(fct, args, img, device)
     assets.cache.add(key, src.spl)
     return src

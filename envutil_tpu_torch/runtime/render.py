@@ -5,19 +5,20 @@ dispatch/roll_out/fuse stack, envutil_payload.cc:1885-2435). A plan
 holds the target geometry and one camera-to-facet basis per facet;
 ``render_frame`` runs it
 
-* on CUDA through one launch of the inline-coordinates kernel or,
-  after a coordinate pass, of the planar kernel (runtime/fastpath.py),
-  raising ``NotImplementedError`` for jobs this slice of the port has
-  no kernel for - the plain path never stands in for a kernel on the
-  card;
+* on CUDA through one launch of an inline-coordinates kernel or,
+  after a coordinate pass, of a planar kernel (runtime/fastpath.py),
+  each with its twined form, raising ``NotImplementedError`` for jobs
+  the port has no kernel for yet - the plain path never stands in for
+  a kernel on the card;
 * on the CPU through the exact path: target rays (models/stepper),
-  ``environment.lookup`` and ``spline.eval_spline``, in row chunks.
+  ``environment.lookup`` and ``spline.eval_spline``, in row chunks;
+  under twining the three ray grids of the ninepack and
+  ``synopsis.twined``, each tap masked by its own deflected validity.
 
 Translated facets use the 'generic' transform chain (generic_r3 /
 tf_ex_facet, envutil_payload.cc:1629-1883) instead of a plain
 rotation. ``--single`` re-creations of a lens-corrected facet (the
-inverse lens LUT), twining and multi-facet synopses wait for later
-slices.
+inverse lens LUT) and multi-facet synopses wait for later slices.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from ..core.metrics import Extent
 from ..core.rotation import rotation_rpy
 from ..models import environment as E
 from ..models import stepper as ST
+from ..models import synopsis as SYN
 from .platform import resolve_device
 
 
@@ -193,21 +195,31 @@ def build_plan(args, facets: Sequence[Facet]) -> RenderPlan:
         planar_to_ray=tuple(p2r), crop=crop)
 
 
+def _solo(sources, rays, nch):
+    """The synopsis of one facet: its lookup, misses painted 0."""
+    px, mask = E.lookup(sources[0], rays[0], nch)
+    return torch.where(mask[..., None], px, 0.0)
+
+
 def _render_window(plan: RenderPlan, sources: List[E.FacetSource],
                    window) -> torch.Tensor:
-    """Exact render of one output window (single facet, no twining) on
-    the sources' device."""
-    if len(sources) != 1 or plan.spread is not None:
+    """Exact render of one output window (single facet, with or without
+    twining) on the sources' device."""
+    if len(sources) != 1:
         raise NotImplementedError(
-            "multi-facet synopses and twining wait for later slices of "
-            "the PyTorch port")
-    src = sources[0]
-    ray = ST.target_rays(plan.projection, plan.width, plan.height,
-                         plan.extent, basis=plan.bases[0], normalize=True,
-                         planar_to_ray=plan.planar_to_ray[0],
-                         window=window, device=src.spl.coeff.device)
-    px, mask = E.lookup(src, ray, plan.nchannels)
-    return torch.where(mask[..., None], px, 0.0)
+            "multi-facet synopses wait for the multi-facet slice of the "
+            "PyTorch port")
+    geometry = dict(basis=plan.bases[0], normalize=True,
+                    planar_to_ray=plan.planar_to_ray[0], window=window,
+                    device=sources[0].spl.coeff.device)
+    if plan.spread is None:
+        ray = ST.target_rays(plan.projection, plan.width, plan.height,
+                             plan.extent, **geometry)
+        return _solo(sources, [ray], plan.nchannels)
+    pack = ST.target_ninepack(plan.projection, plan.width, plan.height,
+                              plan.extent, **geometry)
+    return SYN.twined(_solo, sources, [pack], plan.nchannels, plan.spread,
+                      precise=plan.twine_precise)
 
 
 def render_frame(plan: RenderPlan, sources: List[E.FacetSource],
@@ -234,9 +246,12 @@ def render_frame(plan: RenderPlan, sources: List[E.FacetSource],
         if amplify is not None:
             img = E.apply_brighten(torch.from_numpy(img), amplify).numpy()
     else:
-        # bound the working set: 512 MB of float32 intermediates
+        # bound the working set: 512 MB of float32 intermediates over
+        # pixels * facets * taps
+        taps = len(plan.spread) if plan.spread else 1
         budget = 512 * 1024 * 1024 // 4
-        per_px = max(1, len(sources)) * (4 + plan.nchannels)
+        per_px = max(1, len(sources)) * (4 + plan.nchannels) \
+            * max(1, taps // 4)
         chunks = max(1, int(np.ceil(n_px * per_px / budget)))
         rows = y1 - y0
         chunk_rows = max(1, (rows + chunks - 1) // chunks)

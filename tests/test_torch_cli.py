@@ -80,6 +80,37 @@ def test_cli_renders_cubemap_stripe_and_face_series(tmp_path, monkeypatch):
     np.testing.assert_array_equal(written[1], lib)
 
 
+def test_cli_downscale_twines_automatically(tmp_path, monkeypatch):
+    """A downscale without ``--twine 0``: ``twine_setup`` switches
+    twining on from the magnification, and the CLI writes what the
+    library renders with that spread, which differs from the untwined
+    render."""
+    monkeypatch.setenv("ENVUTIL_PLATFORM", "cpu")
+    src_path = tmp_path / "env.tif"
+    imgio.save_image(str(src_path), _equirect(256, 128))
+    out = tmp_path / "view.tif"
+    argv = ["--facet", str(src_path), "spherical", "360", "30", "10", "0",
+            "--projection", "rectilinear", "--hfov", "100", "--width", "48",
+            "--height", "32", "--degree", "1", "--output", str(out)]
+    assert cli.main(list(argv)) == 0
+    written = imgio.read_image(str(out))
+
+    args = parse_args(argv)
+    args.twine_setup()
+    assert args.twine >= 2 and len(args.twine_spread) == args.twine ** 2
+    plan = build_plan(args, args.facets)
+    assert plan.spread is not None
+    source = load_source(args.facets[0], args, "cpu")
+    np.testing.assert_array_equal(
+        written, render_frame(plan, [source], device="cpu"))
+    untwined = parse_args(argv + ["--twine", "0"])
+    untwined.twine_setup()
+    plain = render_frame(build_plan(untwined, untwined.facets), [source],
+                         device="cpu")
+    assert written.shape == plain.shape == (32, 48, 3)
+    assert float(np.abs(written - plain).max()) > 1e-4
+
+
 def test_cli_uncovered_modes_raise(tmp_path, monkeypatch):
     monkeypatch.setenv("ENVUTIL_PLATFORM", "cpu")
     with pytest.raises(NotImplementedError, match="streaming"):

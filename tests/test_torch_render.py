@@ -118,17 +118,27 @@ def test_render_matches_jax_and_oracle(env, oracle_sources, name, proj, w,
 
 
 def test_uncovered_jobs_raise(env):
-    """No plain path stands in for a kernel: jobs this slice has no
-    kernel for (twining, multi-facet synopses, bf16 tables, --mask_for
-    paint) raise NotImplementedError naming the later slice."""
+    """No plain path stands in for a kernel: jobs the port has no kernel
+    for (multi-facet synopses, bf16 tables, --mask_for paint) raise
+    NotImplementedError naming the later slice. A twined single-facet
+    job is covered: a one-tap spread at the pixel centre renders what
+    the untwined job renders, on the exact path and on the kernel
+    route."""
     tf = port_facet(TP.SPHERICAL, 256, 128, 2 * math.pi)
     src = TE.make_mount_source(tf, env, 3, 3, device="cpu")
     twined = build_plan(port_args(TP.RECTILINEAR, 32, 32, 60.0, [tf], 3,
                                   twine_spread=[[0.0, 0.0, 1.0]]), [tf])
-    with pytest.raises(NotImplementedError, match="twining"):
-        FP.fused_frame(twined, src)
-    with pytest.raises(NotImplementedError, match="twining"):
-        render_frame(twined, [src], device="cpu")
+    plain = build_plan(port_args(TP.RECTILINEAR, 32, 32, 60.0, [tf], 3),
+                       [tf])
+    assert FP.uncovered(twined, [src]) is None
+    want = render_frame(plain, [src], device="cpu")
+    np.testing.assert_allclose(render_frame(twined, [src], device="cpu"),
+                               want, rtol=0, atol=JAX_TOL)
+    np.testing.assert_allclose(
+        FP.fused_frame(twined, src, device="cpu").numpy(), want, rtol=0,
+        atol=JAX_TOL)
+    with pytest.raises(NotImplementedError, match="multi-facet"):
+        render_frame(twined, [src, src], device="cpu")
     plan = build_plan(port_args(TP.FISHEYE, 32, 32, 120.0, [tf], 3), [tf])
     with pytest.raises(NotImplementedError, match="multi-facet"):
         FP.render_fast(plan, [src, src])
