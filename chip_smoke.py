@@ -30,6 +30,18 @@ events. The paths:
   -> 4096x2048 equirect, --twine 2 (resample_twined with per-pixel tap
   weights).
 
+The two inline kernels (resample_inline, resample_inline_twined) stage
+each block's source window in shared memory and gather from global
+memory where a window does not fit; every comparison of either with its
+plain version runs both branches (the default window budget, a small
+one, and 0, which forces the direct gather everywhere) and requires the
+outputs to be bit-equal, and every full-size inline path times the
+wrapper's default budget beside the direct branch in the same run and
+prints the share of blocks, pixels and taps that staged. (The twined
+wrapper's default stages from 16 taps on; below, its default is the
+direct branch, so the two times of config 4 and the pole-and-seam view
+are two readings of one branch.)
+
 Every phase runs; any failure raises and the script exits non-zero. It
 exits non-zero without a result when no CUDA card is available. The
 second-to-last line is the kernels' JSON record; the last line is
@@ -38,6 +50,7 @@ second-to-last line is the kernels' JSON record; the last line is
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -107,6 +120,10 @@ TWINED_PLANAR_BOUND = 5e-3
 # this many pixels of the periodic seam, form the named regions whose
 # error is reported on its own
 REGION_DEG = 1.0
+
+# a window budget that only some blocks of the small cases fit, so that
+# one launch takes both branches
+SMALL_BUDGET = 4096
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -213,8 +230,27 @@ def inline_kw(ops, degree):
                 smode=ops["smode"])
 
 
-def kernel_vs_plain(plan, src, degree):
-    """Launch the inline kernel and its plain version on the same
+def staged_equals_direct(launch, direct, budgets, what):
+    """Run ``launch(window_bytes)`` at each staging budget and require
+    the output to equal ``direct`` (the budget-0 output) bit for bit;
+    returns the output at the first budget."""
+    import torch
+    first = None
+    for budget in budgets:
+        out = launch(budget)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(out, direct)),
+              f"{what}: the staged branch (window budget {budget}) and the "
+              f"direct branch differ: max abs "
+              f"{float((out - direct).abs().max()):.3e}")
+        first = out if first is None else first
+    return first
+
+
+def kernel_vs_plain(plan, src, degree, budgets=None):
+    """Launch the inline kernel on both its branches (staged at each of
+    ``budgets``, default the wrapper's and SMALL_BUDGET; direct at 0),
+    require them bit-equal, and launch its plain version on the same
     operands; returns (max abs difference over the compared pixels,
     pixels excluded at cube-face edges, kernel output, plain output)."""
     import torch
@@ -226,8 +262,13 @@ def kernel_vs_plain(plan, src, degree):
     shape = (y1 - y0, x1 - x0, coeff.shape[-1])
     kw = inline_kw(ops, degree)
     args = (coeff, ops["xfeat"], ops["yfeat"], ops["bmats"])
-    out_k = R.resample_inline(torch.empty(shape, device=coeff.device),
-                              *args, **kw)
+
+    def launch(budget):
+        return R.resample_inline(torch.empty(shape, device=coeff.device),
+                                 *args, window_bytes=budget, **kw)
+    out_k = staged_equals_direct(
+        launch, launch(0), budgets or (R.WINDOW_BYTES, SMALL_BUDGET),
+        "resample_inline")
     out_p = R.resample_inline_plain(
         torch.empty(shape, device=coeff.device), *args, **kw)
     torch.cuda.synchronize()
@@ -251,14 +292,68 @@ def kernel_vs_plain(plan, src, degree):
     return float(diff.max()), n_edge, out_k, out_p
 
 
+def staging(coeff, degree, tile, sx, sy, taps=None, reach=0.0,
+            window_bytes=None):
+    """What the plain model of the staged window (ops/resample.
+    window_model) says of one inline launch: the share of blocks and of
+    pixels that stage at ``window_bytes`` (default: the inline wrapper's
+    budget), the bytes the staged
+    windows copy in total beside the table bytes under those blocks'
+    supports counted once (the halo's cost), the mean window, and, for
+    the twined kernel (``taps``: the per-tap coordinate pairs; ``sx``,
+    ``sy`` the first tap's), the share of taps that left their window."""
+    from envutil_tpu_torch.ops import resample as R
+    kw = dict(degree=degree, table_shape=tuple(coeff.shape), tile=tile)
+    if window_bytes is None:
+        window_bytes = R.WINDOW_BYTES
+    win = R.window_model(sx, sy, window_bytes=window_bytes, reach=reach,
+                         **kw)
+    staged = win["staged"]
+    px = R.block_to_pixels(staged, tile, *sx.shape)
+    pairs = [(sx, sy)] if taps is None else taps
+    held = sum(int(R.window_holds(win, x, y, **kw).sum()) for x, y in pairs)
+    touched = touched_bytes(coeff, pairs[0][0][px], pairs[0][1][px], degree,
+                            [(x[px], y[px]) for x, y in pairs[1:]])
+    out = dict(
+        tile=list(tile), window_bytes=window_bytes,
+        blocks=staged.numel(), blocks_staged=float(staged.float().mean()),
+        pixels_staged=float(px.float().mean()),
+        staged_copy_mb=float(win["copied"][staged].sum()) / 1e6,
+        staged_touched_mb=touched / 1e6,
+        mean_window_kb=(float(win["bytes"][staged].float().mean()) / 1024
+                        if bool(staged.any()) else 0.0))
+    if taps is not None:
+        out["taps_outside_window"] = 1.0 - held / (len(pairs) * sx.numel())
+        out["taps_outside_window_in_staged_blocks"] = \
+            1.0 - held / max(len(pairs) * int(px.sum()), 1)
+    return out
+
+
+def staging_text(s):
+    text = (f"{100 * s['blocks_staged']:.2f}% of {s['blocks']} blocks "
+            f"({s['tile'][0]}x{s['tile'][1]} px) and "
+            f"{100 * s['pixels_staged']:.2f}% of pixels stage at "
+            f"{s['window_bytes']} bytes; staged windows copy "
+            f"{s['staged_copy_mb']:.1f} MB for {s['staged_touched_mb']:.1f} "
+            f"MB of table under those blocks' taps (mean window "
+            f"{s['mean_window_kb']:.1f} KB)")
+    if "taps_outside_window" in s:
+        text += (f"; {100 * s['taps_outside_window']:.3f}% of all taps and "
+                 f"{100 * s['taps_outside_window_in_staged_blocks']:.3f}% of "
+                 f"the staged blocks' taps read global memory")
+    return text
+
+
 def phase_small_inline():
-    """Inline kernel against plain version at small shapes: degrees x
-    channel counts on full-spherical mounts (cubemap target) and on
-    cubemap and biatan6 IR sources (every target mode), plus every
-    target mode on a mount."""
+    """Inline kernel, on both its branches, against plain version at
+    small shapes: degrees x channel counts on full-spherical mounts
+    (cubemap target) and on cubemap and biatan6 IR sources (every target
+    mode, across cube-face edges), every target mode on a mount, and the
+    cases that force the blocks a staged window cannot hold."""
     from envutil_tpu_torch.core.conventions import Projection as P
     from envutil_tpu_torch.models import cubemap as CBM
     from envutil_tpu_torch.models import environment as E
+    from envutil_tpu_torch.ops import resample as R
     rng = np.random.default_rng(7)
     worst = 0.0
     fct = make_facet(P.SPHERICAL, 256, 128, 2 * math.pi)
@@ -268,12 +363,49 @@ def phase_small_inline():
               (3, 3, P.SPHERICAL, 128, 64, 360, (20, -30, 10)),
               (3, 3, P.CYLINDRICAL, 128, 64, 200, (10, 5, 0)),
               (3, 3, P.BIATAN6, 32, 192, 90, (5, 5, 5))]
+    # the blocks the staged window cannot hold or holds only in part: a
+    # pole inside a block and a block across the periodic seam (the
+    # pitched full sphere; widths that are no multiple of the 32-pixel
+    # tile nor of four floats, so the scalar store route runs too),
+    # degree 7 and two channels
+    cases += [(3, 3, P.SPHERICAL, 128, 64, 360, (160, -80, 10)),
+              (3, 3, P.SPHERICAL, 131, 61, 360, (-170, 85, 0)),
+              (3, 1, P.RECTILINEAR, 97, 67, 110, (180, 88, 0)),
+              (7, 3, P.CUBEMAP, 64, 384, 90, (0, 0, 0)),
+              (7, 4, P.SPHERICAL, 131, 61, 360, (160, -80, 10)),
+              (7, 1, P.RECTILINEAR, 96, 64, 75, (30, 10, 5)),
+              (0, 2, P.SPHERICAL, 128, 64, 360, (160, -80, 10)),
+              (3, 2, P.CUBEMAP, 64, 384, 90, (0, 0, 0)),
+              (5, 2, P.RECTILINEAR, 97, 67, 110, (180, 88, 0))]
     for degree, nch, proj, w, h, hfov, ypr in cases:
         img = rng.uniform(0, 1, (128, 256, nch)).astype(np.float32)
         src = E.make_mount_source(fct, img, degree, degree, device="cuda")
         err = kernel_vs_plain(plan_for(fct, proj, w, h, hfov, degree, ypr,
                                        nch), src, degree)[0]
         print(f"inline vs plain: sph source, degree {degree} C {nch} "
+              f"{proj.name.lower()} {w}x{h}: max abs diff {err:.3e} "
+              f"(bound {KERNEL_BOUND:g})", flush=True)
+        check(err <= KERNEL_BOUND, f"inline kernel disagrees: {err}")
+        worst = max(worst, err)
+
+    # source tables whose rows are no multiple of four floats (the
+    # 4-byte copy route) and a table narrower than a block's window (the
+    # window is clamped to the table)
+    for sw, sh, nch, degree, proj, w, h, hfov, ypr in (
+            (250, 125, 3, 3, P.SPHERICAL, 128, 64, 360, (160, -80, 10)),
+            (250, 125, 3, 3, P.CUBEMAP, 61, 366, 90, (0, 0, 0)),
+            (250, 125, 1, 2, P.RECTILINEAR, 97, 67, 110, (180, 88, 0)),
+            (254, 127, 2, 1, P.CYLINDRICAL, 128, 64, 200, (10, 5, 0)),
+            (16, 8, 3, 3, P.SPHERICAL, 128, 64, 360, (20, -30, 10)),
+            (16, 8, 4, 1, P.RECTILINEAR, 96, 64, 75, (30, 10, 5))):
+        ofct = make_facet(P.SPHERICAL, sw, sh, 2 * math.pi)
+        img = rng.uniform(0, 1, (sh, sw, nch)).astype(np.float32)
+        src = E.make_mount_source(ofct, img, degree, degree, device="cuda")
+        err = kernel_vs_plain(plan_for(ofct, proj, w, h, hfov, degree, ypr,
+                                       nch), src, degree,
+                              (R.WINDOW_BYTES, SMALL_BUDGET, 1024))[0]
+        print(f"inline vs plain: {sw}x{sh} sph source (table "
+              f"{tuple(src.spl.coeff.shape)}), degree {degree} C {nch} "
               f"{proj.name.lower()} {w}x{h}: max abs diff {err:.3e} "
               f"(bound {KERNEL_BOUND:g})", flush=True)
         check(err <= KERNEL_BOUND, f"inline kernel disagrees: {err}")
@@ -504,8 +636,10 @@ def render(plan, src, name, want_inline=0, want_planar=0, want=None):
 
 
 def time_inline(plan, src, name):
-    """Steady-state frame, kernel alone (median of 20) and plain version
-    (median of 3) of an inline-kernel path."""
+    """Steady-state frame, kernel alone on its staged and on its direct
+    branch (median of 20 each, in turns: staged, direct, direct,
+    staged) and plain version (median of 3) of an inline-kernel path,
+    with the staging shares of the plain window model."""
     import torch
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.runtime import fastpath as FP
@@ -514,9 +648,18 @@ def time_inline(plan, src, name):
     args = (src.spl.coeff, ops["xfeat"], ops["yfeat"], ops["bmats"])
     buf = torch.empty((plan.height, plan.width, src.spl.coeff.shape[-1]),
                       device="cuda")
-    for _ in range(3):
+
+    def staged():
         R.resample_inline(buf, *args, **kw)
-    kernel_ms = events_ms(lambda: R.resample_inline(buf, *args, **kw), 20)
+
+    def direct():
+        R.resample_inline(buf, *args, window_bytes=0, **kw)
+    for _ in range(3):
+        staged()
+        direct()
+    turns = [events_ms(f, 20) for f in (staged, direct, direct, staged)]
+    kernel_ms = (turns[0] + turns[3]) / 2
+    direct_ms = (turns[1] + turns[2]) / 2
     plain_ms = events_ms(lambda: R.resample_inline_plain(buf, *args, **kw),
                          3)
     frame_ms = events_ms(lambda: FP.fused_frame(plan, src, out=buf), 20)
@@ -524,7 +667,9 @@ def time_inline(plan, src, name):
     print(f"{name}: steady-state frame (fused_frame into one reused "
           f"buffer, median of 20) {frame_ms:.4f} ms = "
           f"{n_px / 1e3 / frame_ms:.1f} Mpix/s; kernel alone "
-          f"{kernel_ms:.4f} ms; plain version {plain_ms:.3f} ms; "
+          f"{kernel_ms:.4f} ms staged ({turns[0]:.4f}, {turns[3]:.4f}), "
+          f"{direct_ms:.4f} ms direct ({turns[1]:.4f}, {turns[2]:.4f}); "
+          f"plain version {plain_ms:.3f} ms; "
           f"clocks/power/temp after: {smi_now()}", flush=True)
     bound = inline_bound(plan, src, n_px)
     print(f"{name}: bound {bound[0]:.4f} ms by {bound[1]} (table bytes "
@@ -532,8 +677,14 @@ def time_inline(plan, src, name):
           f"{src.spl.coeff.numel() * 4 / 1e6:.1f} MB; bytes "
           f"{bound[2]:.4f} ms at 3.35 TB/s, operations {bound[3]:.4f} ms at "
           f"67 TFLOP/s)", flush=True)
-    return dict(frame_ms=frame_ms, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound[0], bound_by=bound[1])
+    sx, sy = R.inline_coords(*args[1:], tmode=kw["tmode"],
+                             consts=kw["consts"], row0=kw["row0"],
+                             face_rows=kw["face_rows"], smode=kw["smode"])
+    shares = staging(src.spl.coeff, src.spl.degree, R.TILE_INLINE, sx, sy)
+    print(f"{name}: staging: {staging_text(shares)}", flush=True)
+    return dict(frame_ms=frame_ms, ms=kernel_ms, direct_ms=direct_ms,
+                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                staging=shares)
 
 
 def time_planar(plan, src, name):
@@ -636,8 +787,10 @@ def twined_inline_operands(plan, src):
 
 
 def twined_kernel_vs_plain(plan, src):
-    """Launch the inline twined kernel and its plain version on the same
-    operands; returns (max abs difference over the compared pixels,
+    """Launch the inline twined kernel on both its branches (staged at
+    the wrapper's budget and at SMALL_BUDGET, direct at 0), require them
+    bit-equal, and launch its plain version on the same operands;
+    returns (max abs difference over the compared pixels,
     pixels excluded because a tap's ray lies at a cube-face edge)."""
     import torch
     from envutil_tpu_torch.ops import resample as R
@@ -646,8 +799,13 @@ def twined_kernel_vs_plain(plan, src):
     coeff = src.spl.coeff
     y0, y1, x0, x1 = FP.frame_window(plan)
     shape = (y1 - y0, x1 - x0, coeff.shape[-1])
-    out_k = R.resample_inline_twined(
-        torch.empty(shape, device="cuda"), coeff, *tensors, **kw)
+    def launch(budget):
+        return R.resample_inline_twined(
+            torch.empty(shape, device="cuda"), coeff, *tensors,
+            window_bytes=budget, **kw)
+    out_k = staged_equals_direct(launch, launch(0),
+                                 (R.TWINED_WINDOW_BYTES, R.WINDOW_BYTES,
+                                  SMALL_BUDGET), "resample_inline_twined")
     out_p = R.resample_inline_twined_plain(
         torch.empty(shape, device="cuda"), coeff, *tensors, **kw)
     torch.cuda.synchronize()
@@ -875,18 +1033,29 @@ def twined_inline_path(name, plan, src):
     tensors, kw = twined_inline_operands(plan, src)
     coeff, n_deg, nch = src.spl.coeff, src.spl.degree, src.spl.coeff.shape[-1]
     buf = torch.empty((plan.height, plan.width, nch), device="cuda")
-    for _ in range(3):
+    def staged():
         R.resample_inline_twined(buf, coeff, *tensors, **kw)
-    kernel_ms = events_ms(lambda: R.resample_inline_twined(
-        buf, coeff, *tensors, **kw), 20)
+
+    def direct():
+        R.resample_inline_twined(buf, coeff, *tensors, window_bytes=0, **kw)
+    for _ in range(3):
+        staged()
+        direct()
+    turns = [events_ms(f, 20) for f in (staged, direct, direct, staged)]
+    kernel_ms = (turns[0] + turns[3]) / 2
+    direct_ms = (turns[1] + turns[2]) / 2
     plain_ms = events_ms(lambda: R.resample_inline_twined_plain(
         buf, coeff, *tensors, **kw), 3)
     frame_ms = events_ms(lambda: FP.fused_frame(plan, src, out=buf), 20)
     n_px = plan.height * plan.width
+    geom = dict(tmode=kw["tmode"], row0=kw["row0"], face_rows=kw["face_rows"])
     coords = [(sx, sy) for sx, sy, _w in R.inline_tap_coords(
-        *tensors, tmode=kw["tmode"], consts=kw["consts"], row0=kw["row0"],
-        face_rows=kw["face_rows"], smode=kw["smode"], precise=kw["precise"])]
+        *tensors, consts=kw["consts"], smode=kw["smode"],
+        precise=kw["precise"], **geom)]
     table = touched_bytes(coeff, *coords[0], n_deg, coords[1:])
+    shares = staging(coeff, n_deg, R.TILE_TWINED, *coords[0], taps=coords,
+                     reach=R.spread_reach(tensors[3]),
+                     window_bytes=R.twined_window_bytes(taps))
     del coords
     feat = sum(t.numel() * 4 for t in tensors)
     bytes_ms = (table + n_px * nch * 4 + feat) / HBM_BYTES_PER_S * 1e3
@@ -899,15 +1068,20 @@ def twined_inline_path(name, plan, src):
     by = "bytes" if bytes_ms >= ops_ms else "operations"
     print(f"{name}: steady-state frame (fused_frame into one reused buffer,"
           f" median of 20) {frame_ms:.4f} ms = {n_px / 1e3 / frame_ms:.1f} "
-          f"Mpix/s; kernel alone {kernel_ms:.4f} ms; plain version "
+          f"Mpix/s; kernel alone {kernel_ms:.4f} ms at the default budget of "
+          f"{R.twined_window_bytes(taps)} bytes ({turns[0]:.4f}, "
+          f"{turns[3]:.4f}), {direct_ms:.4f} ms direct ({turns[1]:.4f}, "
+          f"{turns[2]:.4f}); plain version "
           f"{plain_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.4f} ms by {by} "
           f"(table bytes under all taps {table / 1e6:.1f} MB of "
           f"{coeff.numel() * 4 / 1e6:.1f} MB; bytes {bytes_ms:.4f} ms, "
           f"operations {ops_ms:.4f} ms); peak device memory of the first "
           f"frame {peak / 2**20:.1f} MiB; clocks/power/temp after: "
           f"{smi_now()}", flush=True)
+    print(f"{name}: staging: {staging_text(shares)}", flush=True)
     return dict(taps=taps, launches=n["resample_inline_twined"],
-                max_abs_err=err_k, ms=kernel_ms, plain_ms=plain_ms,
+                max_abs_err=err_k, ms=kernel_ms, direct_ms=direct_ms,
+                staging=shares, plain_ms=plain_ms,
                 frame_ms=frame_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by=by, peak_mib=peak / 2**20,
                 vs_exact={k: v[0] for k, v in errs.items()},
@@ -1041,16 +1215,23 @@ def main():
         log = lib.build_log.splitlines()
         regs = [int(line.split("Used ")[1].split(" registers")[0])
                 for line in log if "Used " in line and " registers" in line]
-        spills = [line for line in log if "spill" in line and
-                  "0 bytes spill stores, 0 bytes spill loads" not in line]
+        # (bytes of spill stores, template arguments) per spilling entry
+        spills, entry = [], ""
+        for line in log:
+            if "Compiling entry function" in line:
+                args = re.search(r"kernelI((?:Li\d+E)+)E", line)
+                entry = "<" + ", ".join(re.findall(
+                    r"Li(\d+)E", args.group(1) if args else "")) + ">"
+            elif "bytes spill stores" in line and \
+                    "0 bytes spill stores, 0 bytes spill loads" not in line:
+                spills.append((int(line.split("bytes stack frame, ")[1]
+                                   .split(" bytes spill stores")[0]), entry))
+        worst = max(spills, default=(0, "-"))
         print(f"build {lib.source.name}: "
               f"{len(regs)} instantiations, registers "
               f"{min(regs) if regs else '?'}..{max(regs) if regs else '?'}"
-              f", spill lines: {len(spills)}", flush=True)
-        for line in spills:
-            entry = log[log.index(line) - 2] if log.index(line) >= 2 else ""
-            print(f"  spill: {line.strip()} <- {entry.strip()[:160]}",
-                  flush=True)
+              f", {len(spills)} of them spill; most: {worst[0]} bytes of "
+              f"spill stores at {worst[1]}", flush=True)
     print(f"kernel build, {len(R.LIBRARIES)} sources in parallel: "
           f"{build_s:.1f} s wall", flush=True)
     print(f"kernels: {json.dumps(list(WRAPPERS))}", flush=True)
@@ -1299,6 +1480,7 @@ def main():
          "ms": t_main["ms"], "plain_ms": t_main["plain_ms"],
          "bound_ms": t_main["bound_ms"], "bound_by": t_main["bound_by"],
          "library_ms": None,
+         "direct_ms": t_main["direct_ms"], "staging": t_main["staging"],
          "small_case_max_abs_err": worst_inline,
          "frame_ms": t_main["frame_ms"], "prefilter_ms": prefilter_ms,
          "config_2r": dict(t_2r, launches=r2_n["resample_inline"],
@@ -1317,7 +1499,8 @@ def main():
          "launches_by_path": planar_n,
          "paths": t_planar},
         dict({k: t4[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                                 "bound_ms", "bound_by")},
+                                 "bound_ms", "bound_by", "direct_ms",
+                                 "staging")},
              name="resample_inline_twined", route="cuda",
              source="envutil_tpu_torch/csrc/resample_inline_twined.cu",
              replaces="envutil_tpu/ops/pallas_resample.py:1536",

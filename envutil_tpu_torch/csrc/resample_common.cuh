@@ -2,9 +2,33 @@
 // (resample_inline.cu, resample_inline_twined.cu, resample_planar.cu,
 // resample_twined.cu): the target half of the coordinate chain (axis
 // features -> ray), the source pickup (ray -> padded spline
-// coordinates), the gates, and the degree-n tensor-product b-spline at
-// one coordinate pair. Each kernel source includes this header, so
-// ops/kernels.py hashes it into every library's build name.
+// coordinates), the gates, the degree-n tensor-product b-spline at one
+// coordinate pair read straight from global memory (spline_at), and,
+// for the two inline kernels, the staged window: a block's bounding box
+// of table entries copied into shared memory (stage_window) and the
+// same spline read from there (spline_staged). Each kernel source
+// includes this header, so ops/kernels.py hashes it into every
+// library's build name.
+//
+// Why the window. A tap is NCH contiguous floats (12 bytes at three
+// channels), so a direct gather cannot be vectorised, the lanes of a
+// warp read addresses 12 bytes apart, and every one of the
+// (n+1)^2 NCH scalar loads of a pixel walks three or four cache lines
+// in L1: on the H100 the inline kernel spent ~0.5 ms of its 0.83 ms on
+// the main path in those loads, not in device-memory traffic
+// (tools/ablation/ablate_inline.py). Neighbouring pixels' supports
+// overlap almost entirely, so the block reduces its pixels' supports to
+// one box, copies the box's row segments with coalesced cp.async (16
+// bytes a lane where the table's rows are 16-byte aligned, 4 bytes
+// where not) and reads every tap from shared memory, where a load of a
+// warp is one pass over the banks unless two lanes meet in one (the
+// staged rows' pitch is padded against that). Weights, tap order and
+// accumulation order are spline_at's, so the result is bit-identical.
+// A support that is not inside the block's window (the box did not fit
+// the budget: a pole, the periodic seam, a cube-face edge, a steep
+// downscale; or the support leaves the table, where spline_at's flat
+// clamp applies) is read by spline_at itself, per pixel or per tap:
+// correctness never depends on the window.
 
 #pragma once
 
@@ -206,6 +230,194 @@ __device__ __forceinline__ void spline_at(const float* __restrict__ coeff,
     }
 #pragma unroll
     for (int c = 0; c < NCH; ++c) acc[c] += wy[j] * racc[c];
+  }
+}
+
+// ---- the staged window of the inline kernels --------------------------
+
+constexpr int WARPS = BLOCK_Y;   // a warp is one 32-pixel row of the block
+#ifndef ENVUTIL_WINDOW_PAD
+#define ENVUTIL_WINDOW_PAD 1
+#endif
+constexpr bool WINDOW_PAD = ENVUTIL_WINDOW_PAD != 0;
+
+// bounding box of spline bases (bx, by), in table entries
+struct Box {
+  int x0, x1, y0, y1;
+};
+
+__device__ __forceinline__ Box empty_box() {
+  return Box{INT32_MAX, INT32_MIN, INT32_MAX, INT32_MIN};
+}
+
+// The staged part of the table: entries [x0, x1] x [y0, y1] (empty when
+// x1 < x0), held in shared memory as rows of ``pitch`` floats that
+// start at float ``f0`` of the table row.
+struct Window {
+  int x0, x1, y0, y1;
+  int f0, pitch;
+};
+
+// spline_at's split of a coordinate pair into the base entry of its
+// support; false where the support leaves the table (spline_at's flat
+// clamp then decides what is read, so such a support is never staged)
+// and for a NaN. The test runs on the floats: table extents are far
+// below 2^24, where floats hold every integer, so an accepted base
+// converts exactly and equals spline_at's 64-bit one.
+template <int DEGREE>
+__device__ __forceinline__ bool support_base(const Table& t, float sx,
+                                             float sy, int& bx, int& by) {
+  const float lx = ((DEGREE & 1) ? floorf(sx) : floorf(sx + 0.5f)) -
+                   (float)(DEGREE / 2);
+  const float ly = ((DEGREE & 1) ? floorf(sy) : floorf(sy + 0.5f)) -
+                   (float)(DEGREE / 2);
+  const bool inside = lx >= 0.0f && lx <= (float)((int)t.wp - 1 - DEGREE) &&
+                      ly >= 0.0f && ly <= (float)((int)t.hp - 1 - DEGREE);
+  bx = inside ? __float2int_rz(lx) : 0;
+  by = inside ? __float2int_rz(ly) : 0;
+  return inside;
+}
+
+template <int DEGREE>
+__device__ __forceinline__ void box_add(Box& b, const Table& t, float sx,
+                                        float sy) {
+  int bx, by;
+  if (!support_base<DEGREE>(t, sx, sy, bx, by)) return;
+  b.x0 = min(b.x0, bx);
+  b.x1 = max(b.x1, bx);
+  b.y0 = min(b.y0, by);
+  b.y1 = max(b.y1, by);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Reduce the threads' boxes of support bases to the block's, widen it
+// for taps that lie up to ``reach`` output pixels from the pixels whose
+// supports were added (the twined kernel; 0 for none), add the
+// DEGREE + 1 support, and, if the window fits ``budget`` bytes, copy it
+// from the table into ``win`` (16-byte aligned shared memory of at
+// least ``budget`` bytes). ``tile_w`` x ``tile_h`` are the output pixels
+// the block covers. Every thread of the block must call it; it returns
+// the window, empty when nothing was staged. ``sbox`` is four ints of
+// shared memory.
+template <int DEGREE, int NCH>
+__device__ __forceinline__ Window stage_window(
+    Box b, float reach, int tile_w, int tile_h, const Table& t,
+    const float* __restrict__ coeff, float* win, int* sbox, int budget) {
+  const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  Window w{INT32_MAX, INT32_MIN, INT32_MAX, INT32_MIN, 0, 0};
+  if (budget <= 0) return w;        // launch-uniform: the direct branch
+  if (tid == 0) {
+    sbox[0] = INT32_MAX; sbox[1] = INT32_MIN;
+    sbox[2] = INT32_MAX; sbox[3] = INT32_MIN;
+  }
+  __syncthreads();
+  b.x0 = __reduce_min_sync(0xffffffffu, b.x0);
+  b.x1 = __reduce_max_sync(0xffffffffu, b.x1);
+  b.y0 = __reduce_min_sync(0xffffffffu, b.y0);
+  b.y1 = __reduce_max_sync(0xffffffffu, b.y1);
+  if (lane == 0 && b.x1 >= b.x0) {
+    atomicMin(&sbox[0], b.x0); atomicMax(&sbox[1], b.x1);
+    atomicMin(&sbox[2], b.y0); atomicMax(&sbox[3], b.y1);
+  }
+  __syncthreads();
+  b = Box{sbox[0], sbox[1], sbox[2], sbox[3]};
+  if (b.x1 < b.x0) return w;        // no pixel's support lies in the table
+  if (reach > 0.0f) {
+    // the further taps of a pixel lie within ``reach`` output pixels
+    // of the one whose support was added; the box's two extents over
+    // the tile's two estimate the source entries per output pixel (a
+    // rotation spreads them over both); one entry more for the rounding
+    const float per_px = (float)((b.x1 - b.x0) + (b.y1 - b.y0)) /
+                         (float)max(tile_w + tile_h - 2, 1);
+    const int m = (int)ceilf(reach * per_px) + 1;
+    b.x0 -= m; b.x1 += m; b.y0 -= m; b.y1 += m;
+  }
+  const int wp = (int)t.wp, hp = (int)t.hp;
+  const int x0 = max(b.x0, 0), x1 = min(b.x1 + DEGREE, wp - 1);
+  const int y0 = max(b.y0, 0), y1 = min(b.y1 + DEGREE, hp - 1);
+  // rows of 16-byte aligned segments where the table allows it
+  const bool vec = ((wp * NCH) & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(coeff) & 15) == 0;
+  int f0 = x0 * NCH, f1 = (x1 + 1) * NCH;
+  if (vec) {
+    f0 &= ~3;
+    f1 = (f1 + 3) & ~3;           // <= wp * NCH, itself a multiple of 4
+  }
+  // Staged rows are ``pitch`` floats apart: the segment's length padded
+  // to 4 more than a multiple of 32, so that a warp whose lanes' taps
+  // lie on several rows (a slanted or rotated view) spreads over the
+  // banks instead of meeting in a few (an unpadded length that is a
+  // multiple of 32 would put a whole column into one bank)
+  const int span = f1 - f0, rows = y1 - y0 + 1;
+  const int pitch = WINDOW_PAD ? span + ((4 - span) & 31) : span;
+  if ((int64_t)rows * pitch * 4 > (int64_t)budget) return w;
+
+  for (int r = warp; r < rows; r += WARPS) {
+    const float* src = coeff + ((int64_t)(y0 + r) * wp * NCH + f0);
+    float* dst = win + r * pitch;
+    if (vec) {
+      for (int v = lane * 4; v < span; v += 128) cp_async16(dst + v, src + v);
+    } else {
+      for (int v = lane; v < span; v += 32) cp_async4(dst + v, src + v);
+    }
+  }
+  cp_async_wait();
+  __syncthreads();
+  return Window{x0, x1, y0, y1, f0, pitch};
+}
+
+// spline_at, with the taps read from the block's staged window where
+// the support lies inside it, and by spline_at itself where it does
+// not. Same weights, tap order and accumulation order: bit-identical.
+template <int DEGREE, int NCH>
+__device__ __forceinline__ void spline_staged(
+    const float* win, const Window& w, const float* __restrict__ coeff,
+    const Table& t, float sx, float sy, float (&acc)[NCH]) {
+  int bx, by;
+  if (!support_base<DEGREE>(t, sx, sy, bx, by) || bx < w.x0 ||
+      bx + DEGREE > w.x1 || by < w.y0 || by + DEGREE > w.y1) {
+    spline_at<DEGREE, NCH>(coeff, t, sx, sy, acc);
+    return;
+  }
+  const float selx = (DEGREE & 1) ? floorf(sx) : floorf(sx + 0.5f);
+  const float sely = (DEGREE & 1) ? floorf(sy) : floorf(sy + 0.5f);
+  float wx[DEGREE + 1], wy[DEGREE + 1];
+  weights<DEGREE>(t.wmat, sx - selx, wx);
+  weights<DEGREE>(t.wmat, sy - sely, wy);
+  const float* row = win + ((by - w.y0) * w.pitch + (bx * NCH - w.f0));
+
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
+#pragma unroll
+  for (int j = 0; j <= DEGREE; ++j) {
+    float racc[NCH];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) racc[c] = 0.0f;
+#pragma unroll
+    for (int k = 0; k <= DEGREE; ++k) {
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) racc[c] += wx[k] * row[k * NCH + c];
+    }
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) acc[c] += wy[j] * racc[c];
+    row += w.pitch;
   }
 }
 
