@@ -30,17 +30,15 @@ events. The paths:
   -> 4096x2048 equirect, --twine 2 (resample_twined with per-pixel tap
   weights).
 
-The two inline kernels (resample_inline, resample_inline_twined) stage
-each block's source window in shared memory and gather from global
-memory where a window does not fit; every comparison of either with its
-plain version runs both branches (the default window budget, a small
-one, and 0, which forces the direct gather everywhere) and requires the
-outputs to be bit-equal, and every full-size inline path times the
-wrapper's default budget beside the direct branch in the same run and
-prints the share of blocks, pixels and taps that staged. (The twined
-wrapper's default stages from 16 taps on; below, its default is the
-direct branch, so the two times of config 4 and the pole-and-seam view
-are two readings of one branch.)
+The inline kernel (resample_inline) stages each block's source window
+in shared memory and gathers from global memory where a window does not
+fit; every comparison of it with its plain version runs both branches
+(the default window budget, a small one, and 0, which forces the direct
+gather everywhere) and requires the outputs to be bit-equal, and its
+full-size paths time the default budget beside the direct branch in the
+same run. What share of blocks and pixels stage is printed on a line of
+its own as the plain window model's reckoning (ops/resample.
+window_model), not as a reading of the kernel.
 
 Every phase runs; any failure raises and the script exits non-zero. It
 exits non-zero without a result when no CUDA card is available. The
@@ -292,56 +290,29 @@ def kernel_vs_plain(plan, src, degree, budgets=None):
     return float(diff.max()), n_edge, out_k, out_p
 
 
-def staging(coeff, degree, tile, sx, sy, taps=None, reach=0.0,
-            window_bytes=None):
+def window_model_text(coeff, degree, sx, sy):
     """What the plain model of the staged window (ops/resample.
-    window_model) says of one inline launch: the share of blocks and of
-    pixels that stage at ``window_bytes`` (default: the inline wrapper's
-    budget), the bytes the staged
+    window_model) reckons for one inline launch at the wrapper's budget:
+    the share of blocks and of pixels that stage, the bytes the staged
     windows copy in total beside the table bytes under those blocks'
-    supports counted once (the halo's cost), the mean window, and, for
-    the twined kernel (``taps``: the per-tap coordinate pairs; ``sx``,
-    ``sy`` the first tap's), the share of taps that left their window."""
+    supports counted once (the halo's cost), and the mean window. The
+    kernel reports nothing of this itself."""
     from envutil_tpu_torch.ops import resample as R
-    kw = dict(degree=degree, table_shape=tuple(coeff.shape), tile=tile)
-    if window_bytes is None:
-        window_bytes = R.WINDOW_BYTES
-    win = R.window_model(sx, sy, window_bytes=window_bytes, reach=reach,
-                         **kw)
+    tile = R.TILE_INLINE
+    win = R.window_model(sx, sy, degree=degree,
+                         table_shape=tuple(coeff.shape))
     staged = win["staged"]
     px = R.block_to_pixels(staged, tile, *sx.shape)
-    pairs = [(sx, sy)] if taps is None else taps
-    held = sum(int(R.window_holds(win, x, y, **kw).sum()) for x, y in pairs)
-    touched = touched_bytes(coeff, pairs[0][0][px], pairs[0][1][px], degree,
-                            [(x[px], y[px]) for x, y in pairs[1:]])
-    out = dict(
-        tile=list(tile), window_bytes=window_bytes,
-        blocks=staged.numel(), blocks_staged=float(staged.float().mean()),
-        pixels_staged=float(px.float().mean()),
-        staged_copy_mb=float(win["copied"][staged].sum()) / 1e6,
-        staged_touched_mb=touched / 1e6,
-        mean_window_kb=(float(win["bytes"][staged].float().mean()) / 1024
-                        if bool(staged.any()) else 0.0))
-    if taps is not None:
-        out["taps_outside_window"] = 1.0 - held / (len(pairs) * sx.numel())
-        out["taps_outside_window_in_staged_blocks"] = \
-            1.0 - held / max(len(pairs) * int(px.sum()), 1)
-    return out
-
-
-def staging_text(s):
-    text = (f"{100 * s['blocks_staged']:.2f}% of {s['blocks']} blocks "
-            f"({s['tile'][0]}x{s['tile'][1]} px) and "
-            f"{100 * s['pixels_staged']:.2f}% of pixels stage at "
-            f"{s['window_bytes']} bytes; staged windows copy "
-            f"{s['staged_copy_mb']:.1f} MB for {s['staged_touched_mb']:.1f} "
-            f"MB of table under those blocks' taps (mean window "
-            f"{s['mean_window_kb']:.1f} KB)")
-    if "taps_outside_window" in s:
-        text += (f"; {100 * s['taps_outside_window']:.3f}% of all taps and "
-                 f"{100 * s['taps_outside_window_in_staged_blocks']:.3f}% of "
-                 f"the staged blocks' taps read global memory")
-    return text
+    touched = touched_bytes(coeff, sx[px], sy[px], degree)
+    mean_kb = (float(win["bytes"][staged].float().mean()) / 1024
+               if bool(staged.any()) else 0.0)
+    return (f"{100 * float(staged.float().mean()):.2f}% of {staged.numel()} "
+            f"blocks ({tile[0]}x{tile[1]} px) and "
+            f"{100 * float(px.float().mean()):.2f}% of pixels stage at "
+            f"{R.WINDOW_BYTES} bytes; staged windows copy "
+            f"{float(win['copied'][staged].sum()) / 1e6:.1f} MB for "
+            f"{touched / 1e6:.1f} MB of table under those blocks' taps "
+            f"(mean window {mean_kb:.1f} KB)")
 
 
 def phase_small_inline():
@@ -638,8 +609,8 @@ def render(plan, src, name, want_inline=0, want_planar=0, want=None):
 def time_inline(plan, src, name):
     """Steady-state frame, kernel alone on its staged and on its direct
     branch (median of 20 each, in turns: staged, direct, direct,
-    staged) and plain version (median of 3) of an inline-kernel path,
-    with the staging shares of the plain window model."""
+    staged) and plain version (median of 3) of an inline-kernel path;
+    prints the plain window model's reckoning of what stages."""
     import torch
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.runtime import fastpath as FP
@@ -680,11 +651,11 @@ def time_inline(plan, src, name):
     sx, sy = R.inline_coords(*args[1:], tmode=kw["tmode"],
                              consts=kw["consts"], row0=kw["row0"],
                              face_rows=kw["face_rows"], smode=kw["smode"])
-    shares = staging(src.spl.coeff, src.spl.degree, R.TILE_INLINE, sx, sy)
-    print(f"{name}: staging: {staging_text(shares)}", flush=True)
+    print(f"{name}: by the plain window model (not read from the kernel): "
+          f"{window_model_text(src.spl.coeff, src.spl.degree, sx, sy)}",
+          flush=True)
     return dict(frame_ms=frame_ms, ms=kernel_ms, direct_ms=direct_ms,
-                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-                staging=shares)
+                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
 
 
 def time_planar(plan, src, name):
@@ -787,10 +758,8 @@ def twined_inline_operands(plan, src):
 
 
 def twined_kernel_vs_plain(plan, src):
-    """Launch the inline twined kernel on both its branches (staged at
-    the wrapper's budget and at SMALL_BUDGET, direct at 0), require them
-    bit-equal, and launch its plain version on the same operands;
-    returns (max abs difference over the compared pixels,
+    """Launch the inline twined kernel and its plain version on the same
+    operands; returns (max abs difference over the compared pixels,
     pixels excluded because a tap's ray lies at a cube-face edge)."""
     import torch
     from envutil_tpu_torch.ops import resample as R
@@ -799,13 +768,8 @@ def twined_kernel_vs_plain(plan, src):
     coeff = src.spl.coeff
     y0, y1, x0, x1 = FP.frame_window(plan)
     shape = (y1 - y0, x1 - x0, coeff.shape[-1])
-    def launch(budget):
-        return R.resample_inline_twined(
-            torch.empty(shape, device="cuda"), coeff, *tensors,
-            window_bytes=budget, **kw)
-    out_k = staged_equals_direct(launch, launch(0),
-                                 (R.TWINED_WINDOW_BYTES, R.WINDOW_BYTES,
-                                  SMALL_BUDGET), "resample_inline_twined")
+    out_k = R.resample_inline_twined(
+        torch.empty(shape, device="cuda"), coeff, *tensors, **kw)
     out_p = R.resample_inline_twined_plain(
         torch.empty(shape, device="cuda"), coeff, *tensors, **kw)
     torch.cuda.synchronize()
@@ -1033,29 +997,18 @@ def twined_inline_path(name, plan, src):
     tensors, kw = twined_inline_operands(plan, src)
     coeff, n_deg, nch = src.spl.coeff, src.spl.degree, src.spl.coeff.shape[-1]
     buf = torch.empty((plan.height, plan.width, nch), device="cuda")
-    def staged():
-        R.resample_inline_twined(buf, coeff, *tensors, **kw)
-
-    def direct():
-        R.resample_inline_twined(buf, coeff, *tensors, window_bytes=0, **kw)
     for _ in range(3):
-        staged()
-        direct()
-    turns = [events_ms(f, 20) for f in (staged, direct, direct, staged)]
-    kernel_ms = (turns[0] + turns[3]) / 2
-    direct_ms = (turns[1] + turns[2]) / 2
+        R.resample_inline_twined(buf, coeff, *tensors, **kw)
+    kernel_ms = events_ms(lambda: R.resample_inline_twined(
+        buf, coeff, *tensors, **kw), 20)
     plain_ms = events_ms(lambda: R.resample_inline_twined_plain(
         buf, coeff, *tensors, **kw), 3)
     frame_ms = events_ms(lambda: FP.fused_frame(plan, src, out=buf), 20)
     n_px = plan.height * plan.width
-    geom = dict(tmode=kw["tmode"], row0=kw["row0"], face_rows=kw["face_rows"])
     coords = [(sx, sy) for sx, sy, _w in R.inline_tap_coords(
-        *tensors, consts=kw["consts"], smode=kw["smode"],
-        precise=kw["precise"], **geom)]
+        *tensors, tmode=kw["tmode"], consts=kw["consts"], row0=kw["row0"],
+        face_rows=kw["face_rows"], smode=kw["smode"], precise=kw["precise"])]
     table = touched_bytes(coeff, *coords[0], n_deg, coords[1:])
-    shares = staging(coeff, n_deg, R.TILE_TWINED, *coords[0], taps=coords,
-                     reach=R.spread_reach(tensors[3]),
-                     window_bytes=R.twined_window_bytes(taps))
     del coords
     feat = sum(t.numel() * 4 for t in tensors)
     bytes_ms = (table + n_px * nch * 4 + feat) / HBM_BYTES_PER_S * 1e3
@@ -1068,20 +1021,15 @@ def twined_inline_path(name, plan, src):
     by = "bytes" if bytes_ms >= ops_ms else "operations"
     print(f"{name}: steady-state frame (fused_frame into one reused buffer,"
           f" median of 20) {frame_ms:.4f} ms = {n_px / 1e3 / frame_ms:.1f} "
-          f"Mpix/s; kernel alone {kernel_ms:.4f} ms at the default budget of "
-          f"{R.twined_window_bytes(taps)} bytes ({turns[0]:.4f}, "
-          f"{turns[3]:.4f}), {direct_ms:.4f} ms direct ({turns[1]:.4f}, "
-          f"{turns[2]:.4f}); plain version "
+          f"Mpix/s; kernel alone {kernel_ms:.4f} ms; plain version "
           f"{plain_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.4f} ms by {by} "
           f"(table bytes under all taps {table / 1e6:.1f} MB of "
           f"{coeff.numel() * 4 / 1e6:.1f} MB; bytes {bytes_ms:.4f} ms, "
           f"operations {ops_ms:.4f} ms); peak device memory of the first "
           f"frame {peak / 2**20:.1f} MiB; clocks/power/temp after: "
           f"{smi_now()}", flush=True)
-    print(f"{name}: staging: {staging_text(shares)}", flush=True)
     return dict(taps=taps, launches=n["resample_inline_twined"],
-                max_abs_err=err_k, ms=kernel_ms, direct_ms=direct_ms,
-                staging=shares, plain_ms=plain_ms,
+                max_abs_err=err_k, ms=kernel_ms, plain_ms=plain_ms,
                 frame_ms=frame_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by=by, peak_mib=peak / 2**20,
                 vs_exact={k: v[0] for k, v in errs.items()},
@@ -1480,7 +1428,7 @@ def main():
          "ms": t_main["ms"], "plain_ms": t_main["plain_ms"],
          "bound_ms": t_main["bound_ms"], "bound_by": t_main["bound_by"],
          "library_ms": None,
-         "direct_ms": t_main["direct_ms"], "staging": t_main["staging"],
+         "direct_ms": t_main["direct_ms"],
          "small_case_max_abs_err": worst_inline,
          "frame_ms": t_main["frame_ms"], "prefilter_ms": prefilter_ms,
          "config_2r": dict(t_2r, launches=r2_n["resample_inline"],
@@ -1499,8 +1447,7 @@ def main():
          "launches_by_path": planar_n,
          "paths": t_planar},
         dict({k: t4[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                                 "bound_ms", "bound_by", "direct_ms",
-                                 "staging")},
+                                 "bound_ms", "bound_by")},
              name="resample_inline_twined", route="cuda",
              source="envutil_tpu_torch/csrc/resample_inline_twined.cu",
              replaces="envutil_tpu/ops/pallas_resample.py:1536",

@@ -4,9 +4,9 @@
 // features -> ray), the source pickup (ray -> padded spline
 // coordinates), the gates, the degree-n tensor-product b-spline at one
 // coordinate pair read straight from global memory (spline_at), and,
-// for the two inline kernels, the staged window: a block's bounding box
-// of table entries copied into shared memory (stage_window) and the
-// same spline read from there (spline_staged). Each kernel source
+// for the inline kernel, the staged window: a block's bounding box of
+// table entries copied into shared memory (stage_window) and the same
+// spline read from there (spline_staged). Each kernel source
 // includes this header, so ops/kernels.py hashes it into every
 // library's build name.
 //
@@ -27,8 +27,10 @@
 // A support that is not inside the block's window (the box did not fit
 // the budget: a pole, the periodic seam, a cube-face edge, a steep
 // downscale; or the support leaves the table, where spline_at's flat
-// clamp applies) is read by spline_at itself, per pixel or per tap:
-// correctness never depends on the window.
+// clamp applies) is read by spline_at itself, per pixel: correctness
+// never depends on the window. The twined inline kernel does not stage:
+// it is bound by its per-tap arithmetic, and a window measured no gain
+// there (resample_inline_twined.cu).
 
 #pragma once
 
@@ -233,13 +235,9 @@ __device__ __forceinline__ void spline_at(const float* __restrict__ coeff,
   }
 }
 
-// ---- the staged window of the inline kernels --------------------------
+// ---- the staged window of the inline kernel ---------------------------
 
 constexpr int WARPS = BLOCK_Y;   // a warp is one 32-pixel row of the block
-#ifndef ENVUTIL_WINDOW_PAD
-#define ENVUTIL_WINDOW_PAD 1
-#endif
-constexpr bool WINDOW_PAD = ENVUTIL_WINDOW_PAD != 0;
 
 // bounding box of spline bases (bx, by), in table entries
 struct Box {
@@ -306,19 +304,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Reduce the threads' boxes of support bases to the block's, widen it
-// for taps that lie up to ``reach`` output pixels from the pixels whose
-// supports were added (the twined kernel; 0 for none), add the
+// Reduce the threads' boxes of support bases to the block's, add the
 // DEGREE + 1 support, and, if the window fits ``budget`` bytes, copy it
 // from the table into ``win`` (16-byte aligned shared memory of at
-// least ``budget`` bytes). ``tile_w`` x ``tile_h`` are the output pixels
-// the block covers. Every thread of the block must call it; it returns
-// the window, empty when nothing was staged. ``sbox`` is four ints of
-// shared memory.
+// least ``budget`` bytes). Every thread of the block must call it; it
+// returns the window, empty when nothing was staged. ``sbox`` is four
+// ints of shared memory.
 template <int DEGREE, int NCH>
 __device__ __forceinline__ Window stage_window(
-    Box b, float reach, int tile_w, int tile_h, const Table& t,
-    const float* __restrict__ coeff, float* win, int* sbox, int budget) {
+    Box b, const Table& t, const float* __restrict__ coeff, float* win,
+    int* sbox, int budget) {
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
   const int lane = threadIdx.x, warp = threadIdx.y;
   Window w{INT32_MAX, INT32_MIN, INT32_MAX, INT32_MIN, 0, 0};
@@ -339,16 +334,6 @@ __device__ __forceinline__ Window stage_window(
   __syncthreads();
   b = Box{sbox[0], sbox[1], sbox[2], sbox[3]};
   if (b.x1 < b.x0) return w;        // no pixel's support lies in the table
-  if (reach > 0.0f) {
-    // the further taps of a pixel lie within ``reach`` output pixels
-    // of the one whose support was added; the box's two extents over
-    // the tile's two estimate the source entries per output pixel (a
-    // rotation spreads them over both); one entry more for the rounding
-    const float per_px = (float)((b.x1 - b.x0) + (b.y1 - b.y0)) /
-                         (float)max(tile_w + tile_h - 2, 1);
-    const int m = (int)ceilf(reach * per_px) + 1;
-    b.x0 -= m; b.x1 += m; b.y0 -= m; b.y1 += m;
-  }
   const int wp = (int)t.wp, hp = (int)t.hp;
   const int x0 = max(b.x0, 0), x1 = min(b.x1 + DEGREE, wp - 1);
   const int y0 = max(b.y0, 0), y1 = min(b.y1 + DEGREE, hp - 1);
@@ -366,7 +351,7 @@ __device__ __forceinline__ Window stage_window(
   // banks instead of meeting in a few (an unpadded length that is a
   // multiple of 32 would put a whole column into one bank)
   const int span = f1 - f0, rows = y1 - y0 + 1;
-  const int pitch = WINDOW_PAD ? span + ((4 - span) & 31) : span;
+  const int pitch = span + ((4 - span) & 31);
   if ((int64_t)rows * pitch * 4 > (int64_t)budget) return w;
 
   for (int r = warp; r < rows; r += WARPS) {

@@ -54,12 +54,13 @@
 // the blocks an SM holds, and the chain is a long string of dependent
 // operations, so the warps in flight set the pace: the register cap
 // (MIN_BLOCKS), the tile height and the budget (every block is launched
-// with all of it) were chosen by timing (tools/ablation/tune_inline.py).
-// On the main path the chain and stores take ~0.24 ms, box, copy and
-// barriers ~0.12 ms, the taps from shared memory ~0.29 ms: 0.66 ms
-// against 0.82 ms for the direct gather. Overlapping the copy with the
-// next tile's chain (a persistent block with two windows) is left for
-// later.
+// with all of it) were chosen by timing builds that differed in one of
+// them.
+// On the main path the chain and stores take ~0.24 ms of the staged
+// kernel's ~0.68 ms (chip_smoke.py times it beside the direct gather's
+// ~0.9 ms); the box, copy and barriers and the taps from shared memory
+// share the rest. Overlapping the copy with the next tile's chain (a
+// persistent block with two windows) is left for later.
 //
 // The direct branch. A block whose box does not fit - it holds a pole,
 // straddles the periodic seam (the box spans the table's width) or a
@@ -71,6 +72,8 @@
 // block-uniform inside the one kernel; a budget of 0 sends every block
 // that way (the wrapper's test keyword).
 
+#include <mutex>
+
 #include "resample_common.cuh"
 
 namespace {
@@ -80,25 +83,18 @@ using namespace envutil;
 // output rows per thread: the tile is 32 x (8 ROWS). A taller tile
 // lowers the window's halo share and lets the compiler interleave the
 // rows' chains; more rows cost registers, shared memory and blocks in
-// flight. tools/ablation/tune_inline.py times the choices.
-#ifndef ENVUTIL_INLINE_ROWS
-#define ENVUTIL_INLINE_ROWS 2
-#endif
-constexpr int ROWS = ENVUTIL_INLINE_ROWS;
+// flight. Timed on the H100's main path, two rows beat one (the rows'
+// chains interleave) and four (their windows outgrow the budget).
+constexpr int ROWS = 2;
 // blocks the compiler must leave room for on an SM, which caps the
 // registers: the coordinate chain is a long string of dependent
 // operations and the phases of a block do not overlap, so it is the
 // number of warps in flight that sets the pace. Five blocks (48
 // registers) spill a few bytes at degree 3; the higher degrees hold
 // more weights and keep four (64 registers).
-#ifndef ENVUTIL_INLINE_MIN_BLOCKS
-#define ENVUTIL_INLINE_MIN_BLOCKS 5
-#endif
 template <int DEGREE>
 constexpr int min_blocks() {
-  return DEGREE <= 3 ? ENVUTIL_INLINE_MIN_BLOCKS
-                     : (ENVUTIL_INLINE_MIN_BLOCKS < 4
-                            ? ENVUTIL_INLINE_MIN_BLOCKS : 4);
+  return DEGREE <= 3 ? 5 : 4;
 }
 
 struct Params {
@@ -156,9 +152,8 @@ resample_inline_kernel(float* __restrict__ out,
       }
     }
   }
-  const Window w = stage_window<DEGREE, NCH>(
-      box, 0.0f, BLOCK_X, BLOCK_Y * ROWS, p.table, coeff, win, sbox,
-      p.budget);
+  const Window w = stage_window<DEGREE, NCH>(box, p.table, coeff, win, sbox,
+                                             p.budget);
 
   if (x >= width) return;
   // one copy of the spline's code for all rows (the build's time and the
@@ -193,18 +188,16 @@ struct Launch {
     const size_t smem = (size_t)p.budget;
     auto kernel = resample_inline_kernel<DEGREE, NCH, TMODE>;
     // Above 48 KB (static shared memory included) a kernel must opt
-    // in. The instantiation is told what this launch needs whenever
-    // that differs from its last launch, downwards too: a launch
-    // without a window after one with a large window ran ~15% slower
-    // while the larger size stayed set. A refusal is returned, not
-    // worked around.
-    static size_t set_to = ~(size_t)0;
-    if (smem != set_to) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-      set_to = smem;
-    }
+    // in, per device. Every launch tells the current device's copy of
+    // the instantiation what it needs, downwards too (a size left set
+    // slowed later launches that needed less), and holds a lock from
+    // there to the launch, so that another host thread's budget cannot
+    // come between the two. A refusal is returned, not worked around.
+    static std::mutex launching;
+    const std::lock_guard<std::mutex> lock(launching);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
     kernel<<<grid, block, smem, s>>>(out, coeff, xfeat, yfeat, bmats, p);
     return cudaGetLastError();
   }

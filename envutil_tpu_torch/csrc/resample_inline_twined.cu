@@ -21,7 +21,7 @@
 // does: each tap's ray goes through atan2 and the gate, or through the
 // face cascade, on its own, and the seam, the poles and cube edges are
 // no special case. The price is the pickup's transcendentals per tap
-// instead of per pixel, which a gather-bound kernel hides.
+// instead of per pixel, which is what bounds the kernel (below).
 //
 // Rounding. The rays, their normalisation, the derivative rays and each
 // tap's ray are computed with __fmul_rn/__fadd_rn/__fsqrt_rn/__fdiv_rn
@@ -30,48 +30,38 @@
 // ray is bit-identical to the plain version's on the card and so is the
 // cube face each tap picks.
 //
-// What bounds it on this card. Bytes as for the inline kernel, with the
-// table entries counted over all taps' footprints (chip_smoke.py counts
-// them per run); the arithmetic is K times the pickup and the spline,
-// which at 16 taps and degree 1 is the larger of the two. Ablation of
-// the one-thread-a-pixel direct gather (tools/ablation/
-// ablate_inline.py) put ~2/3 of its time into the per-tap ray, pickup
-// and weights (0.10 of 0.15 ms at 4 taps, 0.29 of 0.46 ms at 16) and
-// ~1/3 into the tap loads: the kernel is bound by the instructions it
-// runs, not by its loads. A cheaper atan2 and gate saved 5-10%, so
-// the pickup stays the exact one the plain version's face choice and
-// coordinates agree with. Staging the window therefore does not speed
-// this kernel up: timed back to back against its plain loop it costs
-// 15% at 4 taps (the block's box, copy and barriers and the test per
-// tap) and breaks even from 9 to 16 taps
-// (tools/ablation/tune_inline.py). The wrapper stages from 16 taps on,
-// where the window at least takes the tap loads off L1 and L2.
-//
 // Design. One thread per output pixel on 32x8 blocks and a runtime loop
 // over the taps inside; the spread (3 floats a tap, 1/DERIV_BIAS folded
 // into the offsets) is staged in dynamic shared memory once per block,
 // so the tap count is no template parameter and the build stays at the
-// inline kernel's 96 instantiations. The taps of a block's pixels all
-// read one small part of the table, so the block stages it in shared
-// memory as the inline kernel does (resample_common.cuh: stage_window).
-// The tap count is a run-time number, so no thread can keep its taps'
-// coordinates to size the window: the block takes the box of its
-// pixels' first taps (whose pickup the tap loop then reuses) and widens
-// it by the spread's reach (twice the largest tap offset in output
-// pixels, which the wrapper passes, times the box's own extent per tile
-// pixel, plus one entry).
-// That is an estimate, and nothing rests
-// on it: every tap tests whether its own (n+1)^2 support lies inside
-// the window and gathers from global memory (spline_at) when it does
-// not, so taps across the seam, a pole or a cube edge, and whole
-// blocks whose window does not fit the budget, take the direct branch.
-// A budget of 0 is a launch without windows: it runs the plain tap loop
-// with none of the window's upkeep (the first tap kept apart, the
-// per-tap test), which is what few taps a pixel are fastest with.
+// inline kernel's 96 instantiations. Taps of one pixel land within a
+// few source pixels of each other, so L1 serves most of their gathers.
 //
-// Left for later: sharing the (n+1)^2 window between neighbouring taps
-// (the TPU kernel's union-tap form), and the separable-grid spread
-// layout, which both compute the same sum.
+// What bounds it on this card. By bytes as the inline kernel, with the
+// table entries counted over all taps' footprints (chip_smoke.py counts
+// them per run); the arithmetic is K times the pickup and the spline,
+// which at 16 taps and degree 1 is the larger of the two. Ablation on
+// the H100 (tools/ablation/ablate_inline.py) put ~2/3 of the kernel's
+// time into the per-tap ray, pickup and weights (0.10 of 0.15 ms at 4
+// taps, 0.29 of 0.46 ms at 16) and ~1/3 into the tap loads: it is bound
+// by the instructions it runs, not by its loads. A polynomial atan2 and
+// a reciprocal gate saved 5-10% and cost a few ulp of longitude, which
+// is too much at the seam of an 8K table, so the pickup stays the exact
+// one that the plain version's coordinates and face choice agree with.
+//
+// No staged window. The inline kernel copies each block's source window
+// into shared memory (resample_common.cuh: stage_window). The same was
+// built and timed here (the box of the pixels' first taps widened by
+// the spread's reach, a test per tap, global memory for taps outside):
+// against this plain loop it cost 15% at 4 taps and broke even from 9
+// to 16, because it takes wavefronts off L1 but adds a box, a copy,
+// barriers and a test per tap to a kernel that waits on none of its
+// loads. So this kernel gathers every tap with spline_at.
+//
+// Left for later: less arithmetic per tap that keeps each tap's ray and
+// face bit-identical (none is known), sharing the (n+1)^2 support
+// between neighbouring taps (the TPU kernel's union-tap form), and the
+// separable-grid spread layout, which both compute the same sum.
 
 #include "resample_common.cuh"
 
@@ -86,8 +76,6 @@ struct Params {
   int nfx, nfy;                 // feature rows of one set (centre or biased)
   int n_taps;
   int precise;                  // tangent-plane derivative basis
-  int budget;                   // window bytes of shared memory (0: direct)
-  float reach;                  // how far a tap lies from the first, output px
   Pickup pick;
   Table table;
 };
@@ -120,49 +108,8 @@ __device__ __forceinline__ void derivative(const float (&p)[3], float (&q)[3],
     q[i] = __fsub_rn(__fadd_rn(q[i], __fmul_rn(t, p[i])), p[i]);
 }
 
-// the pickup of one tap's ray p0 + cx du + cy dv
-__device__ __forceinline__ void tap_coords(const Pickup& pick,
-                                           const float (&p0)[3],
-                                           const float (&du)[3],
-                                           const float (&dv)[3], float cx,
-                                           float cy, float& sx, float& sy) {
-  float r[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    r[i] = __fadd_rn(__fadd_rn(p0[i], __fmul_rn(cx, du[i])),
-                     __fmul_rn(cy, dv[i]));
-  pickup(pick, r[0], r[1], r[2], sx, sy);
-}
-
-// acc += wk * spline(sx, sy), from the window or from global memory
-template <int DEGREE, int NCH>
-__device__ __forceinline__ void tap_add(const float* win, const Window& w,
-                                        const float* __restrict__ coeff,
-                                        const Table& t, float sx, float sy,
-                                        float wk, float (&acc)[NCH]) {
-  float val[NCH];
-  spline_staged<DEGREE, NCH>(win, w, coeff, t, sx, sy, val);
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) acc[c] += wk * val[c];
-}
-
-// blocks the compiler must leave room for on an SM (five, 48 registers,
-// up to degree 1, where twining mostly runs; four above, where the
-// weights need the registers), and taps per turn of the unrolled tap
-// loop: the per-tap chain is a long string of dependent operations,
-// paced by the warps in flight and by how many taps' chains the
-// compiler can interleave
-#ifndef ENVUTIL_TWINED_MIN_BLOCKS
-#define ENVUTIL_TWINED_MIN_BLOCKS 5
-#endif
-#ifndef ENVUTIL_TWINED_UNROLL
-#define ENVUTIL_TWINED_UNROLL 2
-#endif
-constexpr int TAP_UNROLL = ENVUTIL_TWINED_UNROLL;
-
 template <int DEGREE, int NCH, int TMODE>
-__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y,
-                                   DEGREE <= 1 ? ENVUTIL_TWINED_MIN_BLOCKS : 4)
+__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 resample_inline_twined_kernel(float* __restrict__ out,
                               const float* __restrict__ coeff,
                               const float* __restrict__ xfeat,
@@ -170,137 +117,88 @@ resample_inline_twined_kernel(float* __restrict__ out,
                               const float* __restrict__ bmats,
                               const float* __restrict__ spread,
                               const Params p) {
-  extern __shared__ float4 shared[];
-  __shared__ int sbox[4];
-  // layout: the spread (padded to 16 bytes), then the window
-  float* taps = reinterpret_cast<float*>(shared);   // (n_taps, 3): cx, cy, w
-  float* win = taps + ((3 * p.n_taps + 3) & ~3);
+  extern __shared__ float taps[];  // (n_taps, 3): cx, cy, w
   for (int i = threadIdx.y * BLOCK_X + threadIdx.x; i < 3 * p.n_taps;
        i += BLOCK_X * BLOCK_Y)
     taps[i] = spread[i];
   __syncthreads();
 
-  const int width = (int)p.width, height = (int)p.height;
-  const int bx0 = blockIdx.x * BLOCK_X;
-  const int x = bx0 + threadIdx.x;
-  const int y = blockIdx.y * BLOCK_Y + threadIdx.y;
-  const bool live = x < width && y < height;
+  const int64_t x = (int64_t)blockIdx.x * BLOCK_X + threadIdx.x;
+  const int64_t y = (int64_t)blockIdx.y * BLOCK_Y + threadIdx.y;
+  if (x >= p.width || y >= p.height) return;
 
-  float p0[3] = {0.0f, 0.0f, 1.0f}, du[3] = {0.0f, 0.0f, 0.0f},
-        dv[3] = {0.0f, 0.0f, 0.0f};
-  float sx0 = 0.0f, sy0 = 0.0f;   // the first tap's coordinates
-  Box box = empty_box();
-  if (live) {
-    int face = 0;
-    if (p.face_rows > 0) {
-      face = (p.row0 + y) / p.face_rows;
-      face = min(max(face, 0), 5);
-    }
-    const float* bm = bmats + face * 9;
-    const float* xbias = xfeat + p.nfx * p.width;   // the biased sets
-    const float* ybias = yfeat + p.nfy * p.height;
-    target_ray<TMODE>(xfeat, yfeat, x, y, width, height, bm,
-                      p0[0], p0[1], p0[2]);
-    target_ray<TMODE>(xbias, yfeat, x, y, width, height, bm,
-                      du[0], du[1], du[2]);
-    target_ray<TMODE>(xfeat, ybias, x, y, width, height, bm,
-                      dv[0], dv[1], dv[2]);
-    normalise(p0[0], p0[1], p0[2]);
-    normalise(du[0], du[1], du[2]);
-    normalise(dv[0], dv[1], dv[2]);
-    derivative(p0, du, p.precise != 0);
-    derivative(p0, dv, p.precise != 0);
+  int face = 0;
+  if (p.face_rows > 0) {
+    face = (p.row0 + (int)y) / p.face_rows;
+    face = min(max(face, 0), 5);
   }
+  const float* bm = bmats + face * 9;
+  const float* xbias = xfeat + p.nfx * p.width;   // the biased sets
+  const float* ybias = yfeat + p.nfy * p.height;
+
+  float p0[3], du[3], dv[3];
+  target_ray<TMODE>(xfeat, yfeat, x, y, p.width, p.height, bm,
+                    p0[0], p0[1], p0[2]);
+  target_ray<TMODE>(xbias, yfeat, x, y, p.width, p.height, bm,
+                    du[0], du[1], du[2]);
+  target_ray<TMODE>(xfeat, ybias, x, y, p.width, p.height, bm,
+                    dv[0], dv[1], dv[2]);
+  normalise(p0[0], p0[1], p0[2]);
+  normalise(du[0], du[1], du[2]);
+  normalise(dv[0], dv[1], dv[2]);
+  derivative(p0, du, p.precise != 0);
+  derivative(p0, dv, p.precise != 0);
 
   float acc[NCH];
 #pragma unroll
   for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
-  float* dst = out + ((int64_t)y * width + x) * NCH;
-
-  if (p.budget <= 0) {
-    // launch-uniform: no window, so nothing of its upkeep either - the
-    // plain loop, every tap gathered from global memory
-    if (!live) return;
-    for (int k = 0; k < p.n_taps; ++k) {
-      float sx, sy, val[NCH];
-      tap_coords(p.pick, p0, du, dv, taps[3 * k], taps[3 * k + 1], sx, sy);
-      spline_at<DEGREE, NCH>(coeff, p.table, sx, sy, val);
-      const float wk = taps[3 * k + 2];
+  for (int k = 0; k < p.n_taps; ++k) {
+    const float cx = taps[3 * k], cy = taps[3 * k + 1], w = taps[3 * k + 2];
+    float r[3];
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) acc[c] += wk * val[c];
-    }
+    for (int i = 0; i < 3; ++i)
+      r[i] = __fadd_rn(__fadd_rn(p0[i], __fmul_rn(cx, du[i])),
+                       __fmul_rn(cy, dv[i]));
+    float sx, sy, val[NCH];
+    pickup(p.pick, r[0], r[1], r[2], sx, sy);
+    spline_at<DEGREE, NCH>(coeff, p.table, sx, sy, val);
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) dst[c] = acc[c];
-    return;
+    for (int c = 0; c < NCH; ++c) acc[c] += w * val[c];
   }
-
-  if (live) {
-    tap_coords(p.pick, p0, du, dv, taps[0], taps[1], sx0, sy0);
-    box_add<DEGREE>(box, p.table, sx0, sy0);
-  }
-  const Window w = stage_window<DEGREE, NCH>(
-      box, p.reach, BLOCK_X, BLOCK_Y, p.table, coeff, win, sbox, p.budget);
-  if (!live) return;              // after the block's syncs
-
-  tap_add<DEGREE, NCH>(win, w, coeff, p.table, sx0, sy0, taps[2], acc);
-  // unrolled, so that the taps' chains of dependent operations overlap
-#pragma unroll(TAP_UNROLL)
-  for (int k = 1; k < p.n_taps; ++k) {
-    float sx, sy;
-    tap_coords(p.pick, p0, du, dv, taps[3 * k], taps[3 * k + 1], sx, sy);
-    tap_add<DEGREE, NCH>(win, w, coeff, p.table, sx, sy, taps[3 * k + 2],
-                         acc);
-  }
+  float* dst = out + (y * p.width + x) * NCH;
 #pragma unroll
   for (int c = 0; c < NCH; ++c) dst[c] = acc[c];
 }
 
 struct Launch {
-  template <int DEGREE, int NCH, int TMODE>
-  static cudaError_t go(float* out, const float* coeff, const float* xfeat,
-                        const float* yfeat, const float* bmats,
-                        const float* spread, const Params& p,
-                        cudaStream_t s) {
-    const dim3 block(BLOCK_X, BLOCK_Y);
-    const dim3 grid = frame_grid(p.height, p.width);
-    const size_t smem = (size_t)((3 * p.n_taps + 3) & ~3) * sizeof(float) +
-                        (size_t)p.budget;
-    auto kernel = resample_inline_twined_kernel<DEGREE, NCH, TMODE>;
-    // Above 48 KB (static shared memory included) a kernel must opt
-    // in. The instantiation is told what this launch needs whenever
-    // that differs from its last launch, downwards too: a launch
-    // without a window after one with a large window ran ~15% slower
-    // while the larger size stayed set. A refusal is returned, not
-    // worked around.
-    static size_t set_to = ~(size_t)0;
-    if (smem != set_to) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-      set_to = smem;
-    }
-    kernel<<<grid, block, smem, s>>>(out, coeff, xfeat, yfeat, bmats, spread,
-                                     p);
-    return cudaGetLastError();
-  }
-
   template <int DEGREE, int NCH>
   static cudaError_t run(int tmode, float* out, const float* coeff,
                          const float* xfeat, const float* yfeat,
                          const float* bmats, const float* spread,
                          const Params& p, cudaStream_t s) {
+    const dim3 block(BLOCK_X, BLOCK_Y);
+    const dim3 grid = frame_grid(p.height, p.width);
+    const size_t smem = (size_t)3 * p.n_taps * sizeof(float);
     switch (tmode) {
       case TMODE_AFFINE:
-        return go<DEGREE, NCH, TMODE_AFFINE>(out, coeff, xfeat, yfeat, bmats,
-                                             spread, p, s);
+        resample_inline_twined_kernel<DEGREE, NCH, TMODE_AFFINE>
+            <<<grid, block, smem, s>>>(out, coeff, xfeat, yfeat, bmats,
+                                       spread, p);
+        break;
       case TMODE_SPH:
-        return go<DEGREE, NCH, TMODE_SPH>(out, coeff, xfeat, yfeat, bmats,
-                                          spread, p, s);
+        resample_inline_twined_kernel<DEGREE, NCH, TMODE_SPH>
+            <<<grid, block, smem, s>>>(out, coeff, xfeat, yfeat, bmats,
+                                       spread, p);
+        break;
       case TMODE_CYL:
-        return go<DEGREE, NCH, TMODE_CYL>(out, coeff, xfeat, yfeat, bmats,
-                                          spread, p, s);
+        resample_inline_twined_kernel<DEGREE, NCH, TMODE_CYL>
+            <<<grid, block, smem, s>>>(out, coeff, xfeat, yfeat, bmats,
+                                       spread, p);
+        break;
+      default:
+        return cudaErrorInvalidValue;
     }
-    return cudaErrorInvalidValue;
+    return cudaGetLastError();
   }
 };
 
@@ -310,13 +208,8 @@ struct Launch {
 // ``yfeat`` (2 nfy, H): the centre's feature rows, then the
 // DERIV_BIAS-biased ones. ``spread`` is a device array of n_taps
 // (cx, cy, w) triplets, at most MAX_TAPS of them (the shared-memory
-// stage). ``window_bytes`` is the shared memory a block may stage its
-// source window in; 0 makes every tap gather from global memory.
-// ``reach`` is how far, in output pixels, any tap's offset may lie from
-// the first tap's (it sizes the window only: a tap that falls outside
-// is read from global memory). Returns the CUDA error of the
-// launch (0 on success; a window budget the card refuses is such an
-// error), or cudaErrorInvalidValue for an unsupported argument.
+// stage). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for an unsupported argument.
 extern "C" int envutil_resample_inline_twined(
     float* out, const float* coeff, const float* xfeat, const float* yfeat,
     const float* bmats, const float* spread, const float* wmat,
@@ -325,15 +218,11 @@ extern "C" int envutil_resample_inline_twined(
     int n_taps, int precise,
     int gate_x, float glx, float gux, int gate_y, float gly, float guy,
     float kx, float cx, float ky, float cy, float pad, float section_px,
-    float reach, int window_bytes, void* stream) {
+    void* stream) {
   constexpr int MAX_TAPS = 4096;  // 48 KiB of shared memory
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (smode < SMODE_SPH || smode > SMODE_BIATAN6) return (int)cudaErrorInvalidValue;
   if (n_taps < 1 || n_taps > MAX_TAPS) return (int)cudaErrorInvalidValue;
-  if (window_bytes < 0 || (window_bytes & 15)) return (int)cudaErrorInvalidValue;
-  if (hp >= (1 << 24) || wp >= (1 << 24) || height >= (1LL << 31) ||
-      width >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;        // 32-bit maths in the kernel
   if (height <= 0 || width <= 0) return 0;
   if ((height + BLOCK_Y - 1) / BLOCK_Y > 65535) return (int)cudaErrorInvalidValue;
   Params p;
@@ -342,7 +231,6 @@ extern "C" int envutil_resample_inline_twined(
   p.nfx = tmode == TMODE_AFFINE ? 1 : 2;
   p.nfy = tmode == TMODE_SPH ? 2 : 1;
   p.n_taps = n_taps; p.precise = precise;
-  p.budget = window_bytes; p.reach = reach;
   p.pick = Pickup{smode, gate_x, gate_y, glx, gux, gly, guy,
                   kx, cx, ky, cy, pad, section_px};
   set_table(p.table, hp, wp, degree, wmat);

@@ -32,16 +32,17 @@ raises if it cannot, and takes its plain version only for CPU tensors;
 The kernel source notes say what bounds each and what its design
 leaves for later.
 
-The two inline kernels stage each block's source window in shared
-memory: a block reduces its pixels' spline supports to one bounding box
-of table entries, copies the box if it fits ``window_bytes`` and reads
-its taps from there; a block whose box does not fit (a pole, the
-periodic seam, a cube-face edge) and any support outside its block's
-window gather from global memory, bit-identically. ``window_bytes=0``
-forces that direct branch everywhere: a hook for tests and
-chip_smoke.py, which hold the two branches against each other.
-``window_model`` and ``window_holds`` say in plain PyTorch which blocks
-stage what.
+The inline kernel stages each block's source window in shared memory:
+a block reduces its pixels' spline supports to one bounding box of
+table entries, copies the box if it fits ``window_bytes`` and reads its
+taps from there; a block whose box does not fit (a pole, the periodic
+seam, a cube-face edge) and any support outside its block's window
+gather from global memory, bit-identically. ``window_bytes=0`` forces
+that direct branch everywhere: a hook for tests and chip_smoke.py,
+which hold the two branches against each other. ``window_model`` and
+``window_holds`` say in plain PyTorch which blocks stage what. The
+twined inline kernel is bound by its per-tap arithmetic and gathers
+every tap from global memory (a window measured no gain there).
 
 Operands of ``resample_inline`` (all float32, contiguous):
 
@@ -88,25 +89,14 @@ _TMODES = {"affine": 0, "sph": 1, "cyl": 2}
 _SMODES = {"sph": 0, "cubemap": 1, "biatan6": 2}
 _GATES = {"periodic": 0, "mirror": 1, "clamp": 2, "none": 3}
 MAX_DEGREE = 7
-# Shared memory, in bytes, that a block of an inline kernel may stage
-# its source window in. The kernels' tiles (TILE_INLINE, TILE_TWINED
-# output pixels, x by y) need 8-25 KB at the magnifications the port's
-# paths run; 32 KB leaves room for five blocks on an SM of the H100
-# (227 KB), and every block is launched with the whole budget, so a
-# larger one costs blocks in flight (tools/ablation/tune_inline.py).
+# Shared memory, in bytes, that a block of the inline kernel may stage
+# its source window in. The kernel's tile (TILE_INLINE output pixels, x
+# by y) needs 8-25 KB at the magnifications the port's paths run; 32 KB
+# leaves room for five blocks on an SM of the H100 (227 KB), and every
+# block is launched with the whole budget, so a larger one costs blocks
+# in flight.
 WINDOW_BYTES = 32 * 1024
 TILE_INLINE = (32, 16)
-# The twined kernel is bound by its per-tap arithmetic, not by its
-# loads: a block's box, copy and barriers are paid back only when each
-# pixel reads the window through many taps. Measured on the H100
-# (tools/ablation/tune_inline.py): at 16 taps a 48 KB window is as fast
-# as the plain loop (it needs ~24 KB a block on the 16K table), at 9
-# taps it costs 4%, at 4 taps staging costs 15%. So its default budget
-# is 48 KB from TWINED_MIN_TAPS taps on, and 0 (the plain loop, every
-# tap gathered from global memory) below.
-TWINED_WINDOW_BYTES = 48 * 1024
-TWINED_MIN_TAPS = 16
-TILE_TWINED = (32, 8)
 
 _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -118,7 +108,7 @@ _PLANAR = K.Library(
     [_p] * 6 + [_ll] * 4 + [_i, _i, _p])
 _INLINE_TWINED = K.Library(
     "resample_inline_twined.cu", "envutil_resample_inline_twined",
-    [_p] * 7 + [_ll] * 4 + [_i] * 9 + [_f, _f, _i] + [_f] * 9 + [_i, _p])
+    [_p] * 7 + [_ll] * 4 + [_i] * 9 + [_f, _f, _i] + [_f] * 8 + [_p])
 _TWINED = K.Library(
     "resample_twined.cu", "envutil_resample_twined",
     [_p] * 12 + [_ll] * 4 + [_i] * 4 + [_f, _f, _p])
@@ -187,17 +177,6 @@ def _check_budget(window_bytes):
     if window_bytes < 0 or window_bytes % 16:
         raise ValueError(f"window_bytes {window_bytes} must be a "
                          "non-negative multiple of 16")
-
-
-def twined_window_bytes(n_taps: int) -> int:
-    """The twined kernel's default staging budget for a spread of
-    ``n_taps`` (see TWINED_MIN_TAPS)."""
-    return TWINED_WINDOW_BYTES if n_taps >= TWINED_MIN_TAPS else 0
-
-
-def _deriv_bias() -> float:
-    from ..models import stepper as ST
-    return float(ST.DERIV_BIAS)
 
 
 def resample_inline(out, coeff, xfeat, yfeat, bmats, *, degree: int,
@@ -341,40 +320,15 @@ def support_bases(sx, sy, degree: int, hp: int, wp: int):
     return bx, by, inside
 
 
-def spread_reach(spread) -> float:
-    """How far any tap of a scaled spread may lie from its first tap, in
-    output pixels, as the twined kernel takes it (float32): twice the
-    largest offset."""
-    far = spread.reshape(-1, 3)[:, :2].abs().max().to(torch.float32)
-    return float(2.0 * far * torch.tensor(_deriv_bias(), dtype=torch.float32))
-
-
-_REACH = {}
-
-
-def _cached_reach(spread) -> float:
-    """``spread_reach`` without a device round trip per launch: kept per
-    tensor storage and version (the render path reuses one spread tensor
-    per plan). The reach only sizes the staged window, so a stale entry
-    could cost speed, never a wrong pixel."""
-    key = (spread.data_ptr(), spread._version, spread.numel())
-    if key not in _REACH:
-        if len(_REACH) >= 64:
-            _REACH.clear()
-        _REACH[key] = spread_reach(spread)
-    return _REACH[key]
-
-
-def window_model(sx, sy, *, degree: int, table_shape, tile,
-                 window_bytes: int = WINDOW_BYTES, reach: float = 0.0):
-    """The inline kernels' staged windows in plain PyTorch: for the
-    padded coordinates ``sx``, ``sy`` (H, W) of a launch's pixels (the
-    twined kernel: of their first taps, with ``reach`` =
-    ``spread_reach(spread)``), the (Hp, Wp, C) ``table_shape`` and the
-    ``tile`` = (x, y) of output pixels a block covers, one entry per
-    block, (H/y, W/x) tensors: ``x0, x1, y0, y1`` the table entries of
-    the block's window (the bounding box of its pixels' supports,
-    widened for the reach, clamped to the table), ``f0`` and ``span``
+def window_model(sx, sy, *, degree: int, table_shape, tile=TILE_INLINE,
+                 window_bytes: int = WINDOW_BYTES):
+    """The inline kernel's staged windows in plain PyTorch: for the
+    padded coordinates ``sx``, ``sy`` (H, W) of a launch's pixels, the
+    (Hp, Wp, C) ``table_shape`` and the ``tile`` = (x, y) of output
+    pixels a block covers, one entry per block, (H/y, W/x) tensors:
+    ``x0, x1, y0, y1`` the table entries of the block's window (the
+    bounding box of its pixels' supports, clamped to the table), ``f0``
+    and ``span``
     the first float and the floats of a staged row segment (16-byte
     aligned where the table's rows are), ``pitch`` the floats between
     staged rows (the span padded against bank conflicts), ``bytes`` the
@@ -399,12 +353,6 @@ def window_model(sx, sy, *, degree: int, table_shape, tile,
     x0, x1 = over_tiles(bx, big, torch.amin), over_tiles(bx, -big, torch.amax)
     y0, y1 = over_tiles(by, big, torch.amin), over_tiles(by, -big, torch.amax)
     some = x1 >= x0
-    if reach > 0.0:
-        per_px = ((x1 - x0) + (y1 - y0)).to(torch.float32) \
-            / float(max(tw + th - 2, 1))
-        m = torch.ceil(torch.tensor(reach, dtype=torch.float32) * per_px
-                       ).to(torch.int64) + 1
-        x0, x1, y0, y1 = x0 - m, x1 + m, y0 - m, y1 + m
     x0, x1 = x0.clamp(min=0), (x1 + degree).clamp(max=wp - 1)
     y0, y1 = y0.clamp(min=0), (y1 + degree).clamp(max=hp - 1)
     f0, f1 = x0 * nch, (x1 + 1) * nch
@@ -425,11 +373,11 @@ def block_to_pixels(per_block, tile, h: int, w: int):
         tile[0], 1)[:h, :w]
 
 
-def window_holds(win, sx, sy, *, degree: int, table_shape, tile):
-    """(H, W) bool: whether the support of each coordinate pair lies in
-    its block's staged window of ``window_model`` (a pixel of the inline
-    kernel, or one tap of the twined kernel's pixels); the kernels read
-    the others from global memory."""
+def window_holds(win, sx, sy, *, degree: int, table_shape,
+                 tile=TILE_INLINE):
+    """(H, W) bool: whether each pixel's support lies in its block's
+    staged window of ``window_model``; the kernel reads the others from
+    global memory."""
     hp, wp, _ = table_shape
     h, w = sx.shape
     bx, by, inside = support_bases(sx, sy, degree, hp, wp)
@@ -452,22 +400,16 @@ def _spread_taps(spread, n_taps, device):
 def resample_inline_twined(out, coeff, xfeat, yfeat, bmats, spread, *,
                            degree: int, n_taps: int, tmode: str,
                            consts: tuple, row0: int = 0, face_rows: int = 0,
-                           smode: str = "sph", precise: bool = False,
-                           window_bytes: int | None = None):
+                           smode: str = "sph", precise: bool = False):
     """Fill ``out`` with the twined window: per pixel the weighted sum of
     the spline over the spread's taps, each at the pickup of the ray
     p0 + cx du + cy dv (see the module docstring for the operands).
     ``precise`` takes the derivative rays in the centre ray's tangent
     plane (--twine_precise). CUDA tensors go through the kernel; CPU
-    tensors through ``resample_inline_twined_plain``. ``window_bytes``
-    is as for ``resample_inline``; left out, it is
-    ``twined_window_bytes(n_taps)``."""
+    tensors through ``resample_inline_twined_plain``."""
     _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
            row0, face_rows, smode, sets=2)
     _spread_taps(spread, n_taps, out.device)
-    if window_bytes is None:
-        window_bytes = twined_window_bytes(n_taps)
-    _check_budget(window_bytes)
     kw = dict(degree=degree, n_taps=n_taps, tmode=tmode, consts=consts,
               row0=row0, face_rows=face_rows, smode=smode, precise=precise)
     if out.device.type == "cpu":
@@ -487,9 +429,7 @@ def resample_inline_twined(out, coeff, xfeat, yfeat, bmats, spread, *,
         _wmat(degree), h, w, hp, wp, int(row0), int(face_rows), int(degree),
         int(nch), _TMODES[tmode], _SMODES[smode], int(n_taps), int(precise),
         _GATES[gate_x], glx, gux, _GATES[gate_y], gly, guy,
-        kx, cx, ky, cy, pad, section_px, _cached_reach(spread),
-        int(window_bytes),
-        stream)
+        kx, cx, ky, cy, pad, section_px, stream)
     if err != 0:
         raise RuntimeError(f"resample_inline_twined kernel launch failed: "
                            f"CUDA error {err}")

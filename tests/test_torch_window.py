@@ -1,17 +1,16 @@
-"""The staged windows of the port's inline kernels, on the CPU.
+"""The staged windows of the port's inline kernel, on the CPU.
 
-The CUDA kernels ``resample_inline`` and ``resample_inline_twined`` copy
-each block's bounding box of table entries into shared memory and read
-their taps from there; a block whose box does not fit its budget, and
-any support that is not inside its block's window, reads global memory
-instead. ``ops/resample.window_model`` and ``window_holds`` say in plain
+The CUDA kernel ``resample_inline`` copies each block's bounding box of
+table entries into shared memory and reads its taps from there; a block
+whose box does not fit its budget, and any support that is not inside
+its block's window, reads global memory instead. ``ops/resample.window_model`` and ``window_holds`` say in plain
 PyTorch which blocks stage what. These tests hold the model to what the
-kernels rely on: a window covers every support it is said to hold, an
+kernel relies on: a window covers every support it is said to hold, an
 evaluation that can read nothing but the block's window agrees bit for
 bit with the plain version (same weights, same order), and blocks that
 cannot fit - a pole, the periodic seam, a cube-face edge - are reported
-as such. The kernels' two branches against each other run only on a
-card (the ``cuda``-marked tests; chip_smoke.py drives them at full
+as such. The kernel's two branches against each other run only on a
+card (the ``cuda``-marked test; chip_smoke.py drives them at full
 size).
 """
 
@@ -26,7 +25,6 @@ from envutil_tpu_torch.core.facet import Facet
 from envutil_tpu_torch.core.metrics import get_extent, get_step
 from envutil_tpu_torch.models import cubemap as CBM
 from envutil_tpu_torch.models import environment as E
-from envutil_tpu_torch.models import twining
 from envutil_tpu_torch.ops import resample as R
 from envutil_tpu_torch.ops import spline as S
 from envutil_tpu_torch.runtime import fastpath as FP
@@ -35,11 +33,12 @@ from envutil_tpu_torch.runtime.render import build_plan
 
 torch.set_num_threads(1)
 
-TILE = (32, 8)
-# small enough that the blocks at the pole, across the seam and across
-# cube-face edges do not fit, large enough for the others (a 32x8 tile
-# at ~2 source px per output px needs (64+4) x (16+4) x 12 bytes)
-BUDGET = 20 * 1024
+TILE = R.TILE_INLINE
+# the kernel's default: small enough that the blocks at the pole, across
+# the seam and across cube-face edges do not fit, large enough for the
+# others (a 32x16 tile at ~1.5 source px per output px needs
+# (48+4) x (24+4) x 12 bytes)
+BUDGET = R.WINDOW_BYTES
 
 
 def _facet(proj, w, h, hfov):
@@ -92,9 +91,11 @@ INLINE_CASES = {
                                    (20, -30, 10)),
     "biatan6 source, face edges": ("biatan6", 2, P.RECTILINEAR, 96, 64, 100,
                                    (40, 30, 5)),
+    "sphere, degree 1 view of the pole": ("sph", 1, P.RECTILINEAR, 96, 64,
+                                          100, (175, 70, 5)),
+    "sphere, degree 7": ("sph", 7, P.CYLINDRICAL, 128, 64, 360,
+                         (90, 0, 20)),
 }
-TWINED_CASES = {"4 taps": (2, (175, 70, 5)), "16 taps": (4, (10, 5, 0))}
-
 
 def _table(coeff, degree):
     return S.Spline2D(coeff=coeff, pad=0, degree=degree,
@@ -195,62 +196,12 @@ def test_hard_blocks_are_reported_as_not_fitting(inline_cases):
     assert not bool(far["staged"].any())
     coeff, degree, sx, sy, _plain = inline_cases["cubemap source, face edges"]
     kw = dict(degree=degree, table_shape=coeff.shape, tile=TILE)
-    win = R.window_model(sx, sy, window_bytes=BUDGET, **kw)
+    # half the budget, so that no window taller than one of the
+    # fixture's small sections fits
+    win = R.window_model(sx, sy, window_bytes=BUDGET // 2, **kw)
     section = coeff.shape[0] // 6
     tall = (win["y1"] - win["y0"] + 1) > section   # two faces' sections
     assert bool(tall.any()) and not bool(win["staged"][tall].any())
-
-
-@pytest.fixture(scope="module")
-def twined_cases():
-    fct, src = _source("sph", 1)
-    out = {}
-    for name, (n, ypr) in TWINED_CASES.items():
-        spread = twining.make_spread(n)
-        ops = FP.frame_operands(
-            _plan(fct, P.RECTILINEAR, 96, 64, 100, 1, ypr, spread), src)
-        tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats", "spread")]
-        plain = R.resample_inline_twined_plain(
-            torch.empty(64, 96, 3), src.spl.coeff, *tensors, **ops)
-        out[name] = (src.spl.coeff, tensors, ops, plain)
-    return out
-
-
-@pytest.mark.parametrize("name", list(TWINED_CASES))
-def test_twined_taps_read_their_window_or_global_memory(twined_cases, name):
-    coeff, (xfeat, yfeat, bmats, spread), ops, plain = twined_cases[name]
-    geom = dict(tmode=ops["tmode"], row0=ops["row0"],
-                face_rows=ops["face_rows"])
-    kw = dict(degree=1, table_shape=coeff.shape, tile=TILE)
-    coords = list(R.inline_tap_coords(
-        xfeat, yfeat, bmats, spread, consts=ops["consts"],
-        smode=ops["smode"], precise=ops["precise"], **geom))
-    # the kernel sizes a block's window from its pixels' first taps
-    win = R.window_model(*coords[0][:2], window_bytes=BUDGET,
-                         reach=R.spread_reach(spread), **kw)
-    assert bool(win["staged"].any())
-    acc, held, taps = None, 0, 0
-    for sx, sy, w in coords:
-        holds = R.window_holds(win, sx, sy, **kw)
-        direct = S.eval_spline(_table(coeff, 1), sx, sy, apply_gate=False)
-        staged = staged_eval(coeff, win, sx, sy, 1, TILE)
-        assert torch.equal(staged[holds], direct[holds])
-        term = w * torch.where(holds[..., None], staged, direct)
-        acc = term if acc is None else acc + term
-        held += int(holds.sum())
-        taps += holds.numel()
-    assert torch.equal(acc, plain)
-    staged_px = R.block_to_pixels(win["staged"], TILE, 64, 96)
-    # the first taps' box widened by the spread's reach holds nearly
-    # every tap of the blocks that stage
-    assert held >= 0.98 * int(staged_px.sum()) * ops["n_taps"]
-    assert held <= taps
-
-
-def test_twined_default_budget_follows_the_tap_count():
-    assert R.twined_window_bytes(4) == 0
-    assert R.twined_window_bytes(R.TWINED_MIN_TAPS) == R.TWINED_WINDOW_BYTES
-    assert R.twined_window_bytes(16) % 16 == 0
 
 
 def _cuda_or_skip():
@@ -282,28 +233,3 @@ def test_inline_kernel_branches_agree_on_card():
             assert torch.equal(staged, direct), (name, budget)
         if kind == "sph":   # cube-face edges aside (chip_smoke.py)
             assert float((direct - plain).abs().max()) <= 1e-3, name
-
-
-@pytest.mark.cuda
-def test_inline_twined_kernel_branches_agree_on_card():
-    _cuda_or_skip()
-    fct, src = _source("sph", 1)
-    coeff = src.spl.coeff.cuda()
-    for name, (n, ypr) in TWINED_CASES.items():
-        ops = FP.frame_operands(
-            _plan(fct, P.RECTILINEAR, 96, 64, 100, 1, ypr,
-                  twining.make_spread(n)), src)
-        tensors = [ops.pop(k).cuda()
-                   for k in ("xfeat", "yfeat", "bmats", "spread")]
-        plain = R.resample_inline_twined_plain(
-            torch.empty(64, 96, 3, device="cuda"), coeff, *tensors, **ops)
-        direct = R.resample_inline_twined(
-            torch.empty(64, 96, 3, device="cuda"), coeff, *tensors,
-            window_bytes=0, **ops)
-        for budget in (1024, BUDGET, R.TWINED_WINDOW_BYTES):
-            staged = R.resample_inline_twined(
-                torch.empty(64, 96, 3, device="cuda"), coeff, *tensors,
-                window_bytes=budget, **ops)
-            torch.cuda.synchronize()
-            assert torch.equal(staged, direct), (name, budget)
-        assert float((direct - plain).abs().max()) <= 1e-3, name
