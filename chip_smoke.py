@@ -572,8 +572,9 @@ def band_errors(plan, src, frame, bands, ir_edges):
     return worst, n_edge
 
 
-WRAPPERS = ("resample_inline", "resample_planar", "resample_inline_twined",
-            "resample_twined")
+WRAPPERS = ("resample_inline", "resample_planar", "resample_planar_chain",
+            "resample_inline_twined", "resample_twined",
+            "resample_twined_chain")
 
 
 def render(plan, src, name, want_inline=0, want_planar=0, want=None):
@@ -658,9 +659,65 @@ def time_inline(plan, src, name):
                 plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
 
 
-def time_planar(plan, src, name):
-    """Steady-state frame, coordinate pass alone and kernel alone
-    (median of 20), plain version (median of 3) of a planar path."""
+def in_turns(a, b, reps=20):
+    """Median ms of ``a`` and of ``b`` over ``reps`` calls each, timed in
+    turns a, b, b, a and averaged; returns (a ms, b ms, the four)."""
+    t = [events_ms(f, reps) for f in (a, b, b, a)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+# Rough float operations of the coordinate chain per ray, counting an
+# atan2, atan, sin or cos as 20 and a square root or a division as 1,
+# as inline_bound does: the target modes (ray from the features,
+# rotation; the normalisation, 12, is added where it runs), the IR
+# pickups (face cascade, in-face division, affine; biatan6 two atans
+# more) and the mount pickup (to_plane by projection code, then the
+# PTO terms, the window test, affine and gates)
+TARGET_FLOPS = {"affine": 15, "sph": 17, "cyl": 15, "ster": 143,
+                "fish": 121}
+IR_FLOPS = {"cubemap": 20, "biatan6": 60}
+MOUNT_FLOPS = {0: 45, 1: 25, 2: 2, 3: 12, 4: 45}
+
+
+def pickup_flops(pick):
+    if pick.smode != "mount":
+        return IR_FLOPS[pick.smode]
+    return MOUNT_FLOPS[pick.projection] + 15 + \
+        12 * (pick.lens is not None) + 2 * (pick.shift is not None) + \
+        4 * (pick.shear is not None)
+
+
+def chain_bound(plan, src, ops):
+    """(bound ms, 'bytes'/'operations', bytes ms, ops ms, touched bytes)
+    of one planar frame, counted the same whatever implements it: the
+    table entries that some tap of a covered pixel reads, counted once,
+    plus the output; the chain's operations for every pixel plus the
+    spline's for the covered ones."""
+    from envutil_tpu_torch.ops import resample as R
+    coeff, n = src.spl.coeff, src.spl.degree
+    nch = coeff.shape[-1]
+    sx, sy, mask = R.planar_chain_coords(*(ops[k] for k in (
+        "xfeat", "yfeat", "bmats")), **{k: ops[k] for k in (
+            "tmode", "pick", "row0", "face_rows")})
+    n_px = sx.numel()
+    table = touched_bytes(coeff, sx[mask], sy[mask], n)
+    bytes_ms = (table + n_px * nch * 4) / HBM_BYTES_PER_S * 1e3
+    chain = TARGET_FLOPS[ops["tmode"]] + 12 + pickup_flops(ops["pick"])
+    ops_ms = (n_px * chain + int(mask.sum()) * spline_flops(n, nch)) \
+        / F32_FLOPS * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, bytes_ms, ops_ms, table
+
+
+def time_planar(plan, src, name, peak_mib):
+    """A planar path both ways: the planes form (the PyTorch coordinate
+    pass, the zero fill where masked, the planar kernel; what
+    planar_frame ran before the chain forms) and the chain form (one
+    launch of the planar chain kernel), as frames and as kernels alone,
+    each pair timed in turns (planes, chain, chain, planes; median of 20
+    each); the coordinate pass alone, each plain version (median of 3),
+    each kernel against its plain version at full shape, the common
+    bound and the planes form's own."""
     import torch
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.runtime import fastpath as FP
@@ -671,43 +728,75 @@ def time_planar(plan, src, name):
     coeff, n = src.spl.coeff, src.spl.degree
     buf = torch.zeros((plan.height, plan.width, coeff.shape[-1]),
                       device="cuda")
-    for _ in range(3):
+    ops = FP.chain_operands(plan, src)
+    ctens = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
+
+    def planes_frame():
+        FP.planes_launch(plan, src, buf)
+
+    def chain_frame():
         FP.planar_frame(plan, src, out=buf)
-    frame_ms = events_ms(lambda: FP.planar_frame(plan, src, out=buf), 20)
+
+    def planes_kernel():
+        R.resample_planar(buf, coeff, sx, sy, degree=n, merge_mask=m)
+
+    def chain_kernel():
+        R.resample_planar_chain(buf, coeff, *ctens, **ops)
+    for _ in range(3):
+        for f in (planes_frame, chain_frame, planes_kernel, chain_kernel):
+            f()
+    planes_ms, frame_ms, f4 = in_turns(planes_frame, chain_frame)
+    kplanes_ms, kernel_ms, k4 = in_turns(planes_kernel, chain_kernel)
     coords_ms = events_ms(lambda: FP.coords(plan, window, src), 20)
-    kernel_ms = events_ms(lambda: R.resample_planar(
-        buf, coeff, sx, sy, degree=n, merge_mask=m), 20)
-    plain_ms = events_ms(lambda: R.resample_planar_plain(
+    plain_planes_ms = events_ms(lambda: R.resample_planar_plain(
         buf, coeff, sx, sy, degree=n, merge_mask=m), 3)
+    plain_ms = events_ms(lambda: R.resample_planar_chain_plain(
+        buf, coeff, *ctens, **ops), 3)
+
     nan = torch.full(buf.shape, float("nan"), device="cuda")
     k = R.resample_planar(nan.clone(), coeff, sx, sy, degree=n,
                           merge_mask=m)
     p = R.resample_planar_plain(nan.clone(), coeff, sx, sy, degree=n,
                                 merge_mask=m)
-    err = float((k - p).nan_to_num().abs().max())
-    print(f"{name}: planar vs plain at full shape: max abs diff {err:.3e} "
-          f"(bound {KERNEL_BOUND:g})", flush=True)
-    check(err <= KERNEL_BOUND and torch.equal(k.isnan(), p.isnan()),
+    err_planes = float((k - p).nan_to_num().abs().max())
+    check(err_planes <= KERNEL_BOUND and torch.equal(k.isnan(), p.isnan()),
           f"planar kernel disagrees at {name}")
     del nan, k, p
+    err, n_edge, n_flip = chain_vs_plain(plan, src)[:3]
+    print(f"{name}: at full shape, planar vs plain {err_planes:.3e}, "
+          f"planar chain vs plain {err:.3e} ({n_edge} px at a window or "
+          f"face edge excluded, {n_flip} flipped) (bound "
+          f"{KERNEL_BOUND:g})", flush=True)
+    check(err <= KERNEL_BOUND, f"planar chain kernel disagrees at {name}")
     n_px = plan.height * plan.width
-    print(f"{name}: steady-state frame (planar_frame into one reused "
-          f"buffer, median of 20) {frame_ms:.4f} ms = "
-          f"{n_px / 1e3 / frame_ms:.1f} Mpix/s; coordinate pass alone "
-          f"{coords_ms:.4f} ms ({100 * coords_ms / frame_ms:.1f}% of the "
-          f"frame); kernel alone {kernel_ms:.4f} ms; plain version "
-          f"{plain_ms:.3f} ms; clocks/power/temp after: {smi_now()}",
-          flush=True)
-    bound = planar_bound(coeff, sx, sy, n, mask if masked else None)
-    what = (f"the mask plane and sx/sy/output at the {int(mask.sum())} "
-            f"covered px" if masked else "sx/sy planes, output")
-    print(f"{name}: bound {bound[0]:.4f} ms by {bound[1]} (table bytes "
-          f"touched {bound[4] / 1e6:.1f} MB of {coeff.numel() * 4 / 1e6:.1f}"
-          f" MB, {what}; bytes {bound[2]:.4f} ms, operations "
-          f"{bound[3]:.4f} ms)", flush=True)
-    return dict(frame_ms=frame_ms, coords_ms=coords_ms, ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-                max_abs_err=err, sx=sx, sy=sy)
+    bound = chain_bound(plan, src, dict(ops, xfeat=ctens[0], yfeat=ctens[1],
+                                        bmats=ctens[2]))
+    own = planar_bound(coeff, sx, sy, n, mask if masked else None)
+    print(f"{name}: frame, in turns (planes, chain, chain, planes; median "
+          f"of 20 each) {', '.join(f'{t:.4f}' for t in f4)} ms: planes "
+          f"form {planes_ms:.4f} ms, chain form {frame_ms:.4f} ms = "
+          f"{n_px / 1e3 / frame_ms:.1f} Mpix/s, {planes_ms / frame_ms:.1f}x;"
+          f" kernels alone in turns {', '.join(f'{t:.4f}' for t in k4)} ms:"
+          f" planar {kplanes_ms:.4f} ms, planar chain {kernel_ms:.4f} ms; "
+          f"coordinate pass alone {coords_ms:.4f} ms; plain versions "
+          f"{plain_planes_ms:.3f} / {plain_ms:.3f} ms; clocks/power/temp "
+          f"after: {smi_now()}", flush=True)
+    print(f"{name}: common bound {bound[0]:.4f} ms by {bound[1]} (table "
+          f"bytes touched {bound[4] / 1e6:.1f} MB, output; bytes "
+          f"{bound[2]:.4f} ms, operations {bound[3]:.4f} ms): chain kernel "
+          f"{100 * bound[0] / kernel_ms:.0f}%, planar kernel "
+          f"{100 * bound[0] / kplanes_ms:.0f}%, chain frame "
+          f"{100 * bound[0] / frame_ms:.0f}%, planes frame "
+          f"{100 * bound[0] / planes_ms:.0f}%; the planes form's own bound "
+          f"(its coordinate and mask planes read as well) {own[0]:.4f} ms "
+          f"by {own[1]}", flush=True)
+    return dict(frame_ms=frame_ms, planes_frame_ms=planes_ms,
+                coords_ms=coords_ms, ms=kernel_ms, planes_ms=kplanes_ms,
+                plain_ms=plain_ms, planes_plain_ms=plain_planes_ms,
+                bound_ms=bound[0], bound_by=bound[1],
+                planes_bound_ms=own[0], planes_bound_by=own[1],
+                max_abs_err=err, planes_max_abs_err=err_planes,
+                edge_px=n_edge, peak_mib=peak_mib, sx=sx, sy=sy)
 
 
 def library_bilinear(src, sx, sy):
@@ -932,6 +1021,195 @@ def phase_small_twined():
     return worst
 
 
+# ------------------------------------------------------- chain forms
+
+# a planar coordinate within this many model units of a facet's window
+# edge (or a rectilinear source's z within it of 0) may fall on the
+# other side under an ulp of a transcendental: the chain forms then
+# write 0 where the plain version writes a value, or the reverse. Such
+# pixels are excluded from kernel-vs-plain checks and counted
+WINDOW_EDGE = 1e-5
+
+# the targets of the chain forms' small cases: every target mode, views
+# that hold a pole, the periodic seam of a full sphere and cube-face
+# edges of IR sources
+CHAIN_TARGETS = [("rectilinear", 64, 48, 100, (175, 70, 5)),
+                 ("spherical", 96, 48, 360, (20, -80, 10)),
+                 ("cylindrical", 96, 48, 200, (170, 5, 0)),
+                 ("stereographic", 64, 48, 150, (35, 20, 0)),
+                 ("fisheye", 64, 64, 170, (-25, 15, 0)),
+                 ("cubemap", 16, 96, 90, (10, -20, 5)),
+                 ("biatan6", 16, 96, 90, (5, 5, 5))]
+
+# the sources: every source mode, the five mount projections, partial
+# facets (window edges) with the PTO lens polynomial, shift and shear,
+# a full sphere and a full fisheye
+CHAIN_SOURCES = [("full sphere", "spherical", 256, 128, 360, {}),
+                 ("partial sphere", "spherical", 128, 64, 200,
+                  dict(yaw=0.5)),
+                 ("cylinder, shear", "cylindrical", 128, 64, 200,
+                  dict(shear_g=0.01, shear_t=-0.02, yaw=-0.4)),
+                 ("rectilinear, lens", "rectilinear", 96, 72, 80,
+                  dict(a=0.01, b=-0.02, c=0.005, yaw=0.3, pitch=0.2)),
+                 ("stereographic, shift", "stereographic", 96, 96, 160,
+                  dict(h=3.0, v=-2.0, roll=0.3)),
+                 ("full fisheye", "fisheye", 96, 96, 360, dict(pitch=0.3)),
+                 ("fisheye, lens, shift, shear", "fisheye", 96, 96, 180,
+                  dict(a=-0.01, b=0.02, c=-0.01, h=2.0, v=1.0,
+                       shear_g=0.01, shear_t=0.01, yaw=2.0)),
+                 ("cubemap", "cubemap", 32, 192, 90, {}),
+                 ("biatan6", "biatan6", 32, 192, 100, {})]
+
+
+def chain_source(name, kind, w, h, hfov, kw, degree, nch, rng):
+    """(facet, source on the card) of one CHAIN_SOURCES entry."""
+    from envutil_tpu_torch.core.conventions import Projection as P
+    from envutil_tpu_torch.models import cubemap as CBM
+    from envutil_tpu_torch.models import environment as E
+    proj = P[kind.upper()]
+    fct = make_facet(proj, w, h, math.radians(hfov))
+    for k, v in kw.items():
+        setattr(fct, k, v)
+    fct.process_geometry()
+    if proj in (P.CUBEMAP, P.BIATAN6):
+        faces = rng.uniform(0, 1, (6, w, w, nch)).astype(np.float32)
+        return fct, CBM.make_cubemap_source(fct, faces, degree, degree, 8,
+                                            16, device="cuda")
+    img = rng.uniform(0, 1, (h, w, nch)).astype(np.float32)
+    return fct, E.make_mount_source(fct, img, degree, degree, device="cuda")
+
+
+def chain_edges(ops, spread=None):
+    """(H, W) pixels where an ulp may decide what a chain form picks: a
+    mount's planar coordinate (of the centre ray; twined with per-tap
+    validity, of any tap's deflected ray) within WINDOW_EDGE of the
+    window's edge, or an IR source's centre ray within FACE_EDGE_REL of
+    a cube-face edge."""
+    import torch
+    from envutil_tpu_torch.models import synopsis as SYN
+    from envutil_tpu_torch.ops import resample as R
+    pick = ops["pick"]
+    nfx, nfy = R._feature_rows(ops["tmode"])
+    xf, yf, bm = ops["xfeat"], ops["yfeat"], ops["bmats"]
+    kw = dict(tmode=ops["tmode"], row0=ops["row0"],
+              face_rows=ops["face_rows"])
+    p0 = R.chain_rays(xf[:nfx], yf[:nfy], bm, **kw)
+    if pick.smode != "mount":
+        return near_face_edge(*p0)
+    rays = [p0]
+    if spread is not None:
+        if not ops["tap_valid"]:
+            return torch.zeros_like(p0[0], dtype=torch.bool)
+        du, dv = SYN.derivative_rays(
+            p0, R.chain_rays(xf[nfx:], yf[:nfy], bm, **kw),
+            R.chain_rays(xf[:nfx], yf[nfy:], bm, **kw), ops["precise"])
+        rays = [SYN.deflect(p0, du, dv, cx, cy)
+                for cx, cy, _w in spread.reshape(-1, 3).tolist()]
+    edge = torch.zeros_like(p0[0], dtype=torch.bool)
+    x0, x1, y0, y1 = pick.window
+    for ray in rays:
+        px, py, _hit = R.mount_planar(pick, *ray)
+        for v, e in ((px, x0), (px, x1), (py, y0), (py, y1)):
+            edge |= (v - e).abs() <= WINDOW_EDGE
+        if pick.projection == 2:       # rectilinear: z > 0
+            edge |= ray[2].abs() <= WINDOW_EDGE
+    return edge
+
+
+def chain_vs_plain(plan, src):
+    """Launch the job's chain form (planar, or twined for a twined plan)
+    and its plain version on the same operands; returns (max abs
+    difference over the compared pixels, pixels excluded at window or
+    face edges, of which the two disagreed on coverage, kernel output,
+    plain output)."""
+    import torch
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    ops = FP.chain_operands(plan, src)
+    coeff = src.spl.coeff
+    shape = (plan.height, plan.width, coeff.shape[-1])
+    args = [coeff] + [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
+    spread = ops.get("spread")
+    edge = chain_edges(dict(ops, xfeat=args[1], yfeat=args[2],
+                            bmats=args[3]), spread)
+    if spread is None:
+        kernel, plain = R.resample_planar_chain, R.resample_planar_chain_plain
+    else:
+        args.append(ops.pop("spread"))
+        kernel, plain = R.resample_twined_chain, R.resample_twined_chain_plain
+    nan = torch.full(shape, float("nan"), device="cuda")
+    out_k = kernel(nan.clone(), *args, **ops)
+    out_p = plain(nan.clone(), *args, **ops)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out_k).all()), "chain kernel output not finite")
+    skip = edge.clone()
+    if src.spl.degree == 0:
+        if spread is None:
+            sx, sy, _m = R.planar_chain_coords(*args[1:4], **{
+                k: ops[k] for k in ("tmode", "pick", "row0", "face_rows")})
+            skip |= near_cell_edge(sx) | near_cell_edge(sy)
+        else:
+            tw = R.twined_chain_operands(*args[1:5], **{
+                k: ops[k] for k in ("tmode", "pick", "row0", "face_rows",
+                                    "precise", "tap_valid")})
+            for x, y, _w in R.twined_tap_coords(
+                    *(tw[k] for k in ("sx", "sy", "dux", "duy", "dvx",
+                                      "dvy")), args[4], coeff.shape[0],
+                    coeff.shape[1], 0, tw["wrap_x"]):
+                skip |= near_cell_edge(x) | near_cell_edge(y)
+    flip = (out_k == 0).all(dim=-1) != (out_p == 0).all(dim=-1)
+    check(not bool((flip & ~edge).any()), "a chain form and its plain "
+          "version disagree on coverage away from a window or face edge")
+    diff = torch.where(skip[..., None], 0.0, (out_k - out_p).abs())
+    return float(diff.max()), int(edge.sum()), int(flip.sum()), out_k, out_p
+
+
+def phase_small_chain():
+    """Both chain forms against their plain versions at small shapes:
+    every source of CHAIN_SOURCES (the three source modes, the five mount
+    projections, partial, lens, shift, shear, full sphere and fisheye)
+    to every target of CHAIN_TARGETS (the five target modes, a pole, the
+    seam, cube-face edges, window edges), degrees 0-7 and 1-4 channels
+    in turn, each untwined and twined (1, 4 and 9 taps, --twine_precise
+    off and on in turn)."""
+    import dataclasses
+    from envutil_tpu_torch.core.conventions import Projection as P
+    rng = np.random.default_rng(27)
+    spreads = list(small_spreads().values())
+    worst = {"planar": 0.0, "twined": 0.0}
+    edges = {"planar": [0, 0], "twined": [0, 0]}
+    i = 0
+    for sname, kind, sw, sh, shfov, kw in CHAIN_SOURCES:
+        for tname, w, h, hfov, ypr in CHAIN_TARGETS:
+            degree, nch = i % 8, 1 + (i // 8) % 4
+            fct, src = chain_source(sname, kind, sw, sh, shfov, kw, degree,
+                                    nch, rng)
+            proj = P[tname.upper()]
+            plan = plan_for(fct, proj, w, h, hfov, degree, ypr, nch)
+            tplan = dataclasses.replace(
+                plan_for(fct, proj, w, h, hfov, degree, ypr, nch,
+                         twine=spreads[i % 3]), twine_precise=bool(i // 3 % 2))
+            for form, p in (("planar", plan), ("twined", tplan)):
+                check(p.planar_to_ray[0] is None, "a generic chain")
+                err, n_edge, n_flip = chain_vs_plain(p, src)[:3]
+                check(err <= KERNEL_BOUND,
+                      f"{form} chain kernel ({sname} -> {tname}, degree "
+                      f"{degree}, C {nch}) disagrees: {err}")
+                worst[form] = max(worst[form], err)
+                edges[form][0] += n_edge
+                edges[form][1] += n_flip
+            i += 1
+        print(f"chain forms vs plain: {sname} source x {len(CHAIN_TARGETS)} "
+              f"targets: worst so far planar {worst['planar']:.3e}, twined "
+              f"{worst['twined']:.3e} (bound {KERNEL_BOUND:g})", flush=True)
+    for form in worst:
+        print(f"{form} chain vs plain: {i} cases, worst {worst[form]:.3e} "
+              f"(bound {KERNEL_BOUND:g}); {edges[form][0]} px at a window "
+              f"or face edge excluded, {edges[form][1]} of them with the "
+              f"coverage flipped", flush=True)
+    return worst, edges
+
+
 def frame_errors(plan, src, frame, extra=None, chunk=128):
     """Max abs difference of ``frame`` against the port's exact path on
     the card over the whole frame (rendered in row chunks), overall and
@@ -1036,21 +1314,74 @@ def twined_inline_path(name, plan, src):
                 region_px={k: v[1] for k, v in errs.items()})
 
 
+def live_tap_table(coeff, n, ops, spread):
+    """(table bytes, live pixel-taps) of a twined frame at degree ``n``
+    from its operands (the dict of ``twined_coords``): the table entries
+    under the taps whose weight is not 0, counted once, and how many
+    such taps there are."""
+    from envutil_tpu_torch.ops import resample as R
+    hp, wp, _ = coeff.shape
+    tapw = ops["tap_weights"]
+    coords, pairs = [], 0
+    for i, (x, y, _w) in enumerate(R.twined_tap_coords(
+            *(ops[k] for k in ("sx", "sy", "dux", "duy", "dvx", "dvy")),
+            spread, hp, wp, n, ops["wrap_x"])):
+        if tapw is not None:
+            x, y = x[tapw[i] > 0], y[tapw[i] > 0]
+        coords.append((x, y))
+        pairs += x.numel()
+    return touched_bytes(coeff, *coords[0], n, coords[1:]), pairs
+
+
+def twined_chain_bound(plan, src, ops):
+    """(bound ms, 'bytes'/'operations', bytes ms, ops ms, touched bytes,
+    live pixel-taps) of one twined planar frame, counted the same
+    whatever implements it: the table entries under all live taps,
+    counted once, plus the output; the chain's operations for every
+    pixel (three rays and pickups, the derivatives, each tap's validity
+    test where the source does not cover every ray) plus the deflection
+    and the spline of every live tap."""
+    from envutil_tpu_torch.ops import resample as R
+    coeff, n = src.spl.coeff, src.spl.degree
+    nch = coeff.shape[-1]
+    kw = {k: ops[k] for k in ("tmode", "pick", "row0", "face_rows",
+                              "precise", "tap_valid")}
+    tw = R.twined_chain_operands(*(ops[k] for k in (
+        "xfeat", "yfeat", "bmats", "spread")), **kw)
+    taps = ops["n_taps"]
+    table, pairs = live_tap_table(coeff, n, tw, ops["spread"])
+    n_px = tw["sx"].numel()
+    bytes_ms = (table + n_px * nch * 4) / HBM_BYTES_PER_S * 1e3
+    pick = ops["pick"]
+    per_px = 3 * (TARGET_FLOPS[kw["tmode"]] + 12 + pickup_flops(pick)) + \
+        (21 if kw["precise"] else 6) + 8
+    if kw["tap_valid"]:
+        per_px += taps * (12 + pickup_flops(pick))
+    ops_ms = (n_px * per_px + pairs * (4 + spline_flops(n, nch) + 2 * nch)) \
+        / F32_FLOPS * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, bytes_ms, ops_ms, table, pairs
+
+
 def twined_planar_path(name, plan, src):
-    """One twined frame through render_frame, the twined coordinate pass
-    and the planar twined kernel: launches, the whole frame against the
-    exact path, the kernel against its plain version at this shape, the
-    timings and the bound."""
+    """One twined frame through render_frame and the twined chain
+    kernel: launches, the whole frame against the exact path; then both
+    forms, the planes form (the twined coordinate pass and the planar
+    twined kernel) and the chain form, each kernel against its plain
+    version at this shape, frames and kernels alone timed in turns
+    (planes, chain, chain, planes; median of 10 and 20 each), the common
+    bound and the planes form's own."""
     import torch
     from envutil_tpu_torch.models import synopsis as SYN
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.runtime import fastpath as FP
     taps = len(plan.spread)
-    frame, _ms, n = render(plan, src, name, want={"resample_twined": 1})
+    frame, _ms, n = render(plan, src, name, want={"resample_twined_chain": 1})
+    peak = torch.cuda.max_memory_allocated()
     window = FP.frame_window(plan)
-    ops = FP.twined_coords(plan, window, src)
-    planes = [ops[k] for k in ("sx", "sy", "dux", "duy", "dvx", "dvy")]
-    tapw = ops["tap_weights"]
+    pops = FP.twined_coords(plan, window, src)
+    planes = [pops[k] for k in ("sx", "sy", "dux", "duy", "dvx", "dvy")]
+    tapw = pops["tap_weights"]
     extra, covered = {}, None
     if tapw is not None:
         count = tapw.sum(dim=0)
@@ -1059,8 +1390,8 @@ def twined_planar_path(name, plan, src):
     errs = frame_errors(plan, src, frame, extra)
     print(f"{name} ({taps} taps"
           + ("" if covered is None else f", {100 * covered:.1f}% covered")
-          + f") vs exact path, whole frame: {errors_text(errs)} (bound "
-          f"{TWINED_PLANAR_BOUND:g})", flush=True)
+          + f") through the chain form vs exact path, whole frame: "
+          f"{errors_text(errs)} (bound {TWINED_PLANAR_BOUND:g})", flush=True)
     check(max(v[0] for v in errs.values()) <= TWINED_PLANAR_BOUND,
           f"{name} disagrees with the exact path")
 
@@ -1068,63 +1399,100 @@ def twined_planar_path(name, plan, src):
     sp = torch.tensor(SYN.scaled_spread(plan.spread), dtype=torch.float32,
                       device="cuda")
     kw = dict(degree=n_deg, n_taps=taps, tap_weights=tapw,
-              wrap_x=ops["wrap_x"])
+              wrap_x=pops["wrap_x"])
     nan = torch.full((plan.height, plan.width, nch), float("nan"),
                      device="cuda")
     k = R.resample_twined(nan.clone(), coeff, *planes, sp, **kw)
     p = R.resample_twined_plain(nan.clone(), coeff, *planes, sp, **kw)
-    err_k = float((k - p).abs().max())
-    print(f"{name}: twined vs plain at full shape: max abs diff "
-          f"{err_k:.3e} (bound {KERNEL_BOUND:g})", flush=True)
-    check(err_k <= KERNEL_BOUND and bool(torch.isfinite(k).all()),
+    err_planes = float((k - p).abs().max())
+    check(err_planes <= KERNEL_BOUND and bool(torch.isfinite(k).all()),
           f"twined kernel disagrees at {name}")
     del nan, k, p
+    err, n_edge, n_flip = chain_vs_plain(plan, src)[:3]
+    print(f"{name}: at full shape, twined vs plain {err_planes:.3e}, twined "
+          f"chain vs plain {err:.3e} ({n_edge} px at a window or face edge "
+          f"excluded, {n_flip} flipped) (bound {KERNEL_BOUND:g})", flush=True)
+    check(err <= KERNEL_BOUND, f"twined chain kernel disagrees at {name}")
 
+    ops = FP.chain_operands(plan, src)
+    ctens = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats", "spread")]
     buf = torch.empty((plan.height, plan.width, nch), device="cuda")
-    for _ in range(2):
-        FP.planar_frame(plan, src, out=buf)
-    frame_ms = events_ms(lambda: FP.planar_frame(plan, src, out=buf), 10)
-    coords_ms = events_ms(lambda: FP.twined_coords(plan, window, src), 10)
-    kernel_ms = events_ms(lambda: R.resample_twined(
-        buf, coeff, *planes, sp, **kw), 20)
-    plain_ms = events_ms(lambda: R.resample_twined_plain(
-        buf, coeff, *planes, sp, **kw), 3)
 
-    # the work depends on the tap weights: a tap of weight 0 reads
-    # nothing, and a pixel with no live tap reads only its weights
+    def planes_frame():
+        FP.planes_launch(plan, src, buf)
+
+    def chain_frame():
+        FP.planar_frame(plan, src, out=buf)
+
+    def planes_kernel():
+        R.resample_twined(buf, coeff, *planes, sp, **kw)
+
+    def chain_kernel():
+        R.resample_twined_chain(buf, coeff, *ctens, **ops)
+    for _ in range(2):
+        for f in (planes_frame, chain_frame, planes_kernel, chain_kernel):
+            f()
+    planes_ms, frame_ms, f4 = in_turns(planes_frame, chain_frame, 10)
+    kplanes_ms, kernel_ms, k4 = in_turns(planes_kernel, chain_kernel)
+    coords_ms = events_ms(lambda: FP.twined_coords(plan, window, src), 10)
+    plain_planes_ms = events_ms(lambda: R.resample_twined_plain(
+        buf, coeff, *planes, sp, **kw), 3)
+    plain_ms = events_ms(lambda: R.resample_twined_chain_plain(
+        buf, coeff, *ctens, **ops), 3)
+    own = planes_bound(plan, src, pops, sp)
+    bound = twined_chain_bound(plan, src, dict(
+        ops, xfeat=ctens[0], yfeat=ctens[1], bmats=ctens[2],
+        spread=ctens[3]))
     n_px = plan.height * plan.width
-    live = [None] * taps if tapw is None else [tapw[i] > 0 for i in range(taps)]
-    coords, pairs = [], 0
-    for (x, y, _w), m in zip(R.twined_tap_coords(
-            *planes, sp, coeff.shape[0], coeff.shape[1], n_deg,
-            ops["wrap_x"]), live):
-        coords.append((x, y) if m is None else (x[m], y[m]))
-        pairs += x.numel() if m is None else int(m.sum())
-    table = touched_bytes(coeff, *coords[0], n_deg, coords[1:])
-    del coords
+    print(f"{name}: frame, in turns (planes, chain, chain, planes; median "
+          f"of 10 each) {', '.join(f'{t:.4f}' for t in f4)} ms: planes "
+          f"form {planes_ms:.4f} ms, chain form {frame_ms:.4f} ms = "
+          f"{n_px / 1e3 / frame_ms:.1f} Mpix/s, {planes_ms / frame_ms:.1f}x;"
+          f" kernels alone in turns (median of 20) "
+          f"{', '.join(f'{t:.4f}' for t in k4)} ms: twined "
+          f"{kplanes_ms:.4f} ms, twined chain {kernel_ms:.4f} ms; twined "
+          f"coordinate pass alone {coords_ms:.4f} ms; plain versions "
+          f"{plain_planes_ms:.3f} / {plain_ms:.3f} ms; peak device memory of "
+          f"the first frame {peak / 2**20:.1f} MiB; clocks/power/temp after:"
+          f" {smi_now()}", flush=True)
+    print(f"{name}: common bound {bound[0]:.4f} ms by {bound[1]} (table "
+          f"bytes under all live taps {bound[4] / 1e6:.1f} MB, {bound[5]} "
+          f"live pixel-taps, output; bytes {bound[2]:.4f} ms, operations "
+          f"{bound[3]:.4f} ms): chain kernel {100 * bound[0] / kernel_ms:.0f}"
+          f"%, twined kernel {100 * bound[0] / kplanes_ms:.0f}%, chain frame "
+          f"{100 * bound[0] / frame_ms:.0f}%, planes frame "
+          f"{100 * bound[0] / planes_ms:.0f}%; the planes form's own bound "
+          f"{own[0]:.4f} ms by {own[1]}", flush=True)
+    return dict(taps=taps, launches=n["resample_twined_chain"],
+                max_abs_err=err, planes_max_abs_err=err_planes,
+                ms=kernel_ms, planes_ms=kplanes_ms, plain_ms=plain_ms,
+                planes_plain_ms=plain_planes_ms, frame_ms=frame_ms,
+                planes_frame_ms=planes_ms, coords_ms=coords_ms,
+                bound_ms=bound[0], bound_by=bound[1],
+                planes_bound_ms=own[0], planes_bound_by=own[1],
+                edge_px=n_edge, peak_mib=peak / 2**20, covered=covered,
+                vs_exact={k: v[0] for k, v in errs.items()},
+                region_px={k: v[1] for k, v in errs.items()})
+
+
+def planes_bound(plan, src, pops, sp):
+    """(bound ms, 'bytes'/'operations') of the planar twined kernel
+    alone: the common bound's table and output bytes plus the six planes
+    it reads at every pixel with a live tap and its tap-weight planes,
+    against the operations of its live taps."""
+    coeff, n_deg = src.spl.coeff, src.spl.degree
+    nch = coeff.shape[-1]
+    tapw = pops["tap_weights"]
+    table, pairs = live_tap_table(coeff, n_deg, pops, sp)
+    n_px = pops["sx"].numel()
     n_live = n_px if tapw is None else int((tapw.sum(dim=0) > 0).sum())
     moved = table + n_px * nch * 4 + n_live * 6 * 4 + \
         (0 if tapw is None else tapw.numel() * tapw.element_size())
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = pairs * (8 + spline_flops(n_deg, nch) + 2 * nch) \
         / F32_FLOPS * 1e3
-    by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"{name}: steady-state frame (planar_frame into one reused "
-          f"buffer, median of 10) {frame_ms:.4f} ms = "
-          f"{n_px / 1e3 / frame_ms:.1f} Mpix/s; twined coordinate pass "
-          f"alone {coords_ms:.4f} ms ({100 * coords_ms / frame_ms:.1f}% of "
-          f"the frame); kernel alone {kernel_ms:.4f} ms; plain version "
-          f"{plain_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.4f} ms by {by} "
-          f"(table bytes under all live taps {table / 1e6:.1f} MB of "
-          f"{coeff.numel() * 4 / 1e6:.1f} MB, {pairs} live pixel-taps; bytes"
-          f" {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms); "
-          f"clocks/power/temp after: {smi_now()}", flush=True)
-    return dict(taps=taps, launches=n["resample_twined"], max_abs_err=err_k,
-                ms=kernel_ms, plain_ms=plain_ms, frame_ms=frame_ms,
-                coords_ms=coords_ms, bound_ms=max(bytes_ms, ops_ms),
-                bound_by=by, covered=covered,
-                vs_exact={k: v[0] for k, v in errs.items()},
-                region_px={k: v[1] for k, v in errs.items()})
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
+        else "operations"
 
 
 def smooth_environment(ray):
@@ -1135,6 +1503,47 @@ def smooth_environment(ray):
     return torch.stack([0.5 + 0.3 * x + 0.2 * torch.sin(5.0 * y + 2.0 * z),
                         0.5 + 0.3 * y + 0.2 * torch.cos(4.0 * z - 3.0 * x),
                         0.5 + 0.3 * z + 0.2 * torch.sin(6.0 * x * y)], dim=-1)
+
+
+def build_report():
+    """Per kernel of each built source, from nvcc's -Xptxas -v log: the
+    instantiations, their registers and the spills; printed one line a
+    kernel and returned as {kernel: {...}}."""
+    from envutil_tpu_torch.ops import resample as R
+    report = {}
+    for lib in R.LIBRARIES:
+        entry = None
+        for line in lib.build_log.splitlines():
+            if "Compiling entry function" in line:
+                name = re.search(r"([a-z_]+_kernel)I", line)
+                args = re.search(r"kernelI((?:Li\d+E)+)E", line)
+                entry = report.setdefault(
+                    name.group(1) if name else line,
+                    dict(source=lib.source.name, regs=[], spills=[]))
+                targs = "<" + ", ".join(re.findall(
+                    r"Li(\d+)E", args.group(1) if args else "")) + ">"
+            elif entry is not None and "Used " in line \
+                    and " registers" in line:
+                entry["regs"].append(int(line.split("Used ")[1].split(
+                    " registers")[0]))
+            elif entry is not None and "bytes spill stores" in line and \
+                    "0 bytes spill stores, 0 bytes spill loads" not in line:
+                entry["spills"].append((int(line.split(
+                    "bytes stack frame, ")[1].split(" bytes spill stores")[0]),
+                    targs))
+    for kernel, e in report.items():
+        worst = max(e["spills"], default=(0, "-"))
+        print(f"build {e['source']}: {kernel}: {len(e['regs'])} "
+              f"instantiations, registers {min(e['regs'], default='?')}.."
+              f"{max(e['regs'], default='?')}, {len(e['spills'])} of them "
+              f"spill; most: {worst[0]} bytes of spill stores at {worst[1]}",
+              flush=True)
+    return {k: dict(source=e["source"], instantiations=len(e["regs"]),
+                    registers=[min(e["regs"], default=None),
+                               max(e["regs"], default=None)],
+                    spilling=len(e["spills"]),
+                    worst_spill_bytes=max(e["spills"], default=(0, ""))[0])
+            for k, e in report.items()}
 
 
 def main():
@@ -1159,27 +1568,7 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}", flush=True)
     build_s = R.build()
-    for lib in R.LIBRARIES:
-        log = lib.build_log.splitlines()
-        regs = [int(line.split("Used ")[1].split(" registers")[0])
-                for line in log if "Used " in line and " registers" in line]
-        # (bytes of spill stores, template arguments) per spilling entry
-        spills, entry = [], ""
-        for line in log:
-            if "Compiling entry function" in line:
-                args = re.search(r"kernelI((?:Li\d+E)+)E", line)
-                entry = "<" + ", ".join(re.findall(
-                    r"Li(\d+)E", args.group(1) if args else "")) + ">"
-            elif "bytes spill stores" in line and \
-                    "0 bytes spill stores, 0 bytes spill loads" not in line:
-                spills.append((int(line.split("bytes stack frame, ")[1]
-                                   .split(" bytes spill stores")[0]), entry))
-        worst = max(spills, default=(0, "-"))
-        print(f"build {lib.source.name}: "
-              f"{len(regs)} instantiations, registers "
-              f"{min(regs) if regs else '?'}..{max(regs) if regs else '?'}"
-              f", {len(spills)} of them spill; most: {worst[0]} bytes of "
-              f"spill stores at {worst[1]}", flush=True)
+    build = build_report()
     print(f"kernel build, {len(R.LIBRARIES)} sources in parallel: "
           f"{build_s:.1f} s wall", flush=True)
     print(f"kernels: {json.dumps(list(WRAPPERS))}", flush=True)
@@ -1189,6 +1578,7 @@ def main():
     worst_planar = phase_small_planar()
     worst_inline_twined = phase_small_inline_twined()
     worst_twined = phase_small_twined()
+    worst_chain, chain_edge_px = phase_small_chain()
 
     # ---- 3. main path at full width -----------------------------------
     w, h = 8192, 4096
@@ -1313,14 +1703,17 @@ def main():
                                   ("config 3b", P.FISHEYE, 170,
                                    (-25, 15, 0))):
         p3 = plan_for(bfct, proj, 1920, 1152, hfov, 3, ypr)
-        out3, _ms, n3 = render(p3, bsrc, name, 0, 1)
-        planar_n[name] = n3["resample_planar"]
+        out3, _ms, n3 = render(p3, bsrc, name,
+                               want={"resample_planar_chain": 1})
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        planar_n[name] = n3["resample_planar_chain"]
         err3, _e = band_errors(p3, bsrc, out3, [(0, 8), (572, 580),
                                                 (1144, 1152)], False)
-        print(f"{name} vs exact path, 3 bands of 8 rows: max abs diff "
-              f"{err3:.3e} (bound {PATH_BOUND:g})", flush=True)
+        print(f"{name} through the chain form vs exact path, 3 bands of 8 "
+              f"rows: max abs diff {err3:.3e} (bound {PATH_BOUND:g})",
+              flush=True)
         check(err3 <= PATH_BOUND, f"{name} disagrees with exact path")
-        t_planar[name] = time_planar(p3, bsrc, name)
+        t_planar[name] = time_planar(p3, bsrc, name, peak)
         sx, sy = t_planar[name].pop("sx"), t_planar[name].pop("sy")
         if name == "config 3":
             deg1 = library_bilinear(bsrc, sx, sy)
@@ -1362,17 +1755,19 @@ def main():
     limg = rng.uniform(0, 1, (1152, 1536, 3)).astype(np.float32)
     lsrc = E.make_mount_source(lf, limg, 3, 3, device="cuda")
     p5 = plan_for(lf, P.SPHERICAL, 4096, 2048, 360, 3)
-    out5, _ms, n5 = render(p5, lsrc, "lens facet", 0, 1)
-    planar_n["lens facet"] = n5["resample_planar"]
+    out5, _ms, n5 = render(p5, lsrc, "lens facet",
+                           want={"resample_planar_chain": 1})
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    planar_n["lens facet"] = n5["resample_planar_chain"]
     covered = float((out5 != 0).any(axis=-1).mean())
     err5, _e = band_errors(p5, lsrc, out5, [(704, 712), (1020, 1028),
                                             (1336, 1344)], False)
-    print(f"lens facet: {100 * covered:.1f}% of the equirect covered; vs "
-          f"exact path, 3 bands of 8 rows: max abs diff {err5:.3e} (bound "
-          f"{PATH_BOUND:g})", flush=True)
+    print(f"lens facet through the chain form: {100 * covered:.1f}% of the "
+          f"equirect covered; vs exact path, 3 bands of 8 rows: max abs diff "
+          f"{err5:.3e} (bound {PATH_BOUND:g})", flush=True)
     check(0.02 < covered < 0.5, "lens facet coverage implausible")
     check(err5 <= PATH_BOUND, "lens facet disagrees with exact path")
-    t_planar["lens facet"] = time_planar(p5, lsrc, "lens facet")
+    t_planar["lens facet"] = time_planar(p5, lsrc, "lens facet", peak)
     t_planar["lens facet"].pop("sx")
     t_planar["lens facet"].pop("sy")
     p5t = plan_for(lf, P.SPHERICAL, 4096, 2048, 360, 3, twine=2)
@@ -1383,21 +1778,26 @@ def main():
               "facet edge (taps differ)"] > 0,
           "lens facet twined: coverage or facet edge implausible")
 
+    # a translated facet has a generic chain: it stays on the planes
+    # forms, untwined and twined
     tf = make_facet(P.RECTILINEAR, 640, 480, math.radians(80),
                     tr_x=0.2, tr_y=-0.1, tr_z=0.15, yaw=math.radians(10))
     tsrc = E.make_mount_source(tf, limg[:480, :640], 3, 3, device="cuda")
-    pt = plan_for(tf, P.RECTILINEAR, 1024, 768, 100, 3, (5, 0, 0))
-    check(pt.planar_to_ray[0] is not None, "translated facet not generic")
-    outt, _ms, nt = render(pt, tsrc, "translated facet", 0, 1)
-    planar_n["translated facet"] = nt["resample_planar"]
-    covered = float((outt != 0).any(axis=-1).mean())
-    errt, _e = band_errors(pt, tsrc, outt, [(0, 8), (380, 388),
-                                            (760, 768)], False)
-    print(f"translated facet: {100 * covered:.1f}% of the view covered; vs"
-          f" exact path, 3 bands of 8 rows: max abs diff {errt:.3e} (bound "
-          f"{PATH_BOUND:g})", flush=True)
-    check(0.05 < covered < 0.95, "translated facet coverage implausible")
-    check(errt <= PATH_BOUND, "translated facet disagrees with exact path")
+    for twine, want, bound in ((0, "resample_planar", PATH_BOUND),
+                               (2, "resample_twined", TWINED_PLANAR_BOUND)):
+        pt = plan_for(tf, P.RECTILINEAR, 1024, 768, 100, 3, (5, 0, 0),
+                      twine=twine)
+        check(pt.planar_to_ray[0] is not None, "translated facet not generic")
+        name = "translated facet" + (" twined" if twine else "")
+        outt, _ms, nt = render(pt, tsrc, name, want={want: 1})
+        planar_n[name] = nt[want]
+        covered = float((outt != 0).any(axis=-1).mean())
+        errt = max(v[0] for v in frame_errors(pt, tsrc, outt).values())
+        print(f"{name} through the planes form: {100 * covered:.1f}% of the "
+              f"view covered; vs exact path, whole frame: max abs diff "
+              f"{errt:.3e} (bound {bound:g})", flush=True)
+        check(0.05 < covered < 0.95, f"{name} coverage implausible")
+        check(errt <= bound, f"{name} disagrees with exact path")
     del lsrc, tsrc
     torch.cuda.empty_cache()
 
@@ -1419,6 +1819,11 @@ def main():
     # ---- 7. the record ------------------------------------------------
     t3 = t_planar["config 3"]
     t4, t3t = t_twined["config 4"], t_twined["config 3"]
+
+    def planes_form(t):
+        # the planes form's readings in a path's record (the same call)
+        return {k[len("planes_"):]: t[k] for k in t if k.startswith("planes_")}
+
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
         {"name": "resample_inline", "route": "cuda",
@@ -1431,21 +1836,40 @@ def main():
          "direct_ms": t_main["direct_ms"],
          "small_case_max_abs_err": worst_inline,
          "frame_ms": t_main["frame_ms"], "prefilter_ms": prefilter_ms,
+         "build": build.get("resample_inline_kernel"),
          "config_2r": dict(t_2r, launches=r2_n["resample_inline"],
                            max_abs_err=err2r_k)},
+        # the planes form: launched by the translated facet; timed on
+        # config 3's coordinates
         {"name": "resample_planar", "route": "cuda",
          "source": "envutil_tpu_torch/csrc/resample_planar.cu",
          "replaces": "envutil_tpu/ops/pallas_resample.py:1070 (K2), "
                      "envutil_tpu/ops/pallas_resample.py:822 (K5)",
-         "launches": planar_n["config 3"],
-         "max_abs_err": t3["max_abs_err"],
-         "ms": t3["ms"], "plain_ms": t3["plain_ms"],
-         "bound_ms": t3["bound_ms"], "bound_by": t3["bound_by"],
-         "library_ms": None,
+         "form": "planes", "launches": planar_n["translated facet"],
+         "launches_path": "translated facet",
+         "max_abs_err": t3["planes_max_abs_err"],
+         "ms": t3["planes_ms"], "plain_ms": t3["planes_plain_ms"],
+         "bound_ms": t3["planes_bound_ms"],
+         "bound_by": t3["planes_bound_by"], "library_ms": None,
          "degree1": dict(deg1, library="grid_sample bilinear"),
          "small_case_max_abs_err": worst_planar,
+         "build": build.get("resample_planar_kernel")},
+        {"name": "resample_planar_chain", "route": "cuda",
+         "source": "envutil_tpu_torch/csrc/resample_planar.cu",
+         "replaces": "envutil_tpu/ops/pallas_resample.py:1070 (K2), "
+                     "envutil_tpu/ops/pallas_resample.py:822 (K5)",
+         "form": "chain", "launches": planar_n["config 3"],
+         "max_abs_err": t3["max_abs_err"], "ms": t3["ms"],
+         "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
+         "bound_by": t3["bound_by"], "library_ms": None,
+         "small_case_max_abs_err": worst_chain["planar"],
+         "small_case_edge_px": chain_edge_px["planar"],
+         "build": build.get("resample_planar_chain_kernel"),
          "launches_by_path": planar_n,
-         "paths": t_planar},
+         "paths": {k: dict({q: v for q, v in t.items()
+                            if not q.startswith("planes_")},
+                           planes_form=planes_form(t))
+                   for k, t in t_planar.items()}},
         dict({k: t4[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
              name="resample_inline_twined", route="cuda",
@@ -1454,17 +1878,37 @@ def main():
              library_ms=None,   # no PyTorch call sums a b-spline over
              # deflected taps
              small_case_max_abs_err=worst_inline_twined,
+             build=build.get("resample_inline_twined_kernel"),
              paths={k: t_twined[k] for k in ("config 4", "pole and seam",
                                              "16K")}),
+        # the planes form: launched by the translated facet twined; timed
+        # on config 3 twined's planes
+        {"name": "resample_twined", "route": "cuda",
+         "source": "envutil_tpu_torch/csrc/resample_twined.cu",
+         "replaces": "envutil_tpu/ops/pallas_resample.py:1736 (K3), "
+                     "envutil_tpu/ops/pallas_resample.py:2033 (K6)",
+         "form": "planes", "launches": planar_n["translated facet twined"],
+         "launches_path": "translated facet twined",
+         "max_abs_err": t3t["planes_max_abs_err"], "ms": t3t["planes_ms"],
+         "plain_ms": t3t["planes_plain_ms"],
+         "bound_ms": t3t["planes_bound_ms"],
+         "bound_by": t3t["planes_bound_by"], "library_ms": None,
+         "small_case_max_abs_err": worst_twined,
+         "build": build.get("resample_twined_kernel")},
         dict({k: t3t[k] for k in ("launches", "max_abs_err", "ms",
                                   "plain_ms", "bound_ms", "bound_by")},
-             name="resample_twined", route="cuda",
+             name="resample_twined_chain", route="cuda",
              source="envutil_tpu_torch/csrc/resample_twined.cu",
              replaces="envutil_tpu/ops/pallas_resample.py:1736 (K3), "
                       "envutil_tpu/ops/pallas_resample.py:2033 (K6)",
-             library_ms=None,   # as above
-             small_case_max_abs_err=worst_twined,
-             paths={k: t_twined[k] for k in ("config 3", "lens facet")}),
+             form="chain", library_ms=None,   # as above
+             small_case_max_abs_err=worst_chain["twined"],
+             small_case_edge_px=chain_edge_px["twined"],
+             build=build.get("resample_twined_chain_kernel"),
+             paths={k: dict({q: v for q, v in t_twined[k].items()
+                             if not q.startswith("planes_")},
+                            planes_form=planes_form(t_twined[k]))
+                    for k in ("config 3", "lens facet")}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

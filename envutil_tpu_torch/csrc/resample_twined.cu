@@ -1,49 +1,74 @@
-// Planar-coordinates twined b-spline resampler for Hopper (sm_90a).
+// Planar twined b-spline resampler for Hopper (sm_90a), in two forms.
 //
 // Replaces two kernels of envutil_tpu/ops/pallas_resample.py:
 //   _twined_kernel_into (the body of resample_twined_into, with its
 //     merge-mask overlay and its champion-routed per-pixel tap weights),
 //   _twined_kernel (the body of resample_twined), the same sum over the
 //     whole frame into a fresh output.
-// Per output pixel it reads the centre's padded spline coordinates
-// (sx, sy) and the coordinate derivative planes (dux, duy, dvx, dvy) and
-// sums over the spread's taps
+// Per output pixel both sum over the spread's taps
 //     sum_k w_k * spline(sx + cx_k dux + cy_k dvx, sy + cx_k duy + cy_k dvy)
-// on the (Hp, Wp, NCH) channel-interleaved table. Three forms:
-//   - no mask: every pixel is written (the whole-frame form);
-//   - merge mask: a pixel whose mask is <= 0.5 reads nothing else and
-//     leaves ``out`` untouched, as in the planar kernel;
-//   - tap weights, (K, H, W) float32 or 8-bit planes that multiply w_k
-//     per pixel: the counterpart of the TPU kernel's champ[k] == fi,
-//     which for one facet is the tap's own validity. A tap whose weight
-//     is 0 gathers nothing; a pixel whose weights are all 0 writes 0.
+// on the (Hp, Wp, NCH) channel-interleaved table: the centre's padded
+// spline coordinates (sx, sy) deflected in coordinate space by the
+// coordinate derivatives (dux, duy), (dvx, dvy).
 //
-// Each tap's coordinates are clamped as floats like the planar kernel's
-// (NaN/inf planes of grazing rays stay harmless). With ``period_x`` > 0
-// the deflected x is first wrapped into [lower_x, lower_x + period_x):
-// the table of a horizontally periodic source is braced by a few
-// columns only, and a tap deflected across the seam belongs on the
-// other side. The coordinate pass hands over derivatives already
-// wrapped by the period.
+// The chain form (resample_twined_chain_kernel) computes those operands
+// per pixel in registers (planar_chain.cuh): the three rays of the
+// twining ninepack from the doubled axis features (centre and the two
+// DERIV_BIAS-biased grids, as the inline twined kernel), normalised;
+// the derivative rays, by differencing or under --twine_precise in the
+// centre ray's tangent plane; the three pickups, an IR source's all in
+// the centre ray's cube face (past an edge the coordinates run on into
+// the section's support frame instead of jumping by a section); the
+// coordinate derivatives, wrapped by the period on a periodic source
+// and 0 where not finite; and the centre, ungated (a centre outside a
+// partial facet may still have valid taps, deflected from where it
+// is). For a source that does not cover every ray (``tap_valid``),
+// each tap counts only where its deflected ray p0 + cx du + cy dv
+// passes the mount's window test, the mask the exact path applies to
+// that tap; a pixel with no valid tap is written 0. These are the
+// operands fastpath.twined_coords computed as a string of PyTorch
+// launches (three coordinate chains and, for partial facets, one more
+// chain and a uint8 plane per tap) before every launch of the planes
+// form: on the TPU XLA fuses the JAX package's chain under jit, eager
+// PyTorch cannot, and on the H100 that pass took 90-99% of a twined
+// planar frame (PERF.md).
 //
+// The planes form (resample_twined_kernel) reads the six operand planes
+// and, for partial facets, (K, H, W) float32 or 8-bit tap-weight planes
+// (the counterpart of the TPU kernel's champ[k] == fi, which for one
+// facet is the tap's own validity); a merge mask leaves pixels <= 0.5
+// untouched. It serves translated facets, whose generic chain has no
+// kernel form.
+//
+// Both forms: each tap's coordinates are clamped as floats like the
+// planar kernel's (NaN/inf of grazing rays stay harmless); on a
+// horizontally periodic source the deflected x is first wrapped into
+// [pad - 1/2, pad - 1/2 + period): the table is braced by a few columns
+// only, and a tap deflected across the seam belongs on the other side.
 // Only the (K, 3) triplet layout of the spread is taken: the TPU
 // kernel's separable grid layout and its union-tap and sheared bodies
 // compute the same sum and differ in how (8,128) gathers are shared
-// between taps, which Hopper's L1/L2 gathers do not need.
+// between taps, which Hopper's L1/L2 gathers do not need. One thread
+// per output pixel on 32x8 blocks with a runtime tap loop kept rolled;
+// the spread is staged in dynamic shared memory once per block.
 //
-// Design. One thread per output pixel on 32x8 blocks with a runtime tap
-// loop; the spread is staged in dynamic shared memory once per block.
+// Bound. Bytes: the table entries under all live taps' footprints
+// (chip_smoke.py counts them per run) and the output; the planes form
+// reads its six planes and the tap weights as well. Operations: the
+// chain's three rays and pickups (and K window tests for a partial
+// facet) per pixel, K times the deflection and the spline per live
+// tap: at 4 taps the operations bound the chain form.
 //
-// Bound. Bytes: six (seven with the mask) f32 planes read and NCH floats
-// written per covered pixel, K tap-weight planes where given, and the
-// table entries under all taps' footprints (chip_smoke.py counts them
-// per run); operations: K times the spline.
+// No staged window. Ablation on the H100 (tools/ablation/
+// ablate_planar.py) put the chain form's tap loads at 55% of the kernel
+// at config 3 twined and 9% at the lens facet twined, where the three
+// rays, three pickups and four window tests of every pixel set the
+// pace; a window in the planar chain form, whose loads are 49% at
+// config 3, gained nothing there, and the twined one would widen each
+// block's box by the spread's reach as the inline twined kernel's did.
+// So the taps gather directly.
 //
-// Left for later: fusing the coordinate pass (three coordinate chains
-// and, for partial facets, K validity chains of PyTorch operations) into
-// this kernel.
-
-#include "resample_common.cuh"
+#include "planar_chain.cuh"
 
 namespace {
 
@@ -56,6 +81,18 @@ struct Params {
   float lower_x, period_x;      // periodic wrap of deflected x (0: none)
   Table table;
 };
+
+// The spline of one tap, kept out of line at degrees 5 and above: inlined
+// into the tap loop, ptxas spilled 4-24 bytes at degrees 5-7 in every
+// arrangement of the loop and its loads that was built, with registers
+// to spare. The kernel's parameters are __grid_constant__, so the call
+// reads the table's weights where they are.
+template <int DEGREE, int NCH>
+__device__ __noinline__ void tap_spline(const float* __restrict__ coeff,
+                                        const Table& t, float sx, float sy,
+                                        float (&val)[NCH]) {
+  spline_at<DEGREE, NCH>(coeff, t, sx, sy, val);
+}
 
 template <int DEGREE, int NCH>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
@@ -70,7 +107,7 @@ resample_twined_kernel(float* __restrict__ out,
                        const float* __restrict__ spread,
                        const float* __restrict__ mask,
                        const void* __restrict__ tapw,
-                       const Params p) {
+                       const __grid_constant__ Params p) {
   extern __shared__ float taps[];  // (n_taps, 3): cx, cy, w
   for (int i = threadIdx.y * BLOCK_X + threadIdx.x; i < 3 * p.n_taps;
        i += BLOCK_X * BLOCK_Y)
@@ -91,6 +128,7 @@ resample_twined_kernel(float* __restrict__ out,
   bool loaded = false;
   float sx0 = 0.0f, sy0 = 0.0f, dux = 0.0f, duy = 0.0f, dvx = 0.0f,
         dvy = 0.0f;
+#pragma unroll 1
   for (int k = 0; k < p.n_taps; ++k) {
     float w = taps[3 * k + 2];
     if (tapw != nullptr) {
@@ -114,7 +152,11 @@ resample_twined_kernel(float* __restrict__ out,
     sx = clamp_coord<DEGREE>(sx, p.table.wp);
     sy = clamp_coord<DEGREE>(sy, p.table.hp);
     float val[NCH];
-    spline_at<DEGREE, NCH>(coeff, p.table, sx, sy, val);
+    if constexpr (DEGREE >= 5) {
+      tap_spline<DEGREE, NCH>(coeff, p.table, sx, sy, val);
+    } else {
+      spline_at<DEGREE, NCH>(coeff, p.table, sx, sy, val);
+    }
 #pragma unroll
     for (int c = 0; c < NCH; ++c) acc[c] += w * val[c];
   }
@@ -136,6 +178,127 @@ struct Launch {
         <<<frame_grid(p.height, p.width), dim3(BLOCK_X, BLOCK_Y), smem,
            stream>>>(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, mask,
                      tapw, p);
+    return cudaGetLastError();
+  }
+};
+
+
+// ---- the chain form ---------------------------------------------------
+
+struct ChainParams {
+  int64_t height, width;        // output window
+  int row0;                     // absolute row of the window's first row
+  int face_rows;                // rows per cube face (0: one matrix)
+  int nfx, nfy;                 // feature rows of one set (centre or biased)
+  int tmode;                    // TMODE_* (planar_chain.cuh)
+  int n_taps;
+  int precise;                  // tangent-plane derivative basis
+  int tap_valid;                // test each tap's ray against the window
+  ChainPickup pick;
+  Table table;
+};
+
+// four blocks an SM (64 registers): without the cap ptxas spilled 8
+// bytes at degree 1, two channels; no instantiation needs more
+template <int DEGREE, int NCH>
+__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y, 4)
+resample_twined_chain_kernel(float* __restrict__ out,
+                             const float* __restrict__ coeff,
+                             const float* __restrict__ xfeat,
+                             const float* __restrict__ yfeat,
+                             const float* __restrict__ bmats,
+                             const float* __restrict__ spread,
+                             const ChainParams p) {
+  extern __shared__ float taps[];  // (n_taps, 3): cx, cy, w
+  for (int i = threadIdx.y * BLOCK_X + threadIdx.x; i < 3 * p.n_taps;
+       i += BLOCK_X * BLOCK_Y)
+    taps[i] = spread[i];
+  __syncthreads();
+
+  const int64_t x = (int64_t)blockIdx.x * BLOCK_X + threadIdx.x;
+  const int64_t y = (int64_t)blockIdx.y * BLOCK_Y + threadIdx.y;
+  if (x >= p.width || y >= p.height) return;
+  int face = 0;
+  if (p.face_rows > 0) face = min(max((p.row0 + (int)y) / p.face_rows, 0), 5);
+  const float* bm = bmats + face * 9;
+  const float* xbias = xfeat + p.nfx * p.width;   // the biased sets
+  const float* ybias = yfeat + p.nfy * p.height;
+
+  // the ninepack's three normalised rays and the derivative rays; with
+  // ``precise`` the neighbours are then p0 + du and p0 + dv, as in
+  // fastpath.twined_coords
+  float p0[3], p10[3], p01[3], du[3], dv[3];
+  chain_ray(p.tmode, xfeat, yfeat, x, y, p.width, p.height, bm, p0);
+  chain_ray(p.tmode, xbias, yfeat, x, y, p.width, p.height, bm, p10);
+  chain_ray(p.tmode, xfeat, ybias, x, y, p.width, p.height, bm, p01);
+  const bool precise = p.precise != 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    du[i] = p10[i];
+    dv[i] = p01[i];
+  }
+  derivative_ray(p0, du, precise);
+  derivative_ray(p0, dv, precise);
+  if (precise) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      p10[i] = add(p0[i], du[i]);
+      p01[i] = add(p0[i], dv[i]);
+    }
+  }
+
+  // the three pickups (an IR source's in the centre ray's face) and the
+  // coordinate derivatives
+  const int sface = p.pick.smode == SMODE_MOUNT ? 0 : cube_face(p0[0], p0[1], p0[2]);
+  float x0, y0, xu, yu, xv, yv;
+  twined_pickup(p.pick, p0[0], p0[1], p0[2], sface, x0, y0);
+  twined_pickup(p.pick, p10[0], p10[1], p10[2], sface, xu, yu);
+  twined_pickup(p.pick, p01[0], p01[1], p01[2], sface, xv, yv);
+  const float dux = coord_derivative(xu, x0, p.pick.period);
+  const float duy = coord_derivative(yu, y0, 0.0f);
+  const float dvx = coord_derivative(xv, x0, p.pick.period);
+  const float dvy = coord_derivative(yv, y0, 0.0f);
+  const float sx0 = add(x0, p.pick.pad), sy0 = add(y0, p.pick.pad);
+  const float lower = sub(p.pick.pad, 0.5f);
+
+  float acc[NCH];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
+#pragma unroll 1
+  for (int k = 0; k < p.n_taps; ++k) {
+    const float cx = taps[3 * k], cy = taps[3 * k + 1], w = taps[3 * k + 2];
+    if (p.tap_valid) {
+      // the validity of the tap's deflected ray, the exact path's mask
+      float r[3], px, py;
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        r[i] = add(add(p0[i], mul(cx, du[i])), mul(cy, dv[i]));
+      if (!mount_planar(p.pick, r[0], r[1], r[2], px, py)) continue;
+    }
+    float sx = sx0 + cx * dux + cy * dvx;
+    float sy = sy0 + cx * duy + cy * dvy;
+    if (p.pick.period > 0.0f) sx = lower + floor_mod(sx - lower, p.pick.period);
+    float val[NCH];
+    spline_at<DEGREE, NCH>(coeff, p.table, clamp_coord<DEGREE>(sx, p.table.wp),
+                           clamp_coord<DEGREE>(sy, p.table.hp), val);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) acc[c] += w * val[c];
+  }
+  float* dst = out + (y * p.width + x) * NCH;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) dst[c] = acc[c];
+}
+
+struct ChainLaunch {
+  template <int DEGREE, int NCH>
+  static cudaError_t run(float* out, const float* coeff, const float* xfeat,
+                         const float* yfeat, const float* bmats,
+                         const float* spread, const ChainParams& p,
+                         cudaStream_t stream) {
+    const size_t smem = (size_t)3 * p.n_taps * sizeof(float);
+    resample_twined_chain_kernel<DEGREE, NCH>
+        <<<frame_grid(p.height, p.width), dim3(BLOCK_X, BLOCK_Y), smem,
+           stream>>>(out, coeff, xfeat, yfeat, bmats, spread, p);
     return cudaGetLastError();
   }
 };
@@ -168,4 +331,36 @@ extern "C" int envutil_resample_twined(
   return (int)by_degree<Launch>(degree, nch, out, coeff, sx, sy, dux, duy,
                                 dvx, dvy, spread, mask, tapw, p,
                                 (cudaStream_t)stream);
+}
+
+// Plain C entry point of the chain form (loaded with ctypes). ``xfeat``
+// is (2 nfx, W) and ``yfeat`` (2 nfy, H): the centre's feature rows,
+// then the DERIV_BIAS-biased ones, as for the inline twined kernel;
+// ``ipick`` / ``fpick`` as for envutil_resample_planar_chain. With
+// ``tap_valid`` each tap counts only where its deflected ray falls into
+// the mount's window (a source that does not cover every ray). Every
+// pixel is written: 0 where no tap is valid.
+extern "C" int envutil_resample_twined_chain(
+    float* out, const float* coeff, const float* xfeat, const float* yfeat,
+    const float* bmats, const float* spread, const float* wmat,
+    const int* ipick, const float* fpick, long long height, long long width,
+    long long hp, long long wp, int row0, int face_rows, int degree, int nch,
+    int tmode, int n_taps, int precise, int tap_valid, void* stream) {
+  constexpr int MAX_TAPS = 4096;  // 48 KiB of shared memory
+  if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
+  if (tmode < TMODE_AFFINE || tmode > TMODE_FISH) return (int)cudaErrorInvalidValue;
+  if (n_taps < 1 || n_taps > MAX_TAPS) return (int)cudaErrorInvalidValue;
+  if (height <= 0 || width <= 0) return 0;
+  if ((height + BLOCK_Y - 1) / BLOCK_Y > 65535) return (int)cudaErrorInvalidValue;
+  ChainParams p;
+  p.height = height; p.width = width;
+  p.row0 = row0; p.face_rows = face_rows; p.tmode = tmode;
+  p.nfx = (tmode == TMODE_SPH || tmode == TMODE_CYL) ? 2 : 1;
+  p.nfy = tmode == TMODE_SPH ? 2 : 1;
+  p.n_taps = n_taps; p.precise = precise; p.tap_valid = tap_valid;
+  if (!set_pickup(p.pick, ipick, fpick)) return (int)cudaErrorInvalidValue;
+  if (tap_valid && p.pick.smode != SMODE_MOUNT) return (int)cudaErrorInvalidValue;
+  set_table(p.table, hp, wp, degree, wmat);
+  return (int)by_degree<ChainLaunch>(degree, nch, out, coeff, xfeat, yfeat,
+                                     bmats, spread, p, (cudaStream_t)stream);
 }

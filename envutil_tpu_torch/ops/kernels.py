@@ -40,16 +40,16 @@ def nvcc_path() -> str:
 
 
 class Library:
-    """One compiled kernel source and its C entry point ``symbol`` with
-    the ctypes ``argtypes`` given; the entry point returns a CUDA error
-    code (0 on success)."""
+    """One compiled kernel source and its C entry points, ``symbols``
+    mapping each name to its ctypes ``argtypes``; an entry point returns
+    a CUDA error code (0 on success)."""
 
-    def __init__(self, source: str, symbol: str, argtypes):
+    def __init__(self, source: str, symbols: dict):
         self.source = _PKG / "csrc" / source
-        self.symbol = symbol
-        self.argtypes = argtypes
-        self.fn = None
+        self.symbols = symbols
+        self.fns = {}
         self.build_log = ""
+        self._lib = None
         self._proc = None
 
     def _so(self) -> pathlib.Path:
@@ -61,7 +61,7 @@ class Library:
 
     def start(self) -> None:
         """Start nvcc in the background unless the library is built."""
-        if self.fn is not None or self._proc is not None \
+        if self._lib is not None or self._proc is not None \
                 or self._so().exists():
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -84,17 +84,23 @@ class Library:
             if os.path.exists(self._tmp):
                 os.unlink(self._tmp)
 
-    def get(self):
-        """The loaded entry point, built first if need be."""
-        if self.fn is None:
+    def load(self) -> None:
+        """Build the library if need be and load it."""
+        if self._lib is None:
             self.start()
             if self._proc is not None:
                 self._finish()
-            fn = getattr(ctypes.CDLL(str(self._so())), self.symbol)
-            fn.argtypes = self.argtypes
+            self._lib = ctypes.CDLL(str(self._so()))
+
+    def get(self, symbol: str):
+        """The loaded entry point ``symbol``, built first if need be."""
+        if symbol not in self.fns:
+            self.load()
+            fn = getattr(self._lib, symbol)
+            fn.argtypes = self.symbols[symbol]
             fn.restype = ctypes.c_int
-            self.fn = fn
-        return self.fn
+            self.fns[symbol] = fn
+        return self.fns[symbol]
 
 
 def build_all(libraries) -> float:
@@ -104,5 +110,5 @@ def build_all(libraries) -> float:
     for lib in libraries:
         lib.start()
     for lib in libraries:
-        lib.get()
+        lib.load()
     return time.perf_counter() - t0

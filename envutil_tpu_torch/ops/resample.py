@@ -10,7 +10,12 @@ through device memory.
 
 ``resample_planar`` is the counterpart of resample_planar_into (with
 a merge mask) and resample_planar (without one, over the whole frame):
-the spline at precomputed padded coordinates (sx, sy).
+the spline at precomputed padded coordinates (sx, sy), its planes
+form. ``resample_planar_chain`` is its chain form: the coordinate
+chain per pixel from the inline kernel's axis features (plus the
+stereographic and fisheye target modes) and a ``ChainPickup`` (the IR
+pickup, or the mount pickup of partial and PTO mounts with its window
+test), then the spline, 0 where the ray misses the source.
 
 ``resample_inline_twined`` is the counterpart of
 resample_inline_twined_into: the inline chain for the three rays of the
@@ -23,7 +28,10 @@ seam, the poles and cube edges are no special case.
 merge mask, or with per-pixel tap weights in place of its champion
 planes) and resample_twined (without either, over the whole frame): the
 same weighted sum from the centre's padded coordinates and four
-coordinate derivative planes.
+coordinate derivative planes, its planes form.
+``resample_twined_chain`` is its chain form: the ninepack's three rays,
+their pickups, the coordinate derivatives and each tap's validity per
+pixel in the kernel, then the same sum.
 
 Each wrapper launches its hand-written kernel (csrc/resample_*.cu,
 built with nvcc at first use by ops/kernels.py) for CUDA tensors,
@@ -75,18 +83,23 @@ offsets (``synopsis.scaled_spread``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
 import torch
 
 from ..core import geometry as geo
+from ..models import lens as _lens
 from . import basis as _basis
 from . import kernels as K
 from . import spline as S
 
 _TMODES = {"affine": 0, "sph": 1, "cyl": 2}
+# the chain forms take two more target modes on affine features
+_CHAIN_TMODES = dict(_TMODES, ster=3, fish=4)
 _SMODES = {"sph": 0, "cubemap": 1, "biatan6": 2}
+_CHAIN_SMODES = {"cubemap": 1, "biatan6": 2, "mount": 3}
 _GATES = {"periodic": 0, "mirror": 1, "clamp": 2, "none": 3}
 MAX_DEGREE = 7
 # Shared memory, in bytes, that a block of the inline kernel may stage
@@ -100,18 +113,21 @@ TILE_INLINE = (32, 16)
 
 _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-_INLINE = K.Library(
-    "resample_inline.cu", "envutil_resample_inline",
-    [_p] * 6 + [_ll] * 4 + [_i] * 7 + [_f, _f, _i] + [_f] * 8 + [_i, _p])
-_PLANAR = K.Library(
-    "resample_planar.cu", "envutil_resample_planar",
-    [_p] * 6 + [_ll] * 4 + [_i, _i, _p])
-_INLINE_TWINED = K.Library(
-    "resample_inline_twined.cu", "envutil_resample_inline_twined",
-    [_p] * 7 + [_ll] * 4 + [_i] * 9 + [_f, _f, _i] + [_f] * 8 + [_p])
-_TWINED = K.Library(
-    "resample_twined.cu", "envutil_resample_twined",
-    [_p] * 12 + [_ll] * 4 + [_i] * 4 + [_f, _f, _p])
+_INLINE = K.Library("resample_inline.cu", {
+    "envutil_resample_inline":
+        [_p] * 6 + [_ll] * 4 + [_i] * 7 + [_f, _f, _i] + [_f] * 8 + [_i, _p]})
+_PLANAR = K.Library("resample_planar.cu", {
+    "envutil_resample_planar": [_p] * 6 + [_ll] * 4 + [_i, _i, _p],
+    "envutil_resample_planar_chain":
+        [_p] * 8 + [_ll] * 4 + [_i] * 5 + [_p]})
+_INLINE_TWINED = K.Library("resample_inline_twined.cu", {
+    "envutil_resample_inline_twined":
+        [_p] * 7 + [_ll] * 4 + [_i] * 9 + [_f, _f, _i] + [_f] * 8 + [_p]})
+_TWINED = K.Library("resample_twined.cu", {
+    "envutil_resample_twined": [_p] * 12 + [_ll] * 4 + [_i] * 4
+    + [_f, _f, _p],
+    "envutil_resample_twined_chain":
+        [_p] * 9 + [_ll] * 4 + [_i] * 8 + [_p]})
 LIBRARIES = (_INLINE, _PLANAR, _INLINE_TWINED, _TWINED)
 
 
@@ -129,26 +145,31 @@ def _wmat(degree):
 
 def _feature_rows(tmode):
     """(Fx, Fy): feature rows of one set of ``xfeat`` and ``yfeat``."""
-    return (1, 1) if tmode == "affine" else \
-        ((2, 2) if tmode == "sph" else (2, 1))
+    return {"sph": (2, 2), "cyl": (2, 1)}.get(tmode, (1, 1))
 
 
 def _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
            row0, face_rows, smode, sets: int = 1):
     if smode not in _SMODES:
         raise ValueError(f"unknown smode {smode!r}")
-    if coeff.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{coeff.dtype} coefficient tables wait for a later slice; "
-            "the kernel takes float32")
-    if tmode not in _TMODES:
-        raise ValueError(f"unknown tmode {tmode!r}")
-    if not 0 <= degree <= MAX_DEGREE:
-        raise ValueError(f"degree {degree} outside 0..{MAX_DEGREE}")
+    _check_features(out, coeff, xfeat, yfeat, bmats, degree, tmode,
+                    face_rows, sets, _TMODES)
     if len(consts) != (11 if smode == "sph" else 12):
         raise ValueError("consts must be (kx, cx, ky, cy, gate_x, glx, "
                          "gux, gate_y, gly, guy, pad), plus section_px "
                          "for the cubemap/biatan6 source modes")
+
+
+def _check_features(out, coeff, xfeat, yfeat, bmats, degree, tmode,
+                    face_rows, sets, tmodes):
+    if coeff.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{coeff.dtype} coefficient tables wait for a later slice; "
+            "the kernel takes float32")
+    if tmode not in tmodes:
+        raise ValueError(f"unknown tmode {tmode!r}")
+    if not 0 <= degree <= MAX_DEGREE:
+        raise ValueError(f"degree {degree} outside 0..{MAX_DEGREE}")
     h, w, nch = out.shape
     if coeff.dim() != 3 or coeff.shape[2] != nch:
         raise ValueError(f"coeff {tuple(coeff.shape)} does not match "
@@ -199,7 +220,7 @@ def resample_inline(out, coeff, xfeat, yfeat, bmats, *, degree: int,
                                      face_rows=face_rows, smode=smode)
     if out.device.type != "cuda":
         raise ValueError(f"unsupported device {out.device}")
-    fn = _INLINE.get()
+    fn = _INLINE.get("envutil_resample_inline")
     (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts[:11]
     section_px = consts[11] if smode != "sph" else 0.0
     h, w, nch = out.shape
@@ -235,6 +256,12 @@ def inline_rays(xfeat, yfeat, bmats, *, tmode: str, row0: int = 0,
     m = [bm[:, k:k + 1] for k in range(9)]
     if tmode == "affine":
         a, b, c = xfeat[0][None, :], yfeat[0][:, None], None
+    elif tmode in ("ster", "fish"):
+        # the chain forms' planar targets: geometry.ster_to_ray /
+        # fish_to_ray of the planar grid
+        to_ray = geo.ster_to_ray if tmode == "ster" else geo.fish_to_ray
+        a, b, c = to_ray(xfeat[0][None, :].expand(h, w),
+                         yfeat[0][:, None].expand(h, w))
     elif tmode == "sph":
         ct = yfeat[1][:, None]
         a, b, c = xfeat[0][None, :] * ct, yfeat[0][:, None], \
@@ -417,7 +444,7 @@ def resample_inline_twined(out, coeff, xfeat, yfeat, bmats, spread, *,
                                             spread, **kw)
     if out.device.type != "cuda":
         raise ValueError(f"unsupported device {out.device}")
-    fn = _INLINE_TWINED.get()
+    fn = _INLINE_TWINED.get("envutil_resample_inline_twined")
     (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts[:11]
     section_px = consts[11] if smode != "sph" else 0.0
     h, w, nch = out.shape
@@ -539,7 +566,7 @@ def resample_planar(out, coeff, sx, sy, *, degree: int, merge_mask=None):
                                      merge_mask=merge_mask)
     if out.device.type != "cuda":
         raise ValueError(f"unsupported device {out.device}")
-    fn = _PLANAR.get()
+    fn = _PLANAR.get("envutil_resample_planar")
     h, w, nch = out.shape
     hp, wp, _ = coeff.shape
     stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -634,7 +661,7 @@ def resample_twined(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, *,
             merge_mask=merge_mask, tap_weights=tap_weights, wrap_x=wrap_x)
     if out.device.type != "cuda":
         raise ValueError(f"unsupported device {out.device}")
-    fn = _TWINED.get()
+    fn = _TWINED.get("envutil_resample_twined")
     h, w, nch = out.shape
     hp, wp, _ = coeff.shape
     lower, period = (0.0, 0.0) if wrap_x is None else wrap_x
@@ -699,3 +726,315 @@ def resample_twined_plain(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, *,
         keep = (merge_mask > 0.5)[..., None]
         out.copy_(torch.where(keep, acc, out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the chain forms of the planar kernels
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ChainPickup:
+    """The source side of the chain forms (``ChainPickup`` in
+    csrc/planar_chain.cuh). ``smode`` "cubemap"/"biatan6": the IR pickup
+    of the inline kernel, (kx, cx, ky, cy) the in-face affine and
+    ``section_px`` the IR rows per face. ``smode`` "mount": the ray goes
+    through the ``projection``'s ``to_plane``, then the PTO ``lens``
+    (s, a, b, c), ``shift`` (h, v) and ``shear`` (g, t) where given, is
+    tested against the ``window`` extent (x0, x1, y0, y1; unbounded for
+    a full fisheye; z > 0 as well for a rectilinear source), and maps to
+    spline coordinates by (kx, cx, ky, cy) and the gates. ``period`` is
+    the core width of a horizontally periodic mount (0 otherwise): the
+    twined chain wraps its x derivatives and taps by it."""
+    smode: str
+    kx: float
+    cx: float
+    ky: float
+    cy: float
+    pad: float
+    section_px: float = 0.0
+    projection: int = 0
+    gate_x: str = "none"
+    glx: float = 0.0
+    gux: float = 0.0
+    gate_y: str = "none"
+    gly: float = 0.0
+    guy: float = 0.0
+    window: tuple = (-math.inf, math.inf, -math.inf, math.inf)
+    lens: tuple | None = None
+    shift: tuple | None = None
+    shear: tuple | None = None
+    period: float = 0.0
+
+
+@functools.lru_cache(maxsize=64)
+def _pickup_arrays(p: ChainPickup):
+    """(7 ints, 24 floats): the kernel's ChainPickup fields, as host
+    arrays for the C entry points."""
+    s, a, b, c = p.lens or (1.0, 0.0, 0.0, 0.0)
+    h, v = p.shift or (0.0, 0.0)
+    g, t = p.shear or (0.0, 0.0)
+    ints = (_CHAIN_SMODES[p.smode], int(p.projection), _GATES[p.gate_x],
+            _GATES[p.gate_y], int(p.lens is not None),
+            int(p.shift is not None), int(p.shear is not None))
+    floats = (p.kx, p.cx, p.ky, p.cy, p.pad, p.section_px, p.glx, p.gux,
+              p.gly, p.guy, *p.window, s, a, b, c, 1.0 - (a + b + c), h, v,
+              g, t, p.period)
+    return ((ctypes.c_int * 7)(*ints),
+            (ctypes.c_float * 24)(*(float(f) for f in floats)))
+
+
+def chain_rays(xfeat, yfeat, bmats, *, tmode: str, row0: int = 0,
+               face_rows: int = 0):
+    """Normalised rays (rx, ry, rz), each (H, W), from one feature set:
+    the chain forms' target half."""
+    return geo.normalize(*inline_rays(xfeat, yfeat, bmats, tmode=tmode,
+                                      row0=row0, face_rows=face_rows))
+
+
+def mount_planar(pick: ChainPickup, x, y, z):
+    """(px, py, hit): the mount pickup's model-space planar coordinates
+    of rays (the source projection's ``to_plane``, then the PTO
+    transform) and whether each ray falls into the facet's window."""
+    px, py = geo.to_plane(pick.projection)(x, y, z)
+    if pick.lens is not None:
+        s, a, b, c = pick.lens
+        f = _lens.lcp_scale(torch.sqrt(px * px + py * py) / s, a, b, c)
+        px, py = px * f, py * f
+    if pick.shift is not None:
+        px, py = px + pick.shift[0], py + pick.shift[1]
+    if pick.shear is not None:
+        px, py = px + py * pick.shear[0], py + px * pick.shear[1]
+    x0, x1, y0, y1 = pick.window
+    hit = (px >= x0) & (px <= x1) & (py >= y0) & (py <= y1)
+    if pick.projection == int(geo.Projection.RECTILINEAR):
+        hit = hit & (z > 0.0)
+    return px, py, hit
+
+
+def chain_coords(pick: ChainPickup, rx, ry, rz):
+    """The untwined chain's source half: the padded, gated spline
+    coordinates (sx, sy) of rays and whether each hits the source."""
+    if pick.smode != "mount":
+        consts = (pick.kx, pick.cx, pick.ky, pick.cy, "none", 0.0, 0.0,
+                  "none", 0.0, 0.0, pick.pad, pick.section_px)
+        sx, sy = ray_coords(rx, ry, rz, consts=consts, smode=pick.smode)
+        return sx, sy, torch.ones_like(rx, dtype=torch.bool)
+    px, py, hit = mount_planar(pick, rx, ry, rz)
+    sx = _gate(px * pick.kx + pick.cx, pick.gate_x, pick.glx, pick.gux)
+    sy = _gate(py * pick.ky + pick.cy, pick.gate_y, pick.gly, pick.guy)
+    return sx + pick.pad, sy + pick.pad, hit
+
+
+def planar_chain_coords(xfeat, yfeat, bmats, *, tmode: str,
+                        pick: ChainPickup, row0: int = 0,
+                        face_rows: int = 0):
+    """(sx, sy, mask), each (H, W): the padded spline coordinates and the
+    validity of every pixel of the window as the planar chain kernel
+    computes them; the counterpart of ``fastpath.coords``."""
+    return chain_coords(pick, *chain_rays(xfeat, yfeat, bmats, tmode=tmode,
+                                          row0=row0, face_rows=face_rows))
+
+
+def _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
+                 face_rows, sets):
+    if not isinstance(pick, ChainPickup) or pick.smode not in _CHAIN_SMODES:
+        raise ValueError("pick must be a ChainPickup with smode cubemap, "
+                         "biatan6 or mount")
+    _check_features(out, coeff, xfeat, yfeat, bmats, degree, tmode,
+                    face_rows, sets, _CHAIN_TMODES)
+
+
+def resample_planar_chain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
+                          tmode: str, pick: ChainPickup, row0: int = 0,
+                          face_rows: int = 0):
+    """The chain form of the planar kernel: per pixel the target ray from
+    the axis features (``tmode`` affine, sph or cyl as for
+    ``resample_inline``, or ster / fish on planar features), its pickup
+    by ``pick``, the gates, and the spline of the braced table, into
+    ``out`` (H, W, C), in place; pixels whose ray misses the source are
+    written 0. Returns ``out``. CUDA tensors go through the kernel; CPU
+    tensors through ``resample_planar_chain_plain``."""
+    _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
+                 face_rows, 1)
+    kw = dict(degree=degree, tmode=tmode, pick=pick, row0=row0,
+              face_rows=face_rows)
+    if out.device.type == "cpu":
+        return resample_planar_chain_plain(out, coeff, xfeat, yfeat, bmats,
+                                           **kw)
+    if out.device.type != "cuda":
+        raise ValueError(f"unsupported device {out.device}")
+    fn = _PLANAR.get("envutil_resample_planar_chain")
+    h, w, nch = out.shape
+    hp, wp, _ = coeff.shape
+    ints, floats = _pickup_arrays(pick)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = fn(out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
+             yfeat.data_ptr(), bmats.data_ptr(), _wmat(degree), ints, floats,
+             h, w, hp, wp, int(row0), int(face_rows), int(degree), int(nch),
+             _CHAIN_TMODES[tmode], stream)
+    if err != 0:
+        raise RuntimeError(f"resample_planar_chain kernel launch failed: "
+                           f"CUDA error {err}")
+    resample_planar_chain.launches += 1
+    return out
+
+
+resample_planar_chain.launches = 0
+
+
+def resample_planar_chain_plain(out, coeff, xfeat, yfeat, bmats, *,
+                                degree: int, tmode: str, pick: ChainPickup,
+                                row0: int = 0, face_rows: int = 0):
+    """The planar chain kernel's computation in plain PyTorch, with its
+    signature: ``planar_chain_coords``, then ``resample_planar_plain``
+    under the validity mask over a zero canvas. Runs on any device."""
+    _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
+                 face_rows, 1)
+    sx, sy, mask = planar_chain_coords(xfeat, yfeat, bmats, tmode=tmode,
+                                       pick=pick, row0=row0,
+                                       face_rows=face_rows)
+    out.zero_()
+    return resample_planar_plain(out, coeff, sx.contiguous(),
+                                 sy.contiguous(), degree=degree,
+                                 merge_mask=mask.to(torch.float32))
+
+
+def twined_chain_operands(xfeat, yfeat, bmats, spread, *, tmode: str,
+                          pick: ChainPickup, row0: int = 0,
+                          face_rows: int = 0, precise: bool = False,
+                          tap_valid: bool = False):
+    """The operands that the twined chain kernel computes per pixel, as
+    the dict of ``fastpath.twined_coords`` (the planes form's operands):
+    ``sx``, ``sy`` the centre's padded coordinates (ungated), ``dux``,
+    ``duy``, ``dvx``, ``dvy`` the coordinate derivatives (wrapped by the
+    period, 0 where not finite), ``tap_weights`` (K, H, W) uint8, each
+    tap's deflected validity (with ``tap_valid``, else None), and
+    ``wrap_x``. Rays, derivative rays and pickups are the kernel's: the
+    three normalised grids of the doubled feature sets, an IR source's
+    three pickups in the centre ray's face."""
+    from ..models import synopsis as SYN
+    nfx, nfy = _feature_rows(tmode)
+    kw = dict(tmode=tmode, row0=row0, face_rows=face_rows)
+    p0, p10, p01 = (chain_rays(xf, yf, bmats, **kw)
+                    for xf, yf in ((xfeat[:nfx], yfeat[:nfy]),
+                                   (xfeat[nfx:], yfeat[:nfy]),
+                                   (xfeat[:nfx], yfeat[nfy:])))
+    du, dv = SYN.derivative_rays(p0, p10, p01, precise)
+    if precise:
+        p10 = tuple(a + b for a, b in zip(p0, du))
+        p01 = tuple(a + b for a, b in zip(p0, dv))
+
+    if pick.smode != "mount":
+        face = geo.ray_to_cubeface(*p0)[0]
+
+        def coords(ray):
+            fx, fy = geo.ray_to_cubeface_fixed(*ray, face)
+            if pick.smode == "biatan6":
+                fx = (4.0 / math.pi) * torch.atan(fx)
+                fy = (4.0 / math.pi) * torch.atan(fy)
+            return (fx * pick.kx + pick.cx,
+                    fy * pick.ky + pick.cy + face.to(fy.dtype)
+                    * pick.section_px)
+    else:
+        def coords(ray):
+            px, py, _hit = mount_planar(pick, *ray)
+            return px * pick.kx + pick.cx, py * pick.ky + pick.cy
+
+    x0, y0 = coords(p0)
+
+    def derivative(ray):
+        x, y = coords(ray)
+        dx, dy = x - x0, y - y0
+        if pick.period > 0:
+            half = 0.5 * pick.period
+            dx = torch.remainder(dx + half, pick.period) - half
+        return (torch.nan_to_num(dx, 0.0, 0.0, 0.0).contiguous(),
+                torch.nan_to_num(dy, 0.0, 0.0, 0.0).contiguous())
+
+    dux, duy = derivative(p10)
+    dvx, dvy = derivative(p01)
+    tap_weights = None
+    if tap_valid:
+        tap_weights = torch.stack([
+            mount_planar(pick, *SYN.deflect(p0, du, dv, cx, cy))[2]
+            for cx, cy, _w in spread.reshape(-1, 3).tolist()]
+        ).to(torch.uint8)
+    return dict(sx=(x0 + pick.pad).contiguous(),
+                sy=(y0 + pick.pad).contiguous(), dux=dux, duy=duy, dvx=dvx,
+                dvy=dvy, tap_weights=tap_weights,
+                wrap_x=((pick.pad - 0.5, pick.period) if pick.period > 0
+                        else None))
+
+
+def _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
+                        n_taps, tmode, pick, face_rows, tap_valid):
+    _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
+                 face_rows, 2)
+    _spread_taps(spread, n_taps, out.device)
+    if tap_valid and pick.smode != "mount":
+        raise ValueError("tap_valid is for mount sources only")
+
+
+def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
+                          degree: int, n_taps: int, tmode: str,
+                          pick: ChainPickup, row0: int = 0,
+                          face_rows: int = 0, precise: bool = False,
+                          tap_valid: bool = False):
+    """The chain form of the planar twined kernel: per pixel the three
+    rays of the ninepack from the doubled feature sets (as for
+    ``resample_inline_twined``, plus the ster / fish modes), the
+    derivative rays (``precise``: in the tangent plane), three pickups,
+    the coordinate derivatives, and the weighted sum of the spline over
+    the spread's taps deflected in coordinate space, each tap counted
+    only where its deflected ray hits the source when ``tap_valid``;
+    into ``out`` (H, W, C), in place, 0 where no tap counts. Returns
+    ``out``. CUDA tensors go through the kernel; CPU tensors through
+    ``resample_twined_chain_plain``."""
+    _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
+                        n_taps, tmode, pick, face_rows, tap_valid)
+    kw = dict(degree=degree, n_taps=n_taps, tmode=tmode, pick=pick,
+              row0=row0, face_rows=face_rows, precise=precise,
+              tap_valid=tap_valid)
+    if out.device.type == "cpu":
+        return resample_twined_chain_plain(out, coeff, xfeat, yfeat, bmats,
+                                           spread, **kw)
+    if out.device.type != "cuda":
+        raise ValueError(f"unsupported device {out.device}")
+    fn = _TWINED.get("envutil_resample_twined_chain")
+    h, w, nch = out.shape
+    hp, wp, _ = coeff.shape
+    ints, floats = _pickup_arrays(pick)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = fn(out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
+             yfeat.data_ptr(), bmats.data_ptr(), spread.data_ptr(),
+             _wmat(degree), ints, floats, h, w, hp, wp, int(row0),
+             int(face_rows), int(degree), int(nch), _CHAIN_TMODES[tmode],
+             int(n_taps), int(precise), int(tap_valid), stream)
+    if err != 0:
+        raise RuntimeError(f"resample_twined_chain kernel launch failed: "
+                           f"CUDA error {err}")
+    resample_twined_chain.launches += 1
+    return out
+
+
+resample_twined_chain.launches = 0
+
+
+def resample_twined_chain_plain(out, coeff, xfeat, yfeat, bmats, spread, *,
+                                degree: int, n_taps: int, tmode: str,
+                                pick: ChainPickup, row0: int = 0,
+                                face_rows: int = 0, precise: bool = False,
+                                tap_valid: bool = False):
+    """The twined chain kernel's computation in plain PyTorch, with its
+    signature: ``twined_chain_operands``, then
+    ``resample_twined_plain`` on them. Runs on any device."""
+    _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
+                        n_taps, tmode, pick, face_rows, tap_valid)
+    ops = twined_chain_operands(xfeat, yfeat, bmats, spread, tmode=tmode,
+                                pick=pick, row0=row0, face_rows=face_rows,
+                                precise=precise, tap_valid=tap_valid)
+    return resample_twined_plain(
+        out, coeff, *(ops[k] for k in ("sx", "sy", "dux", "duy", "dvx",
+                                       "dvy")),
+        spread, degree=degree, n_taps=n_taps,
+        tap_weights=ops["tap_weights"], wrap_x=ops["wrap_x"])

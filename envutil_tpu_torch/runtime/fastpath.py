@@ -23,18 +23,27 @@ taken when the plan carries a spread:
   linearises in ray space as the exact path does.
 * ``planar_frame``: every other single-facet job (partial mounts, PTO
   lens/shift/shear, translated facets, stereographic and fisheye
-  targets): the coordinate pass (``coords``) runs as PyTorch
-  operations, then one launch of the planar kernel (K2/K5,
-  ``resample_planar``) evaluates the spline at those coordinates.
-  Twined, the pass (``twined_coords``) runs at the three grids of the
-  ninepack and differences the coordinates into derivative planes; one
-  launch of the planar twined kernel (K3/K6, ``resample_twined``) sums
-  the taps, over the whole frame for sources that cover every ray, and
-  with per-pixel tap weights (each tap's own deflected validity) for
-  partial, lens-corrected and translated facets. The JAX package
-  splits such a frame into a core and an edge band to keep most tiles
-  inside the TPU's window budgets; here every pixel may carry its own
-  tap weights, so one launch serves the frame.
+  targets). A job without a generic chain takes the chain forms of the
+  planar kernels, which compute the coordinate chain per pixel in the
+  kernel from ``inline_setup``'s axis features and a
+  ``ChainPickup`` (``chain_operands``): one launch of the planar chain
+  kernel (K2/K5, ``resample_planar_chain``), or, twined, of the twined
+  chain kernel (K3/K6, ``resample_twined_chain``), which computes the
+  ninepack's three rays, their pickups, the coordinate derivatives and,
+  for a source that does not cover every ray, each tap's validity. On
+  the TPU XLA fuses the JAX package's coordinate chain under ``jit``;
+  eager PyTorch would run it as a string of elementwise launches, each
+  a round trip of a full plane through device memory, which took most
+  of such a frame. A translated facet's generic chain
+  (``render.generic_r3``) has no kernel form: it takes the planes
+  forms, the coordinate pass as PyTorch operations (``coords``,
+  ``twined_coords``) and one launch of the planar kernel
+  (``resample_planar``) or of the planar twined kernel
+  (``resample_twined``), the latter with per-pixel tap weights (each
+  tap's own deflected validity). The JAX package splits a partial
+  twined frame into a core and an edge band to keep most tiles inside
+  the TPU's window budgets; here every pixel carries its own tap
+  validity, so one launch serves the frame.
 
 Both kernel routes adapt channels and brighten after the taps are
 summed, where the exact path does so per tap; the two agree unless the
@@ -174,6 +183,14 @@ def inline_setup(plan, window, core_shape, pad, bcs, statics,
         tmode, P = "sph", np.eye(3, dtype=np.float32)[None]
         xf = [f(xs) for xs, _ in sets for f in (np.sin, np.cos)]
         yf = [f(ys) for _, ys in sets for f in (np.sin, np.cos)]
+    elif plan.projection in (Projection.STEREOGRAPHIC, Projection.FISHEYE):
+        # the planar kernels' chain forms: planar (x, y), mapped to the
+        # ray in the kernel
+        tmode = "ster" if plan.projection == Projection.STEREOGRAPHIC \
+            else "fish"
+        P = np.eye(3, dtype=np.float32)[None]
+        xf = [xs for xs, _ in sets]
+        yf = [ys for _, ys in sets]
     else:  # CYLINDRICAL
         tmode, P = "cyl", np.eye(3, dtype=np.float32)[None]
         xf = [f(xs) for xs, _ in sets for f in (np.sin, np.cos)]
@@ -192,7 +209,14 @@ def inline_setup(plan, window, core_shape, pad, bcs, statics,
                   float(pad), float(section_px))
         return tmode, xfeat, yfeat, P, consts
 
-    # model -> spline affine (environment._md_to_spline)
+    return tmode, xfeat, yfeat, P, _sph_consts(statics, core_shape, pad,
+                                               bcs)
+
+
+def _sph_consts(statics, core_shape, pad, bcs):
+    """(kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad): the
+    model -> spline affine (environment._md_to_spline) and the gates of
+    a mount source with ``statics`` as ``inline_setup`` takes them."""
     (tex0, tex1, tey0, tey1, tw, th, wxo, wyo) = statics
     kx = tw / (tex1 - tex0)
     ky = th / (tey1 - tey0)
@@ -201,10 +225,9 @@ def inline_setup(plan, window, core_shape, pad, bcs, statics,
     h, w = core_shape
     gate_x, glx, gux = _gate_bounds(bcs[1], w)
     gate_y, gly, guy = _gate_bounds(bcs[0], h)
-    consts = (float(kx), float(cx), float(ky), float(cy),
-              gate_x, float(glx), float(gux),
-              gate_y, float(gly), float(guy), float(pad))
-    return tmode, xfeat, yfeat, P, consts
+    return (float(kx), float(cx), float(ky), float(cy),
+            gate_x, float(glx), float(gux),
+            gate_y, float(gly), float(guy), float(pad))
 
 
 def frame_window(plan):
@@ -321,6 +344,52 @@ def fused_frame(plan, src, out=None, device=None):
     return _finish(plan, src, out)
 
 
+@functools.lru_cache(maxsize=16)
+def _chain_pickup(st, core_shape, pad, bcs):
+    """The ``ops/resample.ChainPickup`` of a source's static
+    configuration and spline layout."""
+    if st.kind == "cubemap":
+        m = st.metrics
+        k = float(m.model_to_px)
+        c = float(m.refc_md * m.model_to_px - 0.5)
+        smode = "biatan6" if st.projection == Projection.BIATAN6 \
+            else "cubemap"
+        return R.ChainPickup(smode=smode, kx=k, cx=c, ky=k, cy=c,
+                             pad=float(pad), section_px=float(m.section_px))
+    # the model -> spline affine and the gates as inline_setup builds them
+    (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, _pad) = \
+        _sph_consts(_source_mode(st)[1], core_shape, pad, bcs)
+    we = st.window_extent
+    window = (-math.inf, math.inf, -math.inf, math.inf) \
+        if st.full_fisheye else (we.x0, we.x1, we.y0, we.y1)
+    return R.ChainPickup(
+        smode="mount", kx=kx, cx=cx, ky=ky, cy=cy, pad=float(pad),
+        projection=int(st.projection), gate_x=gate_x, glx=glx, gux=gux,
+        gate_y=gate_y, gly=gly, guy=guy, window=window,
+        lens=(st.s, st.a, st.b, st.c) if st.has_lcp else None,
+        shift=(st.h, st.v) if st.has_shift else None,
+        shear=(st.shear_g, st.shear_t) if st.has_shear else None,
+        period=float(core_shape[1]) if bcs[1] == S.PERIODIC else 0.0)
+
+
+def chain_operands(plan, src):
+    """The kernel operands of the planar kernels' chain forms for this
+    plan and source: ``frame_operands``' features, matrices and, for a
+    twined plan, spread, with the source side as an
+    ``ops/resample.ChainPickup`` (``pick``) in place of the inline
+    kernel's ``consts`` and ``smode``; twined, ``tap_valid`` says whether
+    each tap is tested against the source's window (a source that does
+    not cover every ray)."""
+    spl = src.spl
+    ops = frame_operands(plan, src)
+    del ops["consts"], ops["smode"]
+    ops["pick"] = _chain_pickup(src.static, tuple(spl.core_shape), spl.pad,
+                                tuple(spl.bcs))
+    if plan.spread is not None:
+        ops["tap_valid"] = not _covers_every_ray(src)
+    return ops
+
+
 def coords(plan, window, src):
     """Padded spline coordinates (sx, sy) and the validity mask, each
     (H, W) over ``window``: the counterpart of the JAX ``_coords`` for
@@ -412,37 +481,63 @@ def twined_coords(plan, window, src):
 
 
 def planar_frame(plan, src, out=None, device=None):
-    """Render the frame of a single source with the coordinate pass
-    (``coords``) and one launch of the planar kernel, then adapt
-    channels and brighten. Cubemap sources cover every ray, so the
-    launch writes the whole window (the K5 form); other sources are
-    drawn over a zero-filled canvas through the validity mask (the K2
-    form), which is the JAX finish ``where(mask, canvas, 0)``. A twined
-    plan takes ``twined_coords`` and one launch of the planar twined
-    kernel instead, which writes every pixel: the whole frame for
-    sources that cover every ray, else each tap weighted by its own
-    validity (0 where no tap is valid). ``out`` and the return value
-    are as for ``fused_frame``; the coordinates are computed anew every
-    frame."""
+    """Render the frame of a single source with one launch of a planar
+    kernel, then adapt channels and brighten. A plan without a generic
+    chain (``plan.planar_to_ray[0] is None``) takes the chain forms,
+    which compute the coordinate chain per pixel in the kernel
+    (``chain_operands``): the planar chain kernel, or, for a twined plan,
+    the twined chain kernel. A generic chain (a translated facet) takes
+    the planes forms after the PyTorch coordinate pass: ``coords`` and
+    the planar kernel, over the whole window for cubemap sources (the K5
+    form) and over a zero-filled canvas through the validity mask (the
+    K2 form) for other sources, or ``twined_coords`` and the planar
+    twined kernel. Every form writes every pixel, 0 where the source
+    (or, twined, every tap) misses: the JAX finish
+    ``where(mask, canvas, 0)``. ``out`` and the return value are as for
+    ``fused_frame``."""
     out = _frame_buffer(plan, src, out, device)
+    if plan.planar_to_ray[0] is None:
+        chain_launch(plan, src, out)
+    else:
+        planes_launch(plan, src, out)
+    return _finish(plan, src, out)
+
+
+def chain_launch(plan, src, out):
+    """One launch of a chain form over the plan's window into ``out``
+    (H, W, C_source): the planar chain kernel, or the twined chain
+    kernel for a twined plan. The plan must have no generic chain."""
+    ops = chain_operands(plan, src)
+    tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
+    if plan.spread is None:
+        R.resample_planar_chain(out, src.spl.coeff, *tensors, **ops)
+    else:
+        R.resample_twined_chain(out, src.spl.coeff, *tensors,
+                                ops.pop("spread"), **ops)
+
+
+def planes_launch(plan, src, out):
+    """The PyTorch coordinate pass and one launch of a planes form over
+    the plan's window into ``out`` (H, W, C_source): ``coords`` and the
+    planar kernel (over a zero fill through the validity mask unless the
+    source is a cubemap), or ``twined_coords`` and the planar twined
+    kernel for a twined plan."""
+    coeff, degree = src.spl.coeff, src.spl.degree
     if plan.spread is not None:
         ops = twined_coords(plan, frame_window(plan), src)
         R.resample_twined(
-            out, src.spl.coeff, *(ops[k] for k in _TWINED_PLANES),
-            _spread_tensor(plan.spread, src.spl.coeff.device),
-            degree=src.spl.degree, n_taps=len(plan.spread),
-            tap_weights=ops["tap_weights"], wrap_x=ops["wrap_x"])
-        return _finish(plan, src, out)
+            out, coeff, *(ops[k] for k in _TWINED_PLANES),
+            _spread_tensor(plan.spread, coeff.device), degree=degree,
+            n_taps=len(plan.spread), tap_weights=ops["tap_weights"],
+            wrap_x=ops["wrap_x"])
+        return
     sx, sy, mask = coords(plan, frame_window(plan), src)
     if src.static.kind == "cubemap":
-        R.resample_planar(out, src.spl.coeff, sx, sy,
-                          degree=src.spl.degree)
+        R.resample_planar(out, coeff, sx, sy, degree=degree)
     else:
         out.zero_()
-        R.resample_planar(out, src.spl.coeff, sx, sy,
-                          degree=src.spl.degree,
+        R.resample_planar(out, coeff, sx, sy, degree=degree,
                           merge_mask=mask.to(torch.float32))
-    return _finish(plan, src, out)
 
 
 def render_fast(plan, sources, verbose: bool = False) -> np.ndarray:
@@ -462,8 +557,9 @@ def render_fast(plan, sources, verbose: bool = False) -> np.ndarray:
         what = f"resample_inline{'_twined' if twined else ''} (smode {mode})"
     else:
         img = planar_frame(plan, src)
-        what = (f"resample_{'twined' if twined else 'planar'} after the "
-                "coordinate pass")
+        what = f"resample_{'twined' if twined else 'planar'}" + (
+            "_chain" if plan.planar_to_ray[0] is None
+            else " after the coordinate pass")
     if verbose:
         taps = f", {len(plan.spread)} taps" if twined else ""
         print(f"fastpath: 1 launch of {what} over "
