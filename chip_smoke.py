@@ -16,19 +16,25 @@ events. The paths:
   equirect (resample_inline, cubemap source mode);
 - configs 3 and 3b: a seeded-noise biatan6 source (1024-px faces, fov
   100) -> 1920x1152 stereographic (hfov 150, yaw 35, pitch 20) and
-  fisheye (hfov 170, yaw -25, pitch 15) (resample_planar);
+  fisheye (hfov 170, yaw -25, pitch 15) (resample_planar_chain);
 - a partial lens-corrected facet (1536x1152 rectilinear, hfov 72,
-  a, b, c = 0.01, -0.02, 0.005) -> 4096x2048 equirect, and a small
-  translated facet (resample_planar with the validity mask);
+  a, b, c = 0.01, -0.02, 0.005) -> 4096x2048 equirect
+  (resample_planar_chain), and a translated facet -> 1024x768, untwined
+  and --twine 2 (the planes forms: resample_planar with the validity
+  mask, resample_twined with per-pixel tap weights, each also held
+  against its plain version and timed on those operands);
 - twined, config 4: the 8K ramp equirect at degree 1 -> 2048x1280
   rectilinear, hfov 100, automatic twine (4 taps), the same view at
   pitch 80, yaw 180 (it holds a pole and the periodic seam), and the
   16384x8192 equirect -> the same view (16 taps)
   (resample_inline_twined);
 - twined, config 3: a smooth biatan6 source -> 1920x1152 stereographic,
-  --twine 2 (resample_twined over the whole frame), and the lens facet
-  -> 4096x2048 equirect, --twine 2 (resample_twined with per-pixel tap
-  weights).
+  --twine 2, and the lens facet -> 4096x2048 equirect, --twine 2
+  (resample_twined_chain).
+
+Each chain-form path is also timed against the planes form it replaced
+(the PyTorch coordinate pass and resample_planar / resample_twined), in
+turns, with one bound common to both.
 
 The inline kernel (resample_inline) stages each block's source window
 in shared memory and gathers from global memory where a window does not
@@ -1495,6 +1501,57 @@ def planes_bound(plan, src, pops, sp):
         else "operations"
 
 
+def planes_at_path(plan, src, name):
+    """The planes form's kernel on the operands its own path gives it (a
+    plan with a generic chain): ``coords`` and the planar kernel through
+    the merge mask, or, twined, ``twined_coords`` and the planar twined
+    kernel with its tap weights. The kernel against its plain version,
+    the kernel timed alone (median of 20) and the plain version (median
+    of 3), and the bound; returns them as a record."""
+    import torch
+    from envutil_tpu_torch.models import synopsis as SYN
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    window = FP.frame_window(plan)
+    coeff, n = src.spl.coeff, src.spl.degree
+    shape = (plan.height, plan.width, coeff.shape[-1])
+    if plan.spread is None:
+        sx, sy, mask = FP.coords(plan, window, src)
+        args = (coeff, sx, sy)
+        kw = dict(degree=n, merge_mask=mask.to(torch.float32))
+        kernel, plain = R.resample_planar, R.resample_planar_plain
+        bound = planar_bound(coeff, sx, sy, n, mask)
+    else:
+        pops = FP.twined_coords(plan, window, src)
+        sp = torch.tensor(SYN.scaled_spread(plan.spread), dtype=torch.float32,
+                          device="cuda")
+        args = (coeff, *(pops[k] for k in ("sx", "sy", "dux", "duy", "dvx",
+                                           "dvy")), sp)
+        kw = dict(degree=n, n_taps=len(plan.spread),
+                  tap_weights=pops["tap_weights"], wrap_x=pops["wrap_x"])
+        kernel, plain = R.resample_twined, R.resample_twined_plain
+        bound = planes_bound(plan, src, pops, sp)
+    nan = torch.full(shape, float("nan"), device="cuda")
+    k = kernel(nan.clone(), *args, **kw)
+    p = plain(nan.clone(), *args, **kw)
+    err = float((k - p).nan_to_num().abs().max())
+    check(err <= KERNEL_BOUND and torch.equal(k.isnan(), p.isnan()),
+          f"{kernel.__name__} disagrees with its plain version at {name}")
+    del nan, k, p
+    buf = torch.empty(shape, device="cuda")
+    for _ in range(3):
+        kernel(buf, *args, **kw)
+    ms = events_ms(lambda: kernel(buf, *args, **kw), 20)
+    plain_ms = events_ms(lambda: plain(buf, *args, **kw), 3)
+    print(f"{name}: {kernel.__name__} on its own path's operands vs plain "
+          f"{err:.3e} (bound {KERNEL_BOUND:g}); kernel alone {ms:.4f} ms "
+          f"(median of 20), plain version {plain_ms:.3f} ms; its bound "
+          f"{bound[0]:.4f} ms by {bound[1]}; clocks/power/temp after: "
+          f"{smi_now()}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1])
+
+
 def smooth_environment(ray):
     """A smooth, seamless RGB function of the unit ray: low and medium
     frequencies with gradients of a few per radian."""
@@ -1783,6 +1840,7 @@ def main():
     tf = make_facet(P.RECTILINEAR, 640, 480, math.radians(80),
                     tr_x=0.2, tr_y=-0.1, tr_z=0.15, yaw=math.radians(10))
     tsrc = E.make_mount_source(tf, limg[:480, :640], 3, 3, device="cuda")
+    t_translated = {}
     for twine, want, bound in ((0, "resample_planar", PATH_BOUND),
                                (2, "resample_twined", TWINED_PLANAR_BOUND)):
         pt = plan_for(tf, P.RECTILINEAR, 1024, 768, 100, 3, (5, 0, 0),
@@ -1798,6 +1856,7 @@ def main():
               f"{errt:.3e} (bound {bound:g})", flush=True)
         check(0.05 < covered < 0.95, f"{name} coverage implausible")
         check(errt <= bound, f"{name} disagrees with exact path")
+        t_translated[name] = planes_at_path(pt, tsrc, name)
     del lsrc, tsrc
     torch.cuda.empty_cache()
 
@@ -1839,21 +1898,19 @@ def main():
          "build": build.get("resample_inline_kernel"),
          "config_2r": dict(t_2r, launches=r2_n["resample_inline"],
                            max_abs_err=err2r_k)},
-        # the planes form: launched by the translated facet; timed on
-        # config 3's coordinates
-        {"name": "resample_planar", "route": "cuda",
-         "source": "envutil_tpu_torch/csrc/resample_planar.cu",
-         "replaces": "envutil_tpu/ops/pallas_resample.py:1070 (K2), "
-                     "envutil_tpu/ops/pallas_resample.py:822 (K5)",
-         "form": "planes", "launches": planar_n["translated facet"],
-         "launches_path": "translated facet",
-         "max_abs_err": t3["planes_max_abs_err"],
-         "ms": t3["planes_ms"], "plain_ms": t3["planes_plain_ms"],
-         "bound_ms": t3["planes_bound_ms"],
-         "bound_by": t3["planes_bound_by"], "library_ms": None,
-         "degree1": dict(deg1, library="grid_sample bilinear"),
-         "small_case_max_abs_err": worst_planar,
-         "build": build.get("resample_planar_kernel")},
+        # the planes form: launched and measured on the translated
+        # facet's operands; config 3's coordinates beside them
+        dict(t_translated["translated facet"],
+             name="resample_planar", route="cuda",
+             source="envutil_tpu_torch/csrc/resample_planar.cu",
+             replaces="envutil_tpu/ops/pallas_resample.py:1070 (K2), "
+                      "envutil_tpu/ops/pallas_resample.py:822 (K5)",
+             form="planes", launches=planar_n["translated facet"],
+             path="translated facet", library_ms=None,
+             config_3_coordinates=planes_form(t3),
+             degree1=dict(deg1, library="grid_sample bilinear"),
+             small_case_max_abs_err=worst_planar,
+             build=build.get("resample_planar_kernel")),
         {"name": "resample_planar_chain", "route": "cuda",
          "source": "envutil_tpu_torch/csrc/resample_planar.cu",
          "replaces": "envutil_tpu/ops/pallas_resample.py:1070 (K2), "
@@ -1881,20 +1938,18 @@ def main():
              build=build.get("resample_inline_twined_kernel"),
              paths={k: t_twined[k] for k in ("config 4", "pole and seam",
                                              "16K")}),
-        # the planes form: launched by the translated facet twined; timed
-        # on config 3 twined's planes
-        {"name": "resample_twined", "route": "cuda",
-         "source": "envutil_tpu_torch/csrc/resample_twined.cu",
-         "replaces": "envutil_tpu/ops/pallas_resample.py:1736 (K3), "
-                     "envutil_tpu/ops/pallas_resample.py:2033 (K6)",
-         "form": "planes", "launches": planar_n["translated facet twined"],
-         "launches_path": "translated facet twined",
-         "max_abs_err": t3t["planes_max_abs_err"], "ms": t3t["planes_ms"],
-         "plain_ms": t3t["planes_plain_ms"],
-         "bound_ms": t3t["planes_bound_ms"],
-         "bound_by": t3t["planes_bound_by"], "library_ms": None,
-         "small_case_max_abs_err": worst_twined,
-         "build": build.get("resample_twined_kernel")},
+        # the planes form: launched and measured on the translated facet
+        # twined's operands; config 3 twined's planes beside them
+        dict(t_translated["translated facet twined"],
+             name="resample_twined", route="cuda",
+             source="envutil_tpu_torch/csrc/resample_twined.cu",
+             replaces="envutil_tpu/ops/pallas_resample.py:1736 (K3), "
+                      "envutil_tpu/ops/pallas_resample.py:2033 (K6)",
+             form="planes", launches=planar_n["translated facet twined"],
+             path="translated facet twined", library_ms=None,
+             config_3_twined_planes=planes_form(t3t),
+             small_case_max_abs_err=worst_twined,
+             build=build.get("resample_twined_kernel")),
         dict({k: t3t[k] for k in ("launches", "max_abs_err", "ms",
                                   "plain_ms", "bound_ms", "bound_by")},
              name="resample_twined_chain", route="cuda",

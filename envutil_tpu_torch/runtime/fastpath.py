@@ -412,9 +412,11 @@ def coords(plan, window, src):
 
 
 def _covers_every_ray(src):
-    """Cubemap sources and full-spherical mounts have no invalid ray, so
-    a twined frame needs no per-tap validity."""
-    return src.static.kind == "cubemap" or src.spl.spherical
+    """Cubemap sources, full-spherical mounts and full fisheyes have no
+    invalid ray (``environment.get_mask`` is all-true), so a twined frame
+    needs no per-tap validity."""
+    return src.static.kind == "cubemap" or src.spl.spherical \
+        or src.static.full_fisheye
 
 
 def twined_coords(plan, window, src):

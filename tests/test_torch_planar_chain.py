@@ -218,6 +218,9 @@ TWINED_CASES = {
     "rect-lens>spherical": (COORD_CASES["rect-lens>spherical"][0],
                             COORD_CASES["rect-lens>spherical"][1], BOX3,
                             False),
+    "fullfish>stereographic": (COORD_CASES["fullfish>stereographic"][0],
+                               COORD_CASES["fullfish>stereographic"][1],
+                               BOX2, False),
 }
 
 
@@ -228,7 +231,7 @@ def test_twined_chain_operands_match_twined_coords(case):
     derivatives, per-tap validity, wrap) against ``fastpath.twined_coords``
     (forced-face pickups of a cubemap source, the periodic wrap of a full
     sphere under --twine_precise, the tap validity of a lens-corrected
-    partial facet)."""
+    partial facet, none for a full fisheye)."""
     source, target, spread, precise = TWINED_CASES[case]
     _jsrc, tsrc, _jplan, tplan = _job(source, target, spread=spread,
                                       precise=precise)
@@ -243,7 +246,7 @@ def test_twined_chain_operands_match_twined_coords(case):
     want = FP.twined_coords(tplan, window, tsrc)
     assert got["wrap_x"] == want["wrap_x"]
     assert (got["tap_weights"] is None) == (want["tap_weights"] is None) \
-        == (source in ("biatan6", "sphere"))
+        == (source in ("biatan6", "sphere") or case.startswith("fullfish"))
     p0, p10, p01 = ST.target_ninepack(
         tplan.projection, w, h, tplan.extent, basis=tplan.bases[0],
         window=window)
