@@ -30,11 +30,19 @@ events. The paths:
   (resample_inline_twined);
 - twined, config 3: a smooth biatan6 source -> 1920x1152 stereographic,
   --twine 2, and the lens facet -> 4096x2048 equirect, --twine 2
-  (resample_twined_chain).
+  (resample_twined_chain);
+- untwined stitches of benchmarks.py, each -> a 4096x2048 equirect
+  through one launch per facet and the synopsis of the stacks
+  (fastpath.multi_frame): config 5 (three 2048x1536 rectilinear facets,
+  voronoi; resample_planar_chain with its score output), the same
+  facets with alpha (voronoi_plus), config 5b (six 1536x1152
+  lens-corrected facets, voronoi) and config 5c (three 4096x2048
+  brackets, hdr_merge; resample_inline), each checked against the exact
+  path and timed per facet, combine and frame.
 
-Each chain-form path is also timed against the planes form it replaced
-(the PyTorch coordinate pass and resample_planar / resample_twined), in
-turns, with one bound common to both.
+The planar chain kernel's score output is held against its plain
+version over every small chain case, with the pixels required bit-equal
+to the launch without it.
 
 The inline kernel (resample_inline) stages each block's source window
 in shared memory and gathers from global memory where a window does not
@@ -584,9 +592,10 @@ WRAPPERS = ("resample_inline", "resample_planar", "resample_planar_chain",
 
 
 def render(plan, src, name, want_inline=0, want_planar=0, want=None):
-    """render_frame with every wrapper's launch count set to 0 just
-    before and read just after; checks that exactly the expected kernel
-    was launched (``want`` names it for the twined wrappers) and returns
+    """render_frame of ``src`` (a source, or a list of them for a stitch)
+    with every wrapper's launch count set to 0 just before and read just
+    after; checks that exactly the expected kernels were launched
+    (``want`` maps wrappers to counts where it is given) and returns
     (frame, ms, launches)."""
     import torch
     from envutil_tpu_torch.ops import resample as R
@@ -599,7 +608,8 @@ def render(plan, src, name, want_inline=0, want_planar=0, want=None):
     for wrapper in WRAPPERS:
         getattr(R, wrapper).launches = 0
     t0 = time.perf_counter()
-    frame = RD.render_frame(plan, [src], device="cuda")
+    frame = RD.render_frame(plan, src if isinstance(src, list) else [src],
+                            device="cuda")
     ms = (time.perf_counter() - t0) * 1000.0
     n = {wrapper: getattr(R, wrapper).launches for wrapper in WRAPPERS}
     peak = torch.cuda.max_memory_allocated()
@@ -665,13 +675,6 @@ def time_inline(plan, src, name):
                 plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
 
 
-def in_turns(a, b, reps=20):
-    """Median ms of ``a`` and of ``b`` over ``reps`` calls each, timed in
-    turns a, b, b, a and averaged; returns (a ms, b ms, the four)."""
-    t = [events_ms(f, reps) for f in (a, b, b, a)]
-    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
-
-
 # Rough float operations of the coordinate chain per ray, counting an
 # atan2, atan, sin or cos as 20 and a square root or a division as 1,
 # as inline_bound does: the target modes (ray from the features,
@@ -716,92 +719,53 @@ def chain_bound(plan, src, ops):
 
 
 def time_planar(plan, src, name, peak_mib):
-    """A planar path both ways: the planes form (the PyTorch coordinate
-    pass, the zero fill where masked, the planar kernel; what
-    planar_frame ran before the chain forms) and the chain form (one
-    launch of the planar chain kernel), as frames and as kernels alone,
-    each pair timed in turns (planes, chain, chain, planes; median of 20
-    each); the coordinate pass alone, each plain version (median of 3),
-    each kernel against its plain version at full shape, the common
-    bound and the planes form's own."""
+    """A planar path through the chain form (one launch of the planar
+    chain kernel): the frame and the kernel alone (median of 20 each),
+    the plain version (median of 3), the kernel against its plain
+    version at full shape, and the bound. Returns them as a record, with
+    the chain's coordinates (sx, sy) of the frame."""
     import torch
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.runtime import fastpath as FP
-    window = FP.frame_window(plan)
-    sx, sy, mask = FP.coords(plan, window, src)
-    masked = src.static.kind != "cubemap"
-    m = mask.to(torch.float32) if masked else None
-    coeff, n = src.spl.coeff, src.spl.degree
+    coeff = src.spl.coeff
     buf = torch.zeros((plan.height, plan.width, coeff.shape[-1]),
                       device="cuda")
     ops = FP.chain_operands(plan, src)
     ctens = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
 
-    def planes_frame():
-        FP.planes_launch(plan, src, buf)
-
     def chain_frame():
         FP.planar_frame(plan, src, out=buf)
-
-    def planes_kernel():
-        R.resample_planar(buf, coeff, sx, sy, degree=n, merge_mask=m)
 
     def chain_kernel():
         R.resample_planar_chain(buf, coeff, *ctens, **ops)
     for _ in range(3):
-        for f in (planes_frame, chain_frame, planes_kernel, chain_kernel):
-            f()
-    planes_ms, frame_ms, f4 = in_turns(planes_frame, chain_frame)
-    kplanes_ms, kernel_ms, k4 = in_turns(planes_kernel, chain_kernel)
-    coords_ms = events_ms(lambda: FP.coords(plan, window, src), 20)
-    plain_planes_ms = events_ms(lambda: R.resample_planar_plain(
-        buf, coeff, sx, sy, degree=n, merge_mask=m), 3)
+        chain_frame()
+        chain_kernel()
+    frame_ms = events_ms(chain_frame, 20)
+    kernel_ms = events_ms(chain_kernel, 20)
     plain_ms = events_ms(lambda: R.resample_planar_chain_plain(
         buf, coeff, *ctens, **ops), 3)
-
-    nan = torch.full(buf.shape, float("nan"), device="cuda")
-    k = R.resample_planar(nan.clone(), coeff, sx, sy, degree=n,
-                          merge_mask=m)
-    p = R.resample_planar_plain(nan.clone(), coeff, sx, sy, degree=n,
-                                merge_mask=m)
-    err_planes = float((k - p).nan_to_num().abs().max())
-    check(err_planes <= KERNEL_BOUND and torch.equal(k.isnan(), p.isnan()),
-          f"planar kernel disagrees at {name}")
-    del nan, k, p
     err, n_edge, n_flip = chain_vs_plain(plan, src)[:3]
-    print(f"{name}: at full shape, planar vs plain {err_planes:.3e}, "
-          f"planar chain vs plain {err:.3e} ({n_edge} px at a window or "
-          f"face edge excluded, {n_flip} flipped) (bound "
+    print(f"{name}: at full shape, planar chain vs plain {err:.3e} ({n_edge}"
+          f" px at a window or face edge excluded, {n_flip} flipped) (bound "
           f"{KERNEL_BOUND:g})", flush=True)
     check(err <= KERNEL_BOUND, f"planar chain kernel disagrees at {name}")
     n_px = plan.height * plan.width
-    bound = chain_bound(plan, src, dict(ops, xfeat=ctens[0], yfeat=ctens[1],
-                                        bmats=ctens[2]))
-    own = planar_bound(coeff, sx, sy, n, mask if masked else None)
-    print(f"{name}: frame, in turns (planes, chain, chain, planes; median "
-          f"of 20 each) {', '.join(f'{t:.4f}' for t in f4)} ms: planes "
-          f"form {planes_ms:.4f} ms, chain form {frame_ms:.4f} ms = "
-          f"{n_px / 1e3 / frame_ms:.1f} Mpix/s, {planes_ms / frame_ms:.1f}x;"
-          f" kernels alone in turns {', '.join(f'{t:.4f}' for t in k4)} ms:"
-          f" planar {kplanes_ms:.4f} ms, planar chain {kernel_ms:.4f} ms; "
-          f"coordinate pass alone {coords_ms:.4f} ms; plain versions "
-          f"{plain_planes_ms:.3f} / {plain_ms:.3f} ms; clocks/power/temp "
-          f"after: {smi_now()}", flush=True)
-    print(f"{name}: common bound {bound[0]:.4f} ms by {bound[1]} (table "
-          f"bytes touched {bound[4] / 1e6:.1f} MB, output; bytes "
-          f"{bound[2]:.4f} ms, operations {bound[3]:.4f} ms): chain kernel "
-          f"{100 * bound[0] / kernel_ms:.0f}%, planar kernel "
-          f"{100 * bound[0] / kplanes_ms:.0f}%, chain frame "
-          f"{100 * bound[0] / frame_ms:.0f}%, planes frame "
-          f"{100 * bound[0] / planes_ms:.0f}%; the planes form's own bound "
-          f"(its coordinate and mask planes read as well) {own[0]:.4f} ms "
-          f"by {own[1]}", flush=True)
-    return dict(frame_ms=frame_ms, planes_frame_ms=planes_ms,
-                coords_ms=coords_ms, ms=kernel_ms, planes_ms=kplanes_ms,
-                plain_ms=plain_ms, planes_plain_ms=plain_planes_ms,
-                bound_ms=bound[0], bound_by=bound[1],
-                planes_bound_ms=own[0], planes_bound_by=own[1],
-                max_abs_err=err, planes_max_abs_err=err_planes,
+    full = dict(ops, xfeat=ctens[0], yfeat=ctens[1], bmats=ctens[2])
+    bound = chain_bound(plan, src, full)
+    print(f"{name}: frame (planar_frame into one reused buffer, median of "
+          f"20) {frame_ms:.4f} ms = {n_px / 1e3 / frame_ms:.1f} Mpix/s; "
+          f"kernel alone {kernel_ms:.4f} ms; plain version {plain_ms:.3f} "
+          f"ms; bound {bound[0]:.4f} ms by {bound[1]} (table bytes touched "
+          f"{bound[4] / 1e6:.1f} MB, output; bytes {bound[2]:.4f} ms, "
+          f"operations {bound[3]:.4f} ms): kernel "
+          f"{100 * bound[0] / kernel_ms:.0f}%, frame "
+          f"{100 * bound[0] / frame_ms:.0f}%; clocks/power/temp after: "
+          f"{smi_now()}", flush=True)
+    sx, sy, _mask = R.planar_chain_coords(*ctens, **{
+        k: ops[k] for k in ("tmode", "pick", "row0", "face_rows")})
+    return dict(frame_ms=frame_ms, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], max_abs_err=err,
                 edge_px=n_edge, peak_mib=peak_mib, sx=sx, sy=sy)
 
 
@@ -1036,6 +1000,13 @@ def phase_small_twined():
 # pixels are excluded from kernel-vs-plain checks and counted
 WINDOW_EDGE = 1e-5
 
+# the planar chain kernel's score (z of the normalised ray, times
+# recip_step) against its plain version, in units of z: the ray is
+# rounded step by step in the plain version's order, so only the
+# target modes' transcendentals (an ulp or two) move it, ~1e-7 of z; a
+# wrong ray or a misplaced score shows as O(0.01..1)
+SCORE_BOUND = 1e-5
+
 # the targets of the chain forms' small cases: every target mode, views
 # that hold a pole, the periodic seam of a full sphere and cube-face
 # edges of IR sources
@@ -1170,6 +1141,81 @@ def chain_vs_plain(plan, src):
     return float(diff.max()), int(edge.sum()), int(flip.sum()), out_k, out_p
 
 
+def chain_score_vs_plain(plan, src):
+    """Launch the planar chain kernel with and without its score output
+    and its plain version with it, on the same operands; requires the
+    kernel's pixels bit-equal with and without the score, its score
+    LOWEST exactly where the plain version's is (away from window and
+    face edges); returns the max abs score difference over the pixels
+    both score, in units of the source's recip_step (so of z)."""
+    import torch
+    from envutil_tpu_torch.models import synopsis as SYN
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    ops = FP.chain_operands(plan, src)
+    coeff = src.spl.coeff
+    shape = (plan.height, plan.width, coeff.shape[-1])
+    args = [coeff] + [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
+    edge = chain_edges(dict(ops, xfeat=args[1], yfeat=args[2],
+                            bmats=args[3]))
+    rs = src.static.recip_step
+    nan = torch.full(shape, float("nan"), device="cuda")
+    bare = R.resample_planar_chain(nan.clone(), *args, **ops)
+    sk = torch.full(shape[:2], float("nan"), device="cuda")
+    sp = sk.clone()
+    with_score = R.resample_planar_chain(nan.clone(), *args, score=sk,
+                                         recip_step=rs, **ops)
+    R.resample_planar_chain_plain(nan.clone(), *args, score=sp,
+                                  recip_step=rs, **ops)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(bare, with_score)), "the planar chain kernel's "
+          "pixels differ with and without the score output")
+    miss_k, miss_p = sk == SYN.LOWEST, sp == SYN.LOWEST
+    check(not bool(((miss_k != miss_p) & ~edge).any()), "the planar chain "
+          "kernel's score misses where its plain version's does not")
+    both = ~miss_k & ~miss_p
+    check(bool(torch.isfinite(sk[both]).all()), "score not finite")
+    err = float((sk - sp)[both].abs().max()) / rs if bool(both.any()) \
+        else 0.0
+    return err, int(both.sum())
+
+
+def phase_small_combine():
+    """The synopsis combines on the card against the same functions on
+    the CPU, on stacks with tied scores (three-way ties, pixels no facet
+    covers): the champion and the depth order must resolve ties alike
+    (the first maximum, a stable order), so voronoi and voronoi_plus
+    must be bit-equal. hdr_merge on brackets whose quality weights are
+    all positive (brighten factors of 2 to 4 on values in [0, 1]) within
+    1e-5 of its largest value: PyTorch divides by a scalar on the card
+    as a multiplication by its reciprocal, an ulp from the CPU's
+    quotient, and the merge sums and divides a few such values."""
+    import torch
+    from envutil_tpu_torch.models import synopsis as SYN
+    rng = np.random.default_rng(29)
+    for nf in (2, 3, 6):
+        score = rng.integers(0, 3, (nf, 40, 56)).astype(np.float32)
+        score[:, :3] = 2.0
+        score[:, 5] = SYN.LOWEST
+        px = rng.uniform(0, 1, (nf, 40, 56, 4)).astype(np.float32)
+        cpu = [torch.from_numpy(a) for a in (px, score > SYN.LOWEST, score)]
+        gpu = [t.cuda() for t in cpu]
+        for fn in (SYN.voronoi_stack, SYN.voronoi_plus_stack):
+            for mask in (1, None):
+                want = fn(cpu[0], cpu[1] if mask else None, cpu[2])
+                got = fn(gpu[0], gpu[1] if mask else None, gpu[2]).cpu()
+                check(bool(torch.equal(got, want)), f"{fn.__name__} on the "
+                      f"card differs from the CPU's with ties ({nf} facets)")
+        brightens = list(rng.uniform(2.0, 4.0, nf))
+        want = SYN.hdr_merge_stack(list(cpu[0][..., :3]), brightens, 3)
+        got = SYN.hdr_merge_stack(list(gpu[0][..., :3]), brightens, 3).cpu()
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        check(err <= 1e-5, f"hdr_merge_stack on the card differs: {err}")
+    print(f"synopsis combines on the card vs the CPU, 2/3/6 facets with tied "
+          f"scores: voronoi and voronoi_plus bit-equal; hdr_merge "
+          f"{err:.3e} of its largest value (bound 1e-5)", flush=True)
+
+
 def phase_small_chain():
     """Both chain forms against their plain versions at small shapes:
     every source of CHAIN_SOURCES (the three source modes, the five mount
@@ -1182,7 +1228,7 @@ def phase_small_chain():
     from envutil_tpu_torch.core.conventions import Projection as P
     rng = np.random.default_rng(27)
     spreads = list(small_spreads().values())
-    worst = {"planar": 0.0, "twined": 0.0}
+    worst = {"planar": 0.0, "twined": 0.0, "score": 0.0}
     edges = {"planar": [0, 0], "twined": [0, 0]}
     i = 0
     for sname, kind, sw, sh, shfov, kw in CHAIN_SOURCES:
@@ -1204,11 +1250,17 @@ def phase_small_chain():
                 worst[form] = max(worst[form], err)
                 edges[form][0] += n_edge
                 edges[form][1] += n_flip
+            err = chain_score_vs_plain(plan, src)[0]
+            check(err <= SCORE_BOUND, f"planar chain kernel's score "
+                  f"({sname} -> {tname}) disagrees: {err}")
+            worst["score"] = max(worst["score"], err)
             i += 1
         print(f"chain forms vs plain: {sname} source x {len(CHAIN_TARGETS)} "
               f"targets: worst so far planar {worst['planar']:.3e}, twined "
-              f"{worst['twined']:.3e} (bound {KERNEL_BOUND:g})", flush=True)
-    for form in worst:
+              f"{worst['twined']:.3e} (bound {KERNEL_BOUND:g}), planar "
+              f"score {worst['score']:.3e} of z (bound {SCORE_BOUND:g}); "
+              f"pixels bit-equal with and without the score", flush=True)
+    for form in edges:
         print(f"{form} chain vs plain: {i} cases, worst {worst[form]:.3e} "
               f"(bound {KERNEL_BOUND:g}); {edges[form][0]} px at a window "
               f"or face edge excluded, {edges[form][1]} of them with the "
@@ -1253,7 +1305,8 @@ def frame_errors(plan, src, frame, extra=None, chunk=128):
 
 
 def errors_text(errs):
-    return "; ".join(f"{k}: {v[0]:.3e} over {v[1]} px" for k, v in errs.items())
+    return "; ".join(f"{k}: {v[0]:.3e} over {v[1]} px"
+                     for k, v in errs.items())
 
 
 def twined_inline_path(name, plan, src):
@@ -1371,28 +1424,30 @@ def twined_chain_bound(plan, src, ops):
 
 def twined_planar_path(name, plan, src):
     """One twined frame through render_frame and the twined chain
-    kernel: launches, the whole frame against the exact path; then both
-    forms, the planes form (the twined coordinate pass and the planar
-    twined kernel) and the chain form, each kernel against its plain
-    version at this shape, frames and kernels alone timed in turns
-    (planes, chain, chain, planes; median of 10 and 20 each), the common
-    bound and the planes form's own."""
+    kernel: launches, the whole frame against the exact path, the kernel
+    against its plain version at this shape, the frame and the kernel
+    alone timed (median of 10 and 20), the plain version (median of 3)
+    and the bound."""
     import torch
-    from envutil_tpu_torch.models import synopsis as SYN
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.runtime import fastpath as FP
     taps = len(plan.spread)
     frame, _ms, n = render(plan, src, name, want={"resample_twined_chain": 1})
     peak = torch.cuda.max_memory_allocated()
-    window = FP.frame_window(plan)
-    pops = FP.twined_coords(plan, window, src)
-    planes = [pops[k] for k in ("sx", "sy", "dux", "duy", "dvx", "dvy")]
-    tapw = pops["tap_weights"]
+    ops = FP.chain_operands(plan, src)
+    ctens = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats", "spread")]
+    full = dict(ops, xfeat=ctens[0], yfeat=ctens[1], bmats=ctens[2],
+                spread=ctens[3])
+    tapw = R.twined_chain_operands(*ctens, **{
+        k: ops[k] for k in ("tmode", "pick", "row0", "face_rows", "precise",
+                            "tap_valid")})["tap_weights"]
     extra, covered = {}, None
     if tapw is not None:
         count = tapw.sum(dim=0)
         extra["facet edge (taps differ)"] = (count > 0) & (count < taps)
         covered = float((count > 0).float().mean())
+        del count
+    del tapw
     errs = frame_errors(plan, src, frame, extra)
     print(f"{name} ({taps} taps"
           + ("" if covered is None else f", {100 * covered:.1f}% covered")
@@ -1400,82 +1455,43 @@ def twined_planar_path(name, plan, src):
           f"{errors_text(errs)} (bound {TWINED_PLANAR_BOUND:g})", flush=True)
     check(max(v[0] for v in errs.values()) <= TWINED_PLANAR_BOUND,
           f"{name} disagrees with the exact path")
-
-    coeff, n_deg, nch = src.spl.coeff, src.spl.degree, src.spl.coeff.shape[-1]
-    sp = torch.tensor(SYN.scaled_spread(plan.spread), dtype=torch.float32,
-                      device="cuda")
-    kw = dict(degree=n_deg, n_taps=taps, tap_weights=tapw,
-              wrap_x=pops["wrap_x"])
-    nan = torch.full((plan.height, plan.width, nch), float("nan"),
-                     device="cuda")
-    k = R.resample_twined(nan.clone(), coeff, *planes, sp, **kw)
-    p = R.resample_twined_plain(nan.clone(), coeff, *planes, sp, **kw)
-    err_planes = float((k - p).abs().max())
-    check(err_planes <= KERNEL_BOUND and bool(torch.isfinite(k).all()),
-          f"twined kernel disagrees at {name}")
-    del nan, k, p
     err, n_edge, n_flip = chain_vs_plain(plan, src)[:3]
-    print(f"{name}: at full shape, twined vs plain {err_planes:.3e}, twined "
-          f"chain vs plain {err:.3e} ({n_edge} px at a window or face edge "
-          f"excluded, {n_flip} flipped) (bound {KERNEL_BOUND:g})", flush=True)
+    print(f"{name}: at full shape, twined chain vs plain {err:.3e} ({n_edge} "
+          f"px at a window or face edge excluded, {n_flip} flipped) (bound "
+          f"{KERNEL_BOUND:g})", flush=True)
     check(err <= KERNEL_BOUND, f"twined chain kernel disagrees at {name}")
 
-    ops = FP.chain_operands(plan, src)
-    ctens = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats", "spread")]
+    coeff, nch = src.spl.coeff, src.spl.coeff.shape[-1]
     buf = torch.empty((plan.height, plan.width, nch), device="cuda")
-
-    def planes_frame():
-        FP.planes_launch(plan, src, buf)
 
     def chain_frame():
         FP.planar_frame(plan, src, out=buf)
 
-    def planes_kernel():
-        R.resample_twined(buf, coeff, *planes, sp, **kw)
-
     def chain_kernel():
         R.resample_twined_chain(buf, coeff, *ctens, **ops)
     for _ in range(2):
-        for f in (planes_frame, chain_frame, planes_kernel, chain_kernel):
-            f()
-    planes_ms, frame_ms, f4 = in_turns(planes_frame, chain_frame, 10)
-    kplanes_ms, kernel_ms, k4 = in_turns(planes_kernel, chain_kernel)
-    coords_ms = events_ms(lambda: FP.twined_coords(plan, window, src), 10)
-    plain_planes_ms = events_ms(lambda: R.resample_twined_plain(
-        buf, coeff, *planes, sp, **kw), 3)
+        chain_frame()
+        chain_kernel()
+    frame_ms = events_ms(chain_frame, 10)
+    kernel_ms = events_ms(chain_kernel, 20)
     plain_ms = events_ms(lambda: R.resample_twined_chain_plain(
         buf, coeff, *ctens, **ops), 3)
-    own = planes_bound(plan, src, pops, sp)
-    bound = twined_chain_bound(plan, src, dict(
-        ops, xfeat=ctens[0], yfeat=ctens[1], bmats=ctens[2],
-        spread=ctens[3]))
+    bound = twined_chain_bound(plan, src, full)
     n_px = plan.height * plan.width
-    print(f"{name}: frame, in turns (planes, chain, chain, planes; median "
-          f"of 10 each) {', '.join(f'{t:.4f}' for t in f4)} ms: planes "
-          f"form {planes_ms:.4f} ms, chain form {frame_ms:.4f} ms = "
-          f"{n_px / 1e3 / frame_ms:.1f} Mpix/s, {planes_ms / frame_ms:.1f}x;"
-          f" kernels alone in turns (median of 20) "
-          f"{', '.join(f'{t:.4f}' for t in k4)} ms: twined "
-          f"{kplanes_ms:.4f} ms, twined chain {kernel_ms:.4f} ms; twined "
-          f"coordinate pass alone {coords_ms:.4f} ms; plain versions "
-          f"{plain_planes_ms:.3f} / {plain_ms:.3f} ms; peak device memory of "
-          f"the first frame {peak / 2**20:.1f} MiB; clocks/power/temp after:"
-          f" {smi_now()}", flush=True)
-    print(f"{name}: common bound {bound[0]:.4f} ms by {bound[1]} (table "
-          f"bytes under all live taps {bound[4] / 1e6:.1f} MB, {bound[5]} "
-          f"live pixel-taps, output; bytes {bound[2]:.4f} ms, operations "
-          f"{bound[3]:.4f} ms): chain kernel {100 * bound[0] / kernel_ms:.0f}"
-          f"%, twined kernel {100 * bound[0] / kplanes_ms:.0f}%, chain frame "
-          f"{100 * bound[0] / frame_ms:.0f}%, planes frame "
-          f"{100 * bound[0] / planes_ms:.0f}%; the planes form's own bound "
-          f"{own[0]:.4f} ms by {own[1]}", flush=True)
+    print(f"{name}: frame (planar_frame into one reused buffer, median of "
+          f"10) {frame_ms:.4f} ms = {n_px / 1e3 / frame_ms:.1f} Mpix/s; "
+          f"kernel alone (median of 20) {kernel_ms:.4f} ms; plain version "
+          f"{plain_ms:.3f} ms; peak device memory of the first frame "
+          f"{peak / 2**20:.1f} MiB; clocks/power/temp after: {smi_now()}",
+          flush=True)
+    print(f"{name}: bound {bound[0]:.4f} ms by {bound[1]} (table bytes under "
+          f"all live taps {bound[4] / 1e6:.1f} MB, {bound[5]} live "
+          f"pixel-taps, output; bytes {bound[2]:.4f} ms, operations "
+          f"{bound[3]:.4f} ms): kernel {100 * bound[0] / kernel_ms:.0f}%, "
+          f"frame {100 * bound[0] / frame_ms:.0f}%", flush=True)
     return dict(taps=taps, launches=n["resample_twined_chain"],
-                max_abs_err=err, planes_max_abs_err=err_planes,
-                ms=kernel_ms, planes_ms=kplanes_ms, plain_ms=plain_ms,
-                planes_plain_ms=plain_planes_ms, frame_ms=frame_ms,
-                planes_frame_ms=planes_ms, coords_ms=coords_ms,
-                bound_ms=bound[0], bound_by=bound[1],
-                planes_bound_ms=own[0], planes_bound_by=own[1],
+                max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                frame_ms=frame_ms, bound_ms=bound[0], bound_by=bound[1],
                 edge_px=n_edge, peak_mib=peak / 2**20, covered=covered,
                 vs_exact={k: v[0] for k, v in errs.items()},
                 region_px={k: v[1] for k, v in errs.items()})
@@ -1516,7 +1532,7 @@ def planes_at_path(plan, src, name):
     coeff, n = src.spl.coeff, src.spl.degree
     shape = (plan.height, plan.width, coeff.shape[-1])
     if plan.spread is None:
-        sx, sy, mask = FP.coords(plan, window, src)
+        sx, sy, mask, _z = FP.coords(plan, window, src)
         args = (coeff, sx, sy)
         kw = dict(degree=n, merge_mask=mask.to(torch.float32))
         kernel, plain = R.resample_planar, R.resample_planar_plain
@@ -1550,6 +1566,312 @@ def planes_at_path(plan, src, name):
           f"{smi_now()}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound[0], bound_by=bound[1])
+
+
+# ---------------------------------------------------------------- stitches
+
+# a pixel whose two best voronoi scores lie within this relative margin
+# may take the other champion under an ulp of its rays (the chain forms
+# each ray from the axis features, the exact path takes the stepper's
+# grid): such pixels are excluded from the stitches' checks and counted
+FLIP_REL = 1e-6
+
+
+def stitch_config(name, rng):
+    """(facets, sources on the card, synopsis, channels) of a stitch of
+    benchmarks.py at full size, its images seeded noise: config 5 (three
+    2048x1536 rectilinear facets, hfov 65, yaws -40/0/40; with
+    ``name`` "config 5, 4 channels" the same facets with associated
+    alpha), config 5b (six 1536x1152 rectilinear facets, hfov 72, yaw
+    60 i, lens a, b, c = 0.01, -0.02, 0.005) or config 5c (three 4096x2048
+    full-spherical brackets, exposure 2^eev for eev -2/0/2, brighten
+    2^-eev, hdr_merge); degree 3."""
+    from envutil_tpu_torch.core.conventions import Projection as P
+    from envutil_tpu_torch.models import environment as E
+    if name == "config 5c":
+        specs = [(P.SPHERICAL, 4096, 2048, 360.0, {}, eev)
+                 for eev in (-2.0, 0.0, 2.0)]
+    elif name == "config 5b":
+        specs = [(P.RECTILINEAR, 1536, 1152, 72.0,
+                  dict(yaw=math.radians(60.0 * i), a=0.01, b=-0.02,
+                       c=0.005), 0.0) for i in range(6)]
+    else:
+        specs = [(P.RECTILINEAR, 2048, 1536, 65.0,
+                  dict(yaw=math.radians(y)), 0.0) for y in (-40.0, 0.0, 40.0)]
+    nch = 4 if name.endswith("4 channels") else 3
+    facets, sources = [], []
+    for i, (proj, w, h, hfov, kw, eev) in enumerate(specs):
+        fct = make_facet(proj, w, h, math.radians(hfov), facet_no=i,
+                         brighten=2.0 ** -eev, **kw)
+        img = rng.random((h, w, nch), dtype=np.float32) * np.float32(
+            2.0 ** eev)
+        if nch == 4:
+            img[..., 3] = 0.3 + 0.7 * rng.random((h, w), dtype=np.float32)
+            img[..., :3] *= img[..., 3:]
+        facets.append(fct)
+        sources.append(E.make_mount_source(fct, img, 3, 3, device="cuda"))
+    return facets, sources, "hdr_merge" if name == "config 5c" \
+        else "panorama", nch
+
+
+def stitch_plan(facets, synopsis, nch):
+    """The stitch's plan: a 4096x2048 equirect of all facets."""
+    from envutil_tpu_torch.core.conventions import Projection as P
+    from envutil_tpu_torch.runtime.render import build_plan
+    a = make_args(facets[0], P.SPHERICAL, 4096, 2048, 360, 3, nch=nch)
+    a.facets, a.solo, a.synopsis = facets, -1, synopsis
+    return build_plan(a, facets)
+
+
+def hdr_condition(px_list, brightens, out):
+    """(H, W) first-order amplification of an hdr_merge frame's pixels by
+    differences in its brackets' pixels: max over channels of
+    sum_j (|q_j| + (|px_j| + |out|) / optimum_j^2) / |sum_j q_j|, the
+    quality weights q_j of 1- or 3-channel brackets (slope at most
+    1/optimum^2 in the grey value) and the merged ``out``."""
+    import torch
+    from envutil_tpu_torch.models import synopsis as SYN
+    qs = SYN.hdr_qualities(px_list, brightens, out.shape[-1])
+    num = torch.zeros_like(out)
+    for px, q, (_kind, opt) in zip(px_list, qs, SYN.hdr_kinds(brightens)):
+        num += q.abs()[..., None] + (px.abs() + out.abs()) / (opt * opt)
+    return (num / sum(qs).abs()[..., None]).amax(dim=-1)
+
+
+def stitch_errors(plan, sources, frame, stack, chunk=128):
+    """A stitch's ``frame`` and its facets' slots ``stack`` (as
+    ``fastpath.facet_into`` wrote them) against the port's exact path on
+    the card, in row chunks: each slot against the facet's lookup, and
+    the frame against the exact synopsis. Excluded: pixels whose planar
+    coordinate in some facet lies within WINDOW_EDGE of its window's
+    edge; voronoi pixels whose two best scores lie within FLIP_REL of
+    each other; hdr_merge pixels where the merge amplifies the slots'
+    own difference from the lookups past PATH_BOUND (``hdr_condition``
+    times that difference: a quality sum near 0). Returns (frame max abs
+    diff, slot max abs diff, window-edge px, champion-flip or
+    ill-conditioned px)."""
+    import torch
+    from envutil_tpu_torch.models import environment as E
+    from envutil_tpu_torch.models import stepper as ST
+    from envutil_tpu_torch.models import synopsis as SYN
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    from envutil_tpu_torch.runtime import render as RD
+    h, w = frame.shape[:2]
+    nch = plan.nchannels
+    worst, worst_slot, n_edge, n_other = 0.0, 0.0, 0, 0
+    for r0 in range(0, h, chunk):
+        r1 = min(r0 + chunk, h)
+        win = (r0, r1, 0, w)
+        edge = torch.zeros((r1 - r0, w), dtype=torch.bool, device="cuda")
+        scores, lookups = [], []
+        slot_diff = torch.zeros_like(edge, dtype=torch.float32)
+        for fi, (src, b, p2r) in enumerate(zip(sources, plan.bases,
+                                               plan.planar_to_ray)):
+            ray = ST.target_rays(plan.projection, plan.width, plan.height,
+                                 plan.extent, basis=b, normalize=True,
+                                 planar_to_ray=p2r, window=win,
+                                 device="cuda")
+            pick = FP._pickup(src)
+            px, py, hit = R.mount_planar(pick, *ray)
+            x0, x1, y0, y1 = pick.window
+            for v, e in ((px, x0), (px, x1), (py, y0), (py, y1)):
+                edge |= (v - e).abs() <= WINDOW_EDGE
+            if pick.projection == 2:       # rectilinear: z > 0
+                edge |= ray[2].abs() <= WINDOW_EDGE
+            scores.append(SYN.facet_score(ray[2], hit, src.static.recip_step))
+            lookups.append(E.lookup(src, ray, nch)[0])
+            slot_diff = torch.maximum(slot_diff, (
+                stack[fi, r0:r1] - lookups[-1]).abs().amax(dim=-1))
+        exact = RD._render_window(plan, sources, win)
+        if plan.synopsis == "hdr_merge":
+            other = hdr_condition(lookups, [s.static.brighten
+                                            for s in sources], exact) \
+                * slot_diff > PATH_BOUND
+        else:
+            top2 = torch.topk(torch.stack(scores), 2, dim=0).values
+            other = (top2[1] > SYN.LOWEST) & (
+                (top2[0] - top2[1]).abs() <= FLIP_REL * top2[0].abs())
+        diff = (torch.from_numpy(frame[r0:r1]).cuda() - exact).abs().amax(
+            dim=-1)
+        n_edge += int(edge.sum())
+        n_other += int((other & ~edge).sum())
+        worst = max(worst, float(torch.where(edge | other, 0.0, diff).max()))
+        worst_slot = max(worst_slot, float(torch.where(edge, 0.0,
+                                                       slot_diff).max()))
+    return worst, worst_slot, n_edge, n_other
+
+
+def facet_kernel(fplan, src, out, score):
+    """A callable that launches one facet's kernel of a stitch, alone,
+    as ``fastpath.facet_into`` launches it (``out`` holds the source's
+    channels); and the launch's bound (bound ms, by, bytes, ops ms)."""
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    coeff = src.spl.coeff
+    n_px = out.shape[0] * out.shape[1]
+    if score is None and FP.inline_mode(fplan, src) is not None:
+        ops = FP.frame_operands(fplan, src)
+        tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
+        b = inline_bound(fplan, src, n_px)
+        return (lambda: R.resample_inline(out, coeff, *tensors, **ops),
+                (b[0], b[1], b[4] + n_px * coeff.shape[-1] * 4, b[3]))
+    ops = FP.chain_operands(fplan, src)
+    b = chain_bound(fplan, src, ops)
+    tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
+    moved = b[4] + n_px * coeff.shape[-1] * 4 + (0 if score is None
+                                                  else n_px * 4)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return (lambda: R.resample_planar_chain(
+        out, coeff, *tensors, score=score, recip_step=src.static.recip_step,
+        **ops), (max(bytes_ms, b[3]), "bytes" if bytes_ms >= b[3]
+                 else "operations", moved, b[3]))
+
+
+def facet_vs_plain(fplan, src, scored):
+    """One facet of a stitch at the stitch's shape: the kernel that
+    ``fastpath.launch`` takes for it against its plain version on the
+    same operands (``kernel_vs_plain`` for the inline kernel, both of
+    its branches; ``chain_vs_plain`` for the planar chain kernel, and
+    with ``scored`` its score by ``chain_score_vs_plain``, pixels
+    bit-equal with and without it). The pixels are held to KERNEL_BOUND
+    in units of the facet's largest value where that exceeds 1: float
+    rounding scales with the values, and config 5c's brightest bracket
+    reaches 4. Checks each against its bound; returns a dict of the
+    errors, that scale and the window- or face-edge pixels excluded."""
+    from envutil_tpu_torch.runtime import fastpath as FP
+    if not scored and FP.inline_mode(fplan, src) is not None:
+        err, n_edge, _k, plain = kernel_vs_plain(fplan, src, src.spl.degree)
+        rec = dict(kernel="resample_inline", edge_px=n_edge)
+    else:
+        err, n_edge, n_flip, _k, plain = chain_vs_plain(fplan, src)
+        rec = dict(kernel="resample_planar_chain", edge_px=n_edge,
+                   coverage_flips=n_flip)
+        if scored:
+            rec["score_err"], rec["scored_px"] = chain_score_vs_plain(fplan,
+                                                                      src)
+            check(rec["score_err"] <= SCORE_BOUND, f"{rec['kernel']}'s "
+                  f"score disagrees with its plain version at a stitch's "
+                  f"shape: {rec['score_err']}")
+    rec.update(max_abs_err=err, scale=max(1.0, float(plain.abs().max())))
+    check(err <= KERNEL_BOUND * rec["scale"], f"{rec['kernel']} disagrees "
+          f"with its plain version at a stitch's shape: {err} (values up to "
+          f"{rec['scale']:.3f})")
+    return rec
+
+
+def stitch_path(name, rng):
+    """One stitch of benchmarks.py at full size through render_frame and
+    multi_frame: the launches per form, the frame against the exact path
+    (window-edge and champion-flip pixels excluded and counted), each
+    facet's kernel (and score) against its plain version at the
+    stitch's shape (``facet_vs_plain``), the peak
+    device memory of the first frame, and CUDA-event timings (median of
+    10 each) of every facet's kernel alone, of every facet into its slot
+    (``facet_into``: the kernel and the channel adaptation and brighten),
+    of the synopsis combine on the stacks and of the whole frame, each
+    beside its bound."""
+    import torch
+    from envutil_tpu_torch.models import synopsis as SYN
+    from envutil_tpu_torch.runtime import fastpath as FP
+    facets, sources, synopsis, nch = stitch_config(name, rng)
+    plan = stitch_plan(facets, synopsis, nch)
+    n_f, n_px = len(sources), plan.height * plan.width
+    hdr = synopsis == "hdr_merge"
+    want = {"resample_inline" if hdr else "resample_planar_chain": n_f}
+    frame, first_ms, n = render(plan, sources, name, want=want)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    covered = float((frame != 0).any(axis=-1).mean())
+    stack = torch.empty((n_f, plan.height, plan.width, nch), device="cuda")
+    score = None if hdr else torch.empty((n_f, plan.height, plan.width),
+                                         device="cuda")
+    fplans = FP.facet_plans(plan)
+    for fi, (fplan, src) in enumerate(zip(fplans, sources)):
+        FP.facet_into(fplan, src, stack[fi], None if hdr else score[fi])
+    err, err_slot, n_edge, n_other = stitch_errors(plan, sources, frame,
+                                                   stack)
+    vs_plain = [facet_vs_plain(fp, s, not hdr)
+                for fp, s in zip(fplans, sources)]
+    print(f"{name}: each facet's kernel vs its plain version at this shape: "
+          + "; ".join(
+              f"{v['kernel']} {v['max_abs_err']:.3e}"
+              + (f", score {v['score_err']:.3e} of z over {v['scored_px']} px"
+                 if "score_err" in v else "")
+              + f", {v['edge_px']} edge px excluded, values up to "
+              f"{v['scale']:.3f}" for v in vs_plain)
+          + f" (bounds {KERNEL_BOUND:g} times those values where above 1, "
+          f"score {SCORE_BOUND:g})", flush=True)
+    other = "where the merge's quality sum nearly cancels" if hdr \
+        else "at a near-tied champion"
+    print(f"{name}: {n_f}-facet {synopsis} ({nch} channels), "
+          f"{100 * covered:.2f}% of the equirect not 0; vs exact path, whole "
+          f"frame: max abs diff {err:.3e}, facets' slots vs their lookups "
+          f"{err_slot:.3e} (bound {PATH_BOUND:g}); {n_edge} px at a window "
+          f"edge and {n_other} {other} excluded", flush=True)
+    check(err <= PATH_BOUND and err_slot <= PATH_BOUND,
+          f"{name} disagrees with the exact path")
+    check(hdr or n_edge + n_other <= 1e-3 * n_px,
+          f"{name}: too many pixels excluded")
+    check(covered > 0.0, f"{name}: the frame is empty")
+    del frame
+    kernels, into = [], []
+    for fi, (fplan, src) in enumerate(zip(fplans, sources)):
+        sc = None if score is None else score[fi]
+        kernels.append(facet_kernel(fplan, src, stack[fi], sc))
+        into.append(lambda fp=fplan, s=src, o=stack[fi], c=sc:
+                    FP.facet_into(fp, s, o, c))
+    if hdr:
+        brightens = [s.static.brighten for s in sources]
+
+        def combine():
+            SYN.hdr_merge_stack(list(stack), brightens, nch)
+    else:
+        comb = SYN.voronoi_stack if nch in (1, 3) else SYN.voronoi_plus_stack
+
+        def combine():
+            comb(stack, None, score)
+
+    def whole():
+        FP.multi_frame(plan, sources)
+    for f in [k for k, _b in kernels] + into + [combine, whole]:
+        f()
+    kernel_ms = [events_ms(k, 10) for k, _b in kernels]
+    into_ms = [events_ms(f, 10) for f in into]
+    combine_ms = events_ms(combine, 10)
+    frame_ms = events_ms(whole, 10)
+    k_bounds = [b for _k, b in kernels]
+    out_bytes = n_px * nch * 4
+    stack_bytes = n_f * n_px * nch * 4 + (0 if hdr else n_f * n_px * 4)
+    combine_bound = (stack_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    frame_bytes = sum(b[2] for b in k_bounds) + stack_bytes + out_bytes
+    frame_ops = sum(b[3] for b in k_bounds)
+    frame_bound = max(frame_bytes / HBM_BYTES_PER_S * 1e3, frame_ops)
+    print(f"{name}: per-facet kernels alone "
+          f"{', '.join(f'{t:.4f}' for t in kernel_ms)} ms (sum "
+          f"{sum(kernel_ms):.4f}; bounds "
+          f"{', '.join(f'{b[0]:.4f} {b[1]}' for b in k_bounds)}); facets "
+          f"into their slots {', '.join(f'{t:.4f}' for t in into_ms)} ms "
+          f"(sum {sum(into_ms):.4f}); combine {combine_ms:.4f} ms (bound "
+          f"{combine_bound:.4f} ms by bytes: the stacks read, the frame "
+          f"written); frame (multi_frame, stacks allocated per frame) "
+          f"{frame_ms:.4f} ms = {n_px / 1e3 / frame_ms:.1f} Mpix/s, bound "
+          f"{frame_bound:.4f} ms (table entries read once, the stacks "
+          f"written and read, the output; the kernels' operations); the "
+          f"combine {100 * combine_ms / frame_ms:.0f}% of the frame; peak "
+          f"device memory of the first frame {peak:.1f} MiB (stacks "
+          f"{stack_bytes / 2**20:.1f} MiB); clocks/power/temp after: "
+          f"{smi_now()}", flush=True)
+    return dict(facets=n_f, synopsis=synopsis, channels=nch, launches=n,
+                first_ms=first_ms, max_abs_err=err, slot_max_abs_err=err_slot,
+                edge_px=n_edge, excluded_px=n_other, covered=covered,
+                vs_plain=vs_plain,
+                kernel_ms=kernel_ms,
+                kernel_bound_ms=[b[0] for b in k_bounds],
+                kernel_bound_by=[b[1] for b in k_bounds], into_ms=into_ms,
+                combine_ms=combine_ms, combine_bound_ms=combine_bound,
+                frame_ms=frame_ms, frame_bound_ms=frame_bound,
+                combine_share=combine_ms / frame_ms, peak_mib=peak,
+                stack_mib=stack_bytes / 2**20)
 
 
 def smooth_environment(ray):
@@ -1615,6 +1937,7 @@ def main():
     from envutil_tpu_torch.ops import kernels as K
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.ops import spline as S
+    from envutil_tpu_torch.runtime import fastpath as FP
     from envutil_tpu_torch.runtime import render as RD
 
     # ---- 1. card, versions, build -------------------------------------
@@ -1636,6 +1959,7 @@ def main():
     worst_inline_twined = phase_small_inline_twined()
     worst_twined = phase_small_twined()
     worst_chain, chain_edge_px = phase_small_chain()
+    phase_small_combine()
 
     # ---- 3. main path at full width -----------------------------------
     w, h = 8192, 4096
@@ -1857,7 +2181,35 @@ def main():
         check(0.05 < covered < 0.95, f"{name} coverage implausible")
         check(errt <= bound, f"{name} disagrees with exact path")
         t_translated[name] = planes_at_path(pt, tsrc, name)
-    del lsrc, tsrc
+
+    # the two facets stitched into the translated facet's view: the
+    # lens facet through the chain form with its score, the translated
+    # facet through the coordinate pass and the planes form, its score
+    # from the pass's z
+    sa = make_args(lf, P.RECTILINEAR, 1024, 768, 100, 3, (5, 0, 0))
+    sa.facets, sa.solo = [lf, tf], -1
+    ps = RD.build_plan(sa, [lf, tf])
+    outs, _ms, ns = render(ps, [lsrc, tsrc], "lens and translated stitch",
+                           want={"resample_planar_chain": 1,
+                                 "resample_planar": 1})
+    stack = torch.empty((2, 768, 1024, 3), device="cuda")
+    score = torch.empty((2, 768, 1024), device="cuda")
+    for fi, (fplan, fsrc) in enumerate(zip(FP.facet_plans(ps),
+                                           [lsrc, tsrc])):
+        FP.facet_into(fplan, fsrc, stack[fi], score[fi])
+    err_ls, err_lslot, edge_ls, flip_ls = stitch_errors(ps, [lsrc, tsrc],
+                                                        outs, stack)
+    share = float((score[1] > score[0]).float().mean())
+    print(f"lens and translated stitch (voronoi, 1024x768): the translated "
+          f"facet wins {100 * share:.1f}% of the view; vs exact path, whole "
+          f"frame: max abs diff {err_ls:.3e}, slots {err_lslot:.3e} (bound "
+          f"{PATH_BOUND:g}); {edge_ls} px at a window edge and {flip_ls} at a "
+          f"near-tied champion excluded", flush=True)
+    check(err_ls <= PATH_BOUND and err_lslot <= PATH_BOUND,
+          "the lens and translated stitch disagrees with the exact path")
+    check(0.05 < share < 0.95, "the translated facet wins no share")
+    planar_n["lens and translated stitch"] = ns["resample_planar_chain"]
+    del lsrc, tsrc, stack, score, outs
     torch.cuda.empty_cache()
 
     # ---- 6b. the 16K / 16-tap job (config 4b's geometry, float32) -----
@@ -1875,13 +2227,19 @@ def main():
     del src16
     torch.cuda.empty_cache()
 
+    # ---- 6c. untwined stitches of benchmarks.py at full size ----------
+    t_stitch = {}
+    for name in ("config 5", "config 5b", "config 5c",
+                 "config 5, 4 channels"):
+        t_stitch[name] = stitch_path(name, np.random.default_rng(5))
+        torch.cuda.empty_cache()
+    for name, t in t_stitch.items():
+        if t["synopsis"] != "hdr_merge":
+            planar_n[name] = t["launches"]["resample_planar_chain"]
+
     # ---- 7. the record ------------------------------------------------
     t3 = t_planar["config 3"]
     t4, t3t = t_twined["config 4"], t_twined["config 3"]
-
-    def planes_form(t):
-        # the planes form's readings in a path's record (the same call)
-        return {k[len("planes_"):]: t[k] for k in t if k.startswith("planes_")}
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -1897,7 +2255,9 @@ def main():
          "frame_ms": t_main["frame_ms"], "prefilter_ms": prefilter_ms,
          "build": build.get("resample_inline_kernel"),
          "config_2r": dict(t_2r, launches=r2_n["resample_inline"],
-                           max_abs_err=err2r_k)},
+                           max_abs_err=err2r_k),
+         "stitches": {k: t for k, t in t_stitch.items()
+                      if t["synopsis"] == "hdr_merge"}},
         # the planes form: launched and measured on the translated
         # facet's operands; config 3's coordinates beside them
         dict(t_translated["translated facet"],
@@ -1907,7 +2267,6 @@ def main():
                       "envutil_tpu/ops/pallas_resample.py:822 (K5)",
              form="planes", launches=planar_n["translated facet"],
              path="translated facet", library_ms=None,
-             config_3_coordinates=planes_form(t3),
              degree1=dict(deg1, library="grid_sample bilinear"),
              small_case_max_abs_err=worst_planar,
              build=build.get("resample_planar_kernel")),
@@ -1922,11 +2281,11 @@ def main():
          "small_case_max_abs_err": worst_chain["planar"],
          "small_case_edge_px": chain_edge_px["planar"],
          "build": build.get("resample_planar_chain_kernel"),
+         "small_case_score_max_abs_err_of_z": worst_chain["score"],
          "launches_by_path": planar_n,
-         "paths": {k: dict({q: v for q, v in t.items()
-                            if not q.startswith("planes_")},
-                           planes_form=planes_form(t))
-                   for k, t in t_planar.items()}},
+         "paths": t_planar,
+         "stitches": {k: t for k, t in t_stitch.items()
+                      if t["synopsis"] != "hdr_merge"}},
         dict({k: t4[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
              name="resample_inline_twined", route="cuda",
@@ -1947,7 +2306,6 @@ def main():
                       "envutil_tpu/ops/pallas_resample.py:2033 (K6)",
              form="planes", launches=planar_n["translated facet twined"],
              path="translated facet twined", library_ms=None,
-             config_3_twined_planes=planes_form(t3t),
              small_case_max_abs_err=worst_twined,
              build=build.get("resample_twined_kernel")),
         dict({k: t3t[k] for k in ("launches", "max_abs_err", "ms",
@@ -1960,10 +2318,7 @@ def main():
              small_case_max_abs_err=worst_chain["twined"],
              small_case_edge_px=chain_edge_px["twined"],
              build=build.get("resample_twined_chain_kernel"),
-             paths={k: dict({q: v for q, v in t_twined[k].items()
-                             if not q.startswith("planes_")},
-                            planes_form=planes_form(t_twined[k]))
-                    for k in ("config 3", "lens facet")}),
+             paths={k: t_twined[k] for k in ("config 3", "lens facet")}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,10 @@ constexpr int TMODE_STER = 3;
 constexpr int TMODE_FISH = 4;
 constexpr int SMODE_MOUNT = 3;
 
+// the voronoi score of a ray that misses its facet (float32 lowest,
+// models/synopsis.LOWEST)
+constexpr float LOWEST = -3.402823466e38f;
+
 // mount projections (core/conventions.Projection)
 constexpr int PROJ_SPHERICAL = 0;
 constexpr int PROJ_CYLINDRICAL = 1;

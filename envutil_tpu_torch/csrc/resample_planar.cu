@@ -17,9 +17,14 @@
 // (Hp, Wp, NCH) channel-interleaved table there and stores NCH floats
 // of the (H, W, NCH) output, 0 where the ray misses the source: the
 // single-facet finish where(mask, canvas, 0), so no zero fill runs
-// before it. Why the chain is fused: on the TPU the JAX package
-// computes the same chain under jit (fastpath._coords) and XLA fuses
-// it into a few passes; eager PyTorch ran it as a string of
+// before it. Given a score plane, it also writes each pixel's voronoi
+// score there (models/synopsis.facet_score: the normalised ray's z
+// times recip_step where the ray hits, the float32 lowest where it
+// misses), which a multi-facet frame's synopsis combine reads
+// (runtime/fastpath.multi_frame); the pixels are the same bit for bit
+// with and without it. Why the chain is fused: on the TPU the JAX
+// package computes the same chain under jit (fastpath._coords) and XLA
+// fuses it into a few passes; eager PyTorch ran it as a string of
 // elementwise launches (fastpath.coords), each a round trip of a full
 // (H, W) float32 plane through device memory, and on the H100 that
 // pass took 90-96% of a planar frame (PERF.md). Target and source
@@ -56,13 +61,13 @@
 // 12-27% of that bound, paced by the chain's dependent operations and
 // the scalar tap loads.
 //
-// No staged window. Ablation on the H100 (tools/ablation/
-// ablate_planar.py) put the chain form's tap loads at 49% of the
-// kernel at config 3 (0.048 of 0.097 ms) and 9% at the lens facet,
-// where the chain over every pixel of the equirect sets the pace; the
-// inline kernel's staged window (stage_window / spline_staged) on
-// 32x8-pixel blocks read 0.0970 against 0.0968 ms at config 3 and cost
-// 32% at the lens facet, so the taps gather directly.
+// No staged window. Ablation on the H100 (PERF.md, section 6) put the
+// chain form's tap loads at 49% of the kernel at config 3 (0.048 of
+// 0.097 ms) and 9% at the lens facet, where the chain over every pixel
+// of the equirect sets the pace; the inline kernel's staged window
+// (stage_window / spline_staged) on 32x8-pixel blocks read 0.0970
+// against 0.0968 ms at config 3 and cost 32% at the lens facet, so the
+// taps gather directly.
 //
 #include "planar_chain.cuh"
 
@@ -117,6 +122,7 @@ struct ChainParams {
   int row0;                     // absolute row of the window's first row
   int face_rows;                // rows per cube face (0: one matrix)
   int tmode;                    // TMODE_* (planar_chain.cuh)
+  float recip_step;             // score = z * recip_step
   ChainPickup pick;
   Table table;
 };
@@ -124,6 +130,7 @@ struct ChainParams {
 template <int DEGREE, int NCH>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 resample_planar_chain_kernel(float* __restrict__ out,
+                             float* __restrict__ score,
                              const float* __restrict__ coeff,
                              const float* __restrict__ xfeat,
                              const float* __restrict__ yfeat,
@@ -146,19 +153,22 @@ resample_planar_chain_kernel(float* __restrict__ out,
 #pragma unroll
     for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
   }
-  float* dst = out + (y * p.width + x) * NCH;
+  const int64_t pix = y * p.width + x;
+  float* dst = out + pix * NCH;
 #pragma unroll
   for (int c = 0; c < NCH; ++c) dst[c] = acc[c];
+  if (score != nullptr) score[pix] = hit ? mul(r[2], p.recip_step) : LOWEST;
 }
 
 struct ChainLaunch {
   template <int DEGREE, int NCH>
-  static cudaError_t run(float* out, const float* coeff, const float* xfeat,
-                         const float* yfeat, const float* bmats,
-                         const ChainParams& p, cudaStream_t stream) {
+  static cudaError_t run(float* out, float* score, const float* coeff,
+                         const float* xfeat, const float* yfeat,
+                         const float* bmats, const ChainParams& p,
+                         cudaStream_t stream) {
     resample_planar_chain_kernel<DEGREE, NCH>
         <<<frame_grid(p.height, p.width), dim3(BLOCK_X, BLOCK_Y), 0, stream>>>(
-            out, coeff, xfeat, yfeat, bmats, p);
+            out, score, coeff, xfeat, yfeat, bmats, p);
     return cudaGetLastError();
   }
 };
@@ -190,12 +200,14 @@ extern "C" int envutil_resample_planar(
 // arrays as for the inline kernel; ``ipick`` (7 ints) and ``fpick``
 // (24 floats) are host arrays holding ChainPickup's fields in their
 // order. Every pixel is written: 0 where the ray misses the source.
+// ``score`` may be null; otherwise it is an (H, W) device plane that
+// receives each pixel's score, the ray's z times ``recip_step``.
 extern "C" int envutil_resample_planar_chain(
-    float* out, const float* coeff, const float* xfeat, const float* yfeat,
-    const float* bmats, const float* wmat, const int* ipick,
-    const float* fpick, long long height, long long width, long long hp,
-    long long wp, int row0, int face_rows, int degree, int nch, int tmode,
-    void* stream) {
+    float* out, float* score, const float* coeff, const float* xfeat,
+    const float* yfeat, const float* bmats, const float* wmat,
+    const int* ipick, const float* fpick, long long height, long long width,
+    long long hp, long long wp, int row0, int face_rows, int degree, int nch,
+    int tmode, float recip_step, void* stream) {
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (tmode < TMODE_AFFINE || tmode > TMODE_FISH) return (int)cudaErrorInvalidValue;
   if (height <= 0 || width <= 0) return 0;
@@ -203,8 +215,9 @@ extern "C" int envutil_resample_planar_chain(
   ChainParams p;
   p.height = height; p.width = width;
   p.row0 = row0; p.face_rows = face_rows; p.tmode = tmode;
+  p.recip_step = recip_step;
   if (!set_pickup(p.pick, ipick, fpick)) return (int)cudaErrorInvalidValue;
   set_table(p.table, hp, wp, degree, wmat);
-  return (int)by_degree<ChainLaunch>(degree, nch, out, coeff, xfeat, yfeat,
-                                     bmats, p, (cudaStream_t)stream);
+  return (int)by_degree<ChainLaunch>(degree, nch, out, score, coeff, xfeat,
+                                     yfeat, bmats, p, (cudaStream_t)stream);
 }

@@ -59,14 +59,13 @@
 // facet) per pixel, K times the deflection and the spline per live
 // tap: at 4 taps the operations bound the chain form.
 //
-// No staged window. Ablation on the H100 (tools/ablation/
-// ablate_planar.py) put the chain form's tap loads at 55% of the kernel
-// at config 3 twined and 9% at the lens facet twined, where the three
-// rays, three pickups and four window tests of every pixel set the
-// pace; a window in the planar chain form, whose loads are 49% at
-// config 3, gained nothing there, and the twined one would widen each
-// block's box by the spread's reach as the inline twined kernel's did.
-// So the taps gather directly.
+// No staged window. Ablation on the H100 (PERF.md, section 6) put the
+// chain form's tap loads at 55% of the kernel at config 3 twined and 9%
+// at the lens facet twined, where the three rays, three pickups and
+// four window tests of every pixel set the pace; a window in the planar
+// chain form, whose loads are 49% at config 3, gained nothing there,
+// and the twined one would widen each block's box by the spread's reach
+// as the inline twined kernel's did. So the taps gather directly.
 //
 #include "planar_chain.cuh"
 

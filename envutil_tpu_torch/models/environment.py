@@ -219,17 +219,10 @@ def _no_paint(st: SourceStatic):
             "the PyTorch port")
 
 
-def _cubemap_pickup(st: SourceStatic, ray, face=None):
+def _cubemap_pickup(st: SourceStatic, ray):
     """IR pixel coordinates of the rays (cubemap_view_t): dominant-axis
-    face, in-face coordinates, biatan6 in-plane atan, section offset.
-    With ``face`` given, the pickup is taken in that face's plane
-    whatever the ray's own dominant axis (twining keeps the derivative
-    rays in the centre ray's face; past the face's edge the coordinates
-    run on into the section's support frame)."""
-    if face is None:
-        face, fx, fy = geo.ray_to_cubeface(*ray)
-    else:
-        fx, fy = geo.ray_to_cubeface_fixed(*ray, face)
+    face, in-face coordinates, biatan6 in-plane atan, section offset."""
+    face, fx, fy = geo.ray_to_cubeface(*ray)
     if st.projection == Projection.BIATAN6:
         fx = (4.0 / math.pi) * torch.atan(fx)
         fy = (4.0 / math.pi) * torch.atan(fy)
@@ -269,16 +262,15 @@ def _md_to_spline(st: SourceStatic, px, py):
     return ix - st.window_x_offset, iy - st.window_y_offset
 
 
-def source_spline_coords(src: FacetSource, ray, face=None):
+def source_spline_coords(src: FacetSource, ray):
     """Continuous spline coordinates (core units, ungated) and the
     validity mask for the given rays - the coordinate half of
     lookup(). Cubemap sources give IR pixel coordinates and an
-    all-true mask; ``face`` (cubemap sources only) forces the cube face
-    of the pickup, see ``_cubemap_pickup``."""
+    all-true mask."""
     st = src.static
     _no_paint(st)
     if st.kind == "cubemap":
-        cx, cy = _cubemap_pickup(st, ray, face)
+        cx, cy = _cubemap_pickup(st, ray)
         return cx, cy, _all_true(ray)
     crd = _mount_planar(st, ray)
     mask = _window_mask(st, crd, ray)
@@ -367,6 +359,12 @@ def apply_brighten(px, brighten: float):
         colour = px[..., :nch - 1] * brighten
         return torch.cat([colour, px[..., nch - 1:]], -1)
     return px * brighten
+
+
+def apply_brighten_(px, brighten: float):
+    """apply_brighten in place; returns ``px``."""
+    (px[..., :-1] if px.shape[-1] in (2, 4) else px).mul_(brighten)
+    return px
 
 
 def apply_brighten_planar(px, brighten: float):

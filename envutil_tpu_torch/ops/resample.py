@@ -15,7 +15,8 @@ form. ``resample_planar_chain`` is its chain form: the coordinate
 chain per pixel from the inline kernel's axis features (plus the
 stereographic and fisheye target modes) and a ``ChainPickup`` (the IR
 pickup, or the mount pickup of partial and PTO mounts with its window
-test), then the spline, 0 where the ray misses the source.
+test), then the spline, 0 where the ray misses the source, and on
+request each pixel's voronoi score for a multi-facet synopsis.
 
 ``resample_inline_twined`` is the counterpart of
 resample_inline_twined_into: the inline chain for the three rays of the
@@ -91,6 +92,7 @@ import torch
 
 from ..core import geometry as geo
 from ..models import lens as _lens
+from ..models import synopsis as SYN
 from . import basis as _basis
 from . import kernels as K
 from . import spline as S
@@ -119,7 +121,7 @@ _INLINE = K.Library("resample_inline.cu", {
 _PLANAR = K.Library("resample_planar.cu", {
     "envutil_resample_planar": [_p] * 6 + [_ll] * 4 + [_i, _i, _p],
     "envutil_resample_planar_chain":
-        [_p] * 8 + [_ll] * 4 + [_i] * 5 + [_p]})
+        [_p] * 9 + [_ll] * 4 + [_i] * 5 + [_f, _p]})
 _INLINE_TWINED = K.Library("resample_inline_twined.cu", {
     "envutil_resample_inline_twined":
         [_p] * 7 + [_ll] * 4 + [_i] * 9 + [_f, _f, _i] + [_f] * 8 + [_p]})
@@ -485,7 +487,6 @@ def inline_tap_rays(xfeat, yfeat, bmats, spread, *, tmode: str,
     """Per tap of the spread, (ray, w): every pixel's deflected ray
     p0 + cx du + cy dv, as the twined kernel computes it, and the tap's
     weight."""
-    from ..models import synopsis as SYN
     p0, p10, p01 = inline_ninepack(xfeat, yfeat, bmats, tmode=tmode,
                                    row0=row0, face_rows=face_rows)
     du, dv = SYN.derivative_rays(p0, p10, p01, precise)
@@ -844,20 +845,35 @@ def _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
                     face_rows, sets, _CHAIN_TMODES)
 
 
+def _check_score(out, score):
+    if score is not None and (
+            tuple(score.shape) != tuple(out.shape[:2])
+            or score.dtype != torch.float32 or not score.is_contiguous()
+            or score.device != out.device):
+        raise ValueError("score must be a contiguous float32 (H, W) plane "
+                         "on out's device")
+
+
 def resample_planar_chain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
                           tmode: str, pick: ChainPickup, row0: int = 0,
-                          face_rows: int = 0):
+                          face_rows: int = 0, score=None,
+                          recip_step: float = 1.0):
     """The chain form of the planar kernel: per pixel the target ray from
     the axis features (``tmode`` affine, sph or cyl as for
     ``resample_inline``, or ster / fish on planar features), its pickup
     by ``pick``, the gates, and the spline of the braced table, into
     ``out`` (H, W, C), in place; pixels whose ray misses the source are
-    written 0. Returns ``out``. CUDA tensors go through the kernel; CPU
-    tensors through ``resample_planar_chain_plain``."""
+    written 0. With ``score`` (H, W), each pixel's voronoi score is
+    written there as well (``synopsis.facet_score``: the normalised ray's
+    z times ``recip_step`` where the ray hits, ``synopsis.LOWEST`` where
+    it misses); ``out`` is the same bit for bit with or without it.
+    Returns ``out``. CUDA tensors go through the kernel; CPU tensors
+    through ``resample_planar_chain_plain``."""
     _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
                  face_rows, 1)
+    _check_score(out, score)
     kw = dict(degree=degree, tmode=tmode, pick=pick, row0=row0,
-              face_rows=face_rows)
+              face_rows=face_rows, score=score, recip_step=recip_step)
     if out.device.type == "cpu":
         return resample_planar_chain_plain(out, coeff, xfeat, yfeat, bmats,
                                            **kw)
@@ -868,10 +884,11 @@ def resample_planar_chain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
     hp, wp, _ = coeff.shape
     ints, floats = _pickup_arrays(pick)
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = fn(out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
-             yfeat.data_ptr(), bmats.data_ptr(), _wmat(degree), ints, floats,
-             h, w, hp, wp, int(row0), int(face_rows), int(degree), int(nch),
-             _CHAIN_TMODES[tmode], stream)
+    err = fn(out.data_ptr(), None if score is None else score.data_ptr(),
+             coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
+             bmats.data_ptr(), _wmat(degree), ints, floats, h, w, hp, wp,
+             int(row0), int(face_rows), int(degree), int(nch),
+             _CHAIN_TMODES[tmode], float(recip_step), stream)
     if err != 0:
         raise RuntimeError(f"resample_planar_chain kernel launch failed: "
                            f"CUDA error {err}")
@@ -884,15 +901,20 @@ resample_planar_chain.launches = 0
 
 def resample_planar_chain_plain(out, coeff, xfeat, yfeat, bmats, *,
                                 degree: int, tmode: str, pick: ChainPickup,
-                                row0: int = 0, face_rows: int = 0):
+                                row0: int = 0, face_rows: int = 0,
+                                score=None, recip_step: float = 1.0):
     """The planar chain kernel's computation in plain PyTorch, with its
-    signature: ``planar_chain_coords``, then ``resample_planar_plain``
-    under the validity mask over a zero canvas. Runs on any device."""
+    signature: ``chain_rays`` and ``chain_coords``, the score from the
+    ray's z where asked, then ``resample_planar_plain`` under the
+    validity mask over a zero canvas. Runs on any device."""
     _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
                  face_rows, 1)
-    sx, sy, mask = planar_chain_coords(xfeat, yfeat, bmats, tmode=tmode,
-                                       pick=pick, row0=row0,
-                                       face_rows=face_rows)
+    _check_score(out, score)
+    ray = chain_rays(xfeat, yfeat, bmats, tmode=tmode, row0=row0,
+                     face_rows=face_rows)
+    sx, sy, mask = chain_coords(pick, *ray)
+    if score is not None:
+        score.copy_(SYN.facet_score(ray[2], mask, recip_step))
     out.zero_()
     return resample_planar_plain(out, coeff, sx.contiguous(),
                                  sy.contiguous(), degree=degree,
@@ -904,21 +926,30 @@ def twined_chain_operands(xfeat, yfeat, bmats, spread, *, tmode: str,
                           face_rows: int = 0, precise: bool = False,
                           tap_valid: bool = False):
     """The operands that the twined chain kernel computes per pixel, as
-    the dict of ``fastpath.twined_coords`` (the planes form's operands):
-    ``sx``, ``sy`` the centre's padded coordinates (ungated), ``dux``,
-    ``duy``, ``dvx``, ``dvy`` the coordinate derivatives (wrapped by the
-    period, 0 where not finite), ``tap_weights`` (K, H, W) uint8, each
-    tap's deflected validity (with ``tap_valid``, else None), and
-    ``wrap_x``. Rays, derivative rays and pickups are the kernel's: the
-    three normalised grids of the doubled feature sets, an IR source's
-    three pickups in the centre ray's face."""
-    from ..models import synopsis as SYN
+    the dict of ``twined_ray_operands``: the kernel's three normalised
+    ray grids from the doubled feature sets, through the kernel's source
+    half."""
     nfx, nfy = _feature_rows(tmode)
     kw = dict(tmode=tmode, row0=row0, face_rows=face_rows)
-    p0, p10, p01 = (chain_rays(xf, yf, bmats, **kw)
-                    for xf, yf in ((xfeat[:nfx], yfeat[:nfy]),
-                                   (xfeat[nfx:], yfeat[:nfy]),
-                                   (xfeat[:nfx], yfeat[nfy:])))
+    rays = [chain_rays(xf, yf, bmats, **kw)
+            for xf, yf in ((xfeat[:nfx], yfeat[:nfy]),
+                           (xfeat[nfx:], yfeat[:nfy]),
+                           (xfeat[:nfx], yfeat[nfy:]))]
+    return twined_ray_operands(*rays, spread, pick=pick, precise=precise,
+                               tap_valid=tap_valid)
+
+
+def twined_ray_operands(p0, p10, p01, spread, *, pick: ChainPickup,
+                        precise: bool = False, tap_valid: bool = False):
+    """The twined chain's source half from the ninepack's three
+    normalised ray grids, as the planar twined kernel's operands (the
+    twined chain kernel computes them per pixel; ``fastpath.twined_coords``
+    passes them to the planes form): ``sx``, ``sy`` the centre's padded
+    coordinates (ungated), ``dux``, ``duy``, ``dvx``, ``dvy`` the
+    coordinate derivatives (wrapped by the period, 0 where not finite),
+    ``tap_weights`` (K, H, W) uint8, each tap's deflected validity (with
+    ``tap_valid``, else None), and ``wrap_x``. An IR source's three
+    pickups are taken in the centre ray's face."""
     du, dv = SYN.derivative_rays(p0, p10, p01, precise)
     if precise:
         p10 = tuple(a + b for a, b in zip(p0, du))

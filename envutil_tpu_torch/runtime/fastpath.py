@@ -1,18 +1,19 @@
-"""Fast single-facet render path on the card: one kernel launch over
-the whole frame.
+"""Fast render path on the card: one kernel launch per facet over the
+whole frame.
 
 Counterpart of envutil_tpu/runtime/fastpath.py (eligible :106-126,
 _coords :283-389, _inline_setup :569-685, _inline_eligible :688-704,
-the fused frame :1373-1734). The JAX fast path plans window classes,
-tile passes, forced-face cubemap sections, face-boundary merge passes
-and rolled/pitched source variants because the TPU's Mosaic compiler
+the fused frame :1373-1734, fused_multi_frame :1743, _combine_stack
+:2600). The JAX fast path plans window classes, tile passes,
+forced-face cubemap sections, face-boundary merge passes and
+rolled/pitched source variants because the TPU's Mosaic compiler
 offers only an (8,128) in-register gather; on Hopper the kernels gather
 through L1/L2 directly, so one launch covers every output pixel
 exactly, poles, seam and cube edges included, and none of that planner
 is carried over.
 
-Two routes, chosen per job (``inline_mode``), each with a twined form
-taken when the plan carries a spread:
+Two routes for a single facet, chosen per job (``inline_mode``), each
+with a twined form taken when the plan carries a spread:
 
 * ``fused_frame``: full-spherical mount or cubemap/biatan6 IR sources
   rendered to rectilinear, cubemap, biatan6, spherical or cylindrical
@@ -28,41 +29,42 @@ taken when the plan carries a spread:
   kernel from ``inline_setup``'s axis features and a
   ``ChainPickup`` (``chain_operands``): one launch of the planar chain
   kernel (K2/K5, ``resample_planar_chain``), or, twined, of the twined
-  chain kernel (K3/K6, ``resample_twined_chain``), which computes the
-  ninepack's three rays, their pickups, the coordinate derivatives and,
-  for a source that does not cover every ray, each tap's validity. On
-  the TPU XLA fuses the JAX package's coordinate chain under ``jit``;
-  eager PyTorch would run it as a string of elementwise launches, each
-  a round trip of a full plane through device memory, which took most
-  of such a frame. A translated facet's generic chain
-  (``render.generic_r3``) has no kernel form: it takes the planes
-  forms, the coordinate pass as PyTorch operations (``coords``,
-  ``twined_coords``) and one launch of the planar kernel
-  (``resample_planar``) or of the planar twined kernel
-  (``resample_twined``), the latter with per-pixel tap weights (each
-  tap's own deflected validity). The JAX package splits a partial
-  twined frame into a core and an edge band to keep most tiles inside
-  the TPU's window budgets; here every pixel carries its own tap
-  validity, so one launch serves the frame.
+  chain kernel (K3/K6, ``resample_twined_chain``). On the TPU XLA fuses
+  the JAX package's coordinate chain under ``jit``; eager PyTorch would
+  run it as a string of elementwise launches, each a round trip of a
+  full plane through device memory, which took most of such a frame. A
+  translated facet's generic chain (``render.generic_r3``) has no kernel
+  form: it takes the planes forms, the coordinate pass as PyTorch
+  operations (``coords``, ``twined_coords``: the stepper's rays through
+  the generic chain, then the chain forms' own source half in
+  ops/resample, so the chain is written once) and one launch of the
+  planar kernel (``resample_planar``) or of the planar twined kernel
+  (``resample_twined``), the latter with per-pixel tap weights.
 
-Both kernel routes adapt channels and brighten after the taps are
+An untwined stitch of several facets (``multi_frame``) renders each
+facet into its slot of a pixel stack by one launch of those kernels,
+with a voronoi score plane per facet where the synopsis needs one, and
+combines the stacks in PyTorch (``models/synopsis``), as the JAX package
+combines its per-facet frames in XLA.
+
+The kernel routes adapt channels and brighten after the taps are
 summed, where the exact path does so per tap; the two agree unless the
 channel adaptation divides by alpha (2 -> 1, 2 -> 3, 4 -> 1, 4 -> 3
 channels), as in the JAX package's fast path.
 
-Multi-facet synopses, masking jobs and bf16 tables raise
+Twined stitches, masking jobs and bf16 tables raise
 ``NotImplementedError`` naming the slice that will cover them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
 import numpy as np
 import torch
 
-from ..core import geometry as geo
 from ..core.conventions import Projection
 from ..models import environment as E
 from ..models import stepper as ST
@@ -90,22 +92,27 @@ _INLINE_TARGETS = (Projection.RECTILINEAR, Projection.CUBEMAP,
 
 def uncovered(plan, sources):
     """Why the port has no kernel for the job yet (a message naming the
-    later slice), or None when ``fused_frame`` or ``planar_frame``
-    covers it."""
-    if len(sources) != 1:
-        return "multi-facet synopses wait for the multi-facet slice"
-    src = sources[0]
-    st = src.static
-    if st.kind not in ("mount", "cubemap"):
-        return f"{st.kind} sources wait for the masking slice"
-    if st.masked != -1:
-        return "masked (--mask_for) jobs wait for the masking slice"
-    if src.spl.degree > R.MAX_DEGREE:
-        return f"degree {src.spl.degree} exceeds the kernel's {R.MAX_DEGREE}"
-    if src.spl.coeff.dtype != torch.float32:
-        return "bf16 tables wait for a later slice"
-    if not 1 <= src.spl.coeff.shape[-1] <= 4:
-        return f"{src.spl.coeff.shape[-1]}-channel sources are not covered"
+    later slice), or None when ``fused_frame``, ``planar_frame`` or, for
+    several sources, ``multi_frame`` covers it."""
+    if not sources:
+        return "no source"
+    if len(sources) > 1 and plan.spread is not None:
+        return ("twined multi-facet stitches wait for the slice that "
+                "twines stitches (ROADMAP.md, Queue 1 item 3)")
+    for src in sources:
+        st = src.static
+        if st.kind not in ("mount", "cubemap"):
+            return f"{st.kind} sources wait for the masking slice"
+        if st.masked != -1:
+            return "masked (--mask_for) jobs wait for the masking slice"
+        if src.spl.degree > R.MAX_DEGREE:
+            return (f"degree {src.spl.degree} exceeds the kernel's "
+                    f"{R.MAX_DEGREE}")
+        if src.spl.coeff.dtype != torch.float32:
+            return "bf16 tables wait for a later slice"
+        if not 1 <= src.spl.coeff.shape[-1] <= 4:
+            return (f"{src.spl.coeff.shape[-1]}-channel sources are not "
+                    "covered")
     return None
 
 
@@ -312,10 +319,16 @@ def _frame_buffer(plan, src, out, device):
     return out
 
 
-def _finish(plan, src, out):
+def _finish(plan, src, out, slot=None):
+    """Adapt the launch's ``out`` (H, W, C_source) to the plan's channels
+    (repix), into ``slot`` (H, W, nchannels) when one is given, and
+    brighten in place; returns the image (``slot``, or ``out`` itself
+    when no channel adaptation applies)."""
     img = E.repix(out, plan.nchannels)
+    if slot is not None and img is not slot:
+        img = slot.copy_(img)
     if src.static.brighten != 1.0:
-        img = E.apply_brighten(img, src.static.brighten)
+        E.apply_brighten_(img, src.static.brighten)
     return img
 
 
@@ -328,12 +341,20 @@ def fused_frame(plan, src, out=None, device=None):
     steady-state 'reuse' contract: no zero-fill, no allocation);
     without it a fresh buffer is made. Returns the (H, W, nchannels)
     image tensor on the source's device, which is ``out`` itself when
-    no adaptation applies."""
+    no channel adaptation applies (the brighten is made in place)."""
     out = _frame_buffer(plan, src, out, device)
     if inline_mode(plan, src) is None:
         raise ValueError("the inline kernel does not cover this job "
                          "(partial or PTO source, generic chain, or a "
                          "stereographic/fisheye target): use planar_frame")
+    inline_launch(plan, src, out)
+    return _finish(plan, src, out)
+
+
+def inline_launch(plan, src, out):
+    """One launch of the inline kernel, or of the inline twined kernel
+    for a twined plan, over the plan's window into ``out``
+    (H, W, C_source)."""
     ops = frame_operands(plan, src)
     tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
     if plan.spread is None:
@@ -341,7 +362,6 @@ def fused_frame(plan, src, out=None, device=None):
     else:
         R.resample_inline_twined(out, src.spl.coeff, *tensors,
                                  ops.pop("spread"), **ops)
-    return _finish(plan, src, out)
 
 
 @functools.lru_cache(maxsize=16)
@@ -372,6 +392,13 @@ def _chain_pickup(st, core_shape, pad, bcs):
         period=float(core_shape[1]) if bcs[1] == S.PERIODIC else 0.0)
 
 
+def _pickup(src):
+    """The source's ``ops/resample.ChainPickup``."""
+    spl = src.spl
+    return _chain_pickup(src.static, tuple(spl.core_shape), spl.pad,
+                         tuple(spl.bcs))
+
+
 def chain_operands(plan, src):
     """The kernel operands of the planar kernels' chain forms for this
     plan and source: ``frame_operands``' features, matrices and, for a
@@ -380,35 +407,37 @@ def chain_operands(plan, src):
     kernel's ``consts`` and ``smode``; twined, ``tap_valid`` says whether
     each tap is tested against the source's window (a source that does
     not cover every ray)."""
-    spl = src.spl
     ops = frame_operands(plan, src)
     del ops["consts"], ops["smode"]
-    ops["pick"] = _chain_pickup(src.static, tuple(spl.core_shape), spl.pad,
-                                tuple(spl.bcs))
+    ops["pick"] = _pickup(src)
     if plan.spread is not None:
         ops["tap_valid"] = not _covers_every_ray(src)
     return ops
 
 
+def _generic_chain(plan):
+    """The plan's generic planar -> ray chain (a translated facet,
+    ``render.generic_r3``), the one case the coordinate passes serve."""
+    if plan.planar_to_ray[0] is None:
+        raise ValueError("the coordinate passes serve plans with a generic "
+                         "chain (translated facets); every other plan takes "
+                         "the chain forms")
+    return plan.planar_to_ray[0]
+
+
 def coords(plan, window, src):
-    """Padded spline coordinates (sx, sy) and the validity mask, each
-    (H, W) over ``window``: the counterpart of the JAX ``_coords`` for
-    the source itself (no forced-face, pitched or rolled variant). The
-    target rays come from the stepper (the plan's rotation or generic
-    chain), normalised, as the exact path makes them; then the
-    source's pickup, the spline gates and the brace pad. Where the mask
-    is False the coordinates may be non-finite (grazing or backward
+    """Padded spline coordinates (sx, sy), the validity mask and the z of
+    the normalised facet-CS ray, each (H, W) over ``window``, for a plan
+    with a generic chain: the stepper's rays through the chain, then the
+    chain forms' source half (``ops/resample.chain_coords``). Where the
+    mask is False the coordinates may be non-finite (grazing or backward
     rays of a partial facet); only the mask hides them."""
-    spl = src.spl
     ray = ST.target_rays(plan.projection, plan.width, plan.height,
-                         plan.extent, basis=plan.bases[0], normalize=True,
-                         planar_to_ray=plan.planar_to_ray[0],
-                         window=window, device=spl.coeff.device)
-    sx, sy, mask = E.source_spline_coords(src, ray)
-    h, w = spl.core_shape
-    sx = S.gate(sx, spl.bcs[1], w) + spl.pad
-    sy = S.gate(sy, spl.bcs[0], h) + spl.pad
-    return sx, sy, mask
+                         plan.extent, normalize=True,
+                         planar_to_ray=_generic_chain(plan), window=window,
+                         device=src.spl.coeff.device)
+    sx, sy, mask = R.chain_coords(_pickup(src), *ray)
+    return sx.contiguous(), sy.contiguous(), mask, ray[2]
 
 
 def _covers_every_ray(src):
@@ -420,66 +449,19 @@ def _covers_every_ray(src):
 
 
 def twined_coords(plan, window, src):
-    """Operands of the planar twined kernel over ``window``, as a dict:
-    the centre's padded spline coordinates ``sx``, ``sy`` (ungated, see
-    below), the coordinate derivative planes ``dux``, ``duy``,
-    ``dvx``, ``dvy``, ``tap_weights`` (K, H, W) uint8 or None, and
-    ``wrap_x`` or None.
-
-    The rays are the exact path's: the ninepack, differenced into
-    derivative rays (in the tangent plane under --twine_precise). The
-    coordinate derivatives are the source's coordinates at p0 + du and
-    p0 + dv less those at p0, taken so that they mean something
-    everywhere: for cubemap sources all three pickups use the centre
-    ray's cube face (past an edge the coordinates run on into the
-    section's support frame instead of jumping by a section); on a
-    horizontally periodic source the x derivatives are wrapped by the
-    period, and the kernel wraps each deflected x; a derivative that is
-    not finite (a neighbour behind a rectilinear source's plane) is 0.
-    The centre's coordinates are not gated: a centre outside a partial
-    facet may still have valid taps, which must be deflected from where
-    the centre is and not from its mirror image; the kernel wraps
-    (periodic axis) or clamps each tap's coordinates itself.
-    For sources that do not cover every ray, tap k's weight plane is
-    the validity of the ray p0 + cx_k du + cy_k dv, the mask the exact
-    path applies to that tap."""
-    spl, st = src.spl, src.static
-    pad, w = spl.pad, spl.core_shape[1]
-    p0, p10, p01 = ST.target_ninepack(
-        plan.projection, plan.width, plan.height, plan.extent,
-        basis=plan.bases[0], normalize=True,
-        planar_to_ray=plan.planar_to_ray[0], window=window,
-        device=spl.coeff.device)
-    du, dv = SYN.derivative_rays(p0, p10, p01, plan.twine_precise)
-    if plan.twine_precise:
-        p10 = tuple(a + b for a, b in zip(p0, du))
-        p01 = tuple(a + b for a, b in zip(p0, dv))
-
-    face = geo.ray_to_cubeface(*p0)[0] if st.kind == "cubemap" else None
-    x0, y0, _m = E.source_spline_coords(src, p0, face)
-    periodic = st.kind != "cubemap" and spl.bcs[1] == S.PERIODIC
-
-    def derivative(ray):
-        x, y, _m = E.source_spline_coords(src, ray, face)
-        dx, dy = x - x0, y - y0
-        if periodic:
-            dx = torch.remainder(dx + 0.5 * w, float(w)) - 0.5 * w
-        return (torch.nan_to_num(dx, 0.0, 0.0, 0.0).contiguous(),
-                torch.nan_to_num(dy, 0.0, 0.0, 0.0).contiguous())
-
-    dux, duy = derivative(p10)
-    dvx, dvy = derivative(p01)
-    sx, sy = x0 + pad, y0 + pad
-
-    tap_weights = None
-    if not _covers_every_ray(src):
-        tap_weights = torch.stack([
-            E.source_spline_coords(src, SYN.deflect(p0, du, dv, cx, cy))[2]
-            for cx, cy, _w in SYN.scaled_spread(plan.spread)]
-        ).to(torch.uint8)
-    return dict(sx=sx.contiguous(), sy=sy.contiguous(), dux=dux, duy=duy,
-                dvx=dvx, dvy=dvy, tap_weights=tap_weights,
-                wrap_x=(pad - 0.5, float(w)) if periodic else None)
+    """Operands of the planar twined kernel over ``window`` for a twined
+    plan with a generic chain, as the dict of
+    ``ops/resample.twined_ray_operands``: the stepper's ninepack through
+    the chain, then the twined chain's source half, with per-tap validity
+    planes for a source that does not cover every ray."""
+    device = src.spl.coeff.device
+    rays = ST.target_ninepack(plan.projection, plan.width, plan.height,
+                              plan.extent, normalize=True,
+                              planar_to_ray=_generic_chain(plan),
+                              window=window, device=device)
+    return R.twined_ray_operands(
+        *rays, _spread_tensor(plan.spread, device), pick=_pickup(src),
+        precise=plan.twine_precise, tap_valid=not _covers_every_ray(src))
 
 
 def planar_frame(plan, src, out=None, device=None):
@@ -498,32 +480,40 @@ def planar_frame(plan, src, out=None, device=None):
     ``where(mask, canvas, 0)``. ``out`` and the return value are as for
     ``fused_frame``."""
     out = _frame_buffer(plan, src, out, device)
-    if plan.planar_to_ray[0] is None:
-        chain_launch(plan, src, out)
-    else:
-        planes_launch(plan, src, out)
+    launch(plan, src, out, inline=False)
     return _finish(plan, src, out)
 
 
-def chain_launch(plan, src, out):
+def _untwined_score(plan, score):
+    if score is not None and plan.spread is not None:
+        raise ValueError("a score plane is for untwined frames")
+
+
+def chain_launch(plan, src, out, score=None):
     """One launch of a chain form over the plan's window into ``out``
     (H, W, C_source): the planar chain kernel, or the twined chain
-    kernel for a twined plan. The plan must have no generic chain."""
+    kernel for a twined plan. The plan must have no generic chain. With
+    ``score`` (H, W; untwined only) the planar chain kernel writes each
+    pixel's voronoi score there as well."""
+    _untwined_score(plan, score)
     ops = chain_operands(plan, src)
     tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
     if plan.spread is None:
-        R.resample_planar_chain(out, src.spl.coeff, *tensors, **ops)
+        R.resample_planar_chain(out, src.spl.coeff, *tensors, score=score,
+                                recip_step=src.static.recip_step, **ops)
     else:
         R.resample_twined_chain(out, src.spl.coeff, *tensors,
                                 ops.pop("spread"), **ops)
 
 
-def planes_launch(plan, src, out):
+def planes_launch(plan, src, out, score=None):
     """The PyTorch coordinate pass and one launch of a planes form over
     the plan's window into ``out`` (H, W, C_source): ``coords`` and the
     planar kernel (over a zero fill through the validity mask unless the
     source is a cubemap), or ``twined_coords`` and the planar twined
-    kernel for a twined plan."""
+    kernel for a twined plan. With ``score`` (H, W; untwined only) the
+    voronoi score of the pass's rays is written there."""
+    _untwined_score(plan, score)
     coeff, degree = src.spl.coeff, src.spl.degree
     if plan.spread is not None:
         ops = twined_coords(plan, frame_window(plan), src)
@@ -533,7 +523,9 @@ def planes_launch(plan, src, out):
             n_taps=len(plan.spread), tap_weights=ops["tap_weights"],
             wrap_x=ops["wrap_x"])
         return
-    sx, sy, mask = coords(plan, frame_window(plan), src)
+    sx, sy, mask, z = coords(plan, frame_window(plan), src)
+    if score is not None:
+        score.copy_(SYN.facet_score(z, mask, src.static.recip_step))
     if src.static.kind == "cubemap":
         R.resample_planar(out, coeff, sx, sy, degree=degree)
     else:
@@ -542,28 +534,117 @@ def planes_launch(plan, src, out):
                           merge_mask=mask.to(torch.float32))
 
 
+@functools.lru_cache(maxsize=16)
+def facet_plans(plan):
+    """One single-facet plan per facet of a stitch, each with that
+    facet's basis or generic chain (cached per plan, so that each keeps
+    its cached kernel operands from frame to frame)."""
+    return tuple(dataclasses.replace(plan, facet_indices=(i,), bases=(b,),
+                                     planar_to_ray=(p,))
+                 for i, b, p in zip(plan.facet_indices, plan.bases,
+                                    plan.planar_to_ray))
+
+
+def launch(plan, src, out, score=None, inline=True):
+    """One kernel launch over the plan's window into ``out``
+    (H, W, C_source), the one place where a facet's route is chosen: a
+    generic chain (a translated facet) takes ``planes_launch``; any
+    other plan the inline kernel where ``inline_mode`` allows it (unless
+    ``inline`` is False or a ``score`` is asked for: the inline kernel
+    writes none), else ``chain_launch``. With ``score`` (H, W; untwined
+    only) the facet's voronoi score is written there too. Returns the
+    kernel's name."""
+    form = "twined" if plan.spread is not None else "planar"
+    if plan.planar_to_ray[0] is not None:
+        planes_launch(plan, src, out, score)
+        return f"resample_{form} after the coordinate pass"
+    if inline and score is None and inline_mode(plan, src) is not None:
+        inline_launch(plan, src, out)
+        return "resample_inline" + ("_twined" if form == "twined" else "")
+    chain_launch(plan, src, out, score)
+    return f"resample_{form}_chain"
+
+
+def facet_into(plan, src, slot, score=None):
+    """Render one facet of an untwined stitch (``plan`` is its entry of
+    ``facet_plans``) into ``slot`` (H, W, nchannels), what the exact
+    path's ``environment.lookup`` gives for it: one ``launch`` (with
+    ``score`` (H, W), the voronoi route, which writes the facet's score;
+    without it, hdr_merge's, the route a single-facet frame takes), then
+    the channel adaptation and brighten (``_finish``). Returns the
+    kernel's name."""
+    nch = src.spl.coeff.shape[-1]
+    out = slot if nch == slot.shape[-1] else torch.empty(
+        slot.shape[:2] + (nch,), dtype=torch.float32, device=slot.device)
+    what = launch(plan, src, out, score)
+    _finish(plan, src, out, slot)
+    return what
+
+
+def multi_frame(plan, sources, device=None, log=None):
+    """Render an untwined stitch of several sources: the counterpart of
+    the JAX ``fused_multi_frame`` followed by ``_combine_stack``. One
+    pixel stack (F, H, W, nchannels) and, for voronoi and voronoi_plus,
+    one score stack (F, H, W) are allocated per frame; each facet is
+    rendered into its slot by one kernel launch (``facet_into``); the
+    synopsis of the stacks (``models/synopsis``: ``voronoi_stack``,
+    ``voronoi_plus_stack`` or ``hdr_merge_stack``) gives the frame.
+    Returns the (H, W, nchannels) image tensor on the sources' device;
+    ``log``, a list, receives each facet's kernel name."""
+    reason = uncovered(plan, sources)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    dev = sources[0].spl.coeff.device
+    if any(s.spl.coeff.device != dev for s in sources) or (
+            device is not None and torch.device(device) != dev):
+        raise ValueError("the sources must live on one device, the "
+                         "render's")
+    syn = SYN.pick_synopsis(plan.synopsis, plan.nchannels)
+    y0, y1, x0, x1 = frame_window(plan)
+    shape = (len(sources), y1 - y0, x1 - x0)
+    stack = torch.empty(shape + (plan.nchannels,), dtype=torch.float32,
+                        device=dev)
+    score = None if syn is SYN.hdr_merge else torch.empty(
+        shape, dtype=torch.float32, device=dev)
+    for fi, (fplan, src) in enumerate(zip(facet_plans(plan), sources)):
+        what = facet_into(fplan, src, stack[fi],
+                          None if score is None else score[fi])
+        if log is not None:
+            log.append(what)
+    if score is None:
+        return SYN.hdr_merge_stack(list(stack),
+                                   [s.static.brighten for s in sources],
+                                   plan.nchannels)
+    combine = SYN.voronoi_stack if syn is SYN.voronoi \
+        else SYN.voronoi_plus_stack
+    return combine(stack, None, score)
+
+
 def render_fast(plan, sources, verbose: bool = False) -> np.ndarray:
     """The CUDA render path of ``render.render_frame``: one frame
-    through ``fused_frame`` or ``planar_frame``, returned as a host
-    (H, W, C) float32 array. Raises ``NotImplementedError`` for jobs
-    the port does not cover yet."""
+    through one ``launch`` (the route ``fused_frame`` or ``planar_frame``
+    takes), or for several sources ``multi_frame``, returned as a host (H, W, C) float32 array. Raises
+    ``NotImplementedError`` for jobs the port does not cover yet."""
     reason = uncovered(plan, sources)
     if reason is not None:
         raise NotImplementedError(
             f"no CUDA kernel for this job yet: {reason}")
+    if len(sources) > 1:
+        log = []
+        img = multi_frame(plan, sources, log=log)
+        if verbose:
+            for fi, what in enumerate(log):
+                print(f"fastpath: facet {fi}: 1 launch of {what}")
+            print(f"fastpath: {plan.synopsis} of {len(log)} facets over "
+                  f"{img.shape[0]}x{img.shape[1]} px")
+        return img.cpu().numpy()
     src = sources[0]
-    mode = inline_mode(plan, src)
-    twined = plan.spread is not None
-    if mode is not None:
-        img = fused_frame(plan, src)
-        what = f"resample_inline{'_twined' if twined else ''} (smode {mode})"
-    else:
-        img = planar_frame(plan, src)
-        what = f"resample_{'twined' if twined else 'planar'}" + (
-            "_chain" if plan.planar_to_ray[0] is None
-            else " after the coordinate pass")
+    out = _frame_buffer(plan, src, None, None)
+    what = launch(plan, src, out)
+    img = _finish(plan, src, out)
     if verbose:
-        taps = f", {len(plan.spread)} taps" if twined else ""
+        taps = f", {len(plan.spread)} taps" if plan.spread is not None \
+            else ""
         print(f"fastpath: 1 launch of {what} over "
               f"{img.shape[0]}x{img.shape[1]} px{taps}")
     return img.cpu().numpy()

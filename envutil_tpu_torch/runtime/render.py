@@ -5,20 +5,23 @@ dispatch/roll_out/fuse stack, envutil_payload.cc:1885-2435). A plan
 holds the target geometry and one camera-to-facet basis per facet;
 ``render_frame`` runs it
 
-* on CUDA through one launch of an inline-coordinates kernel or,
-  after a coordinate pass, of a planar kernel (runtime/fastpath.py),
-  each with its twined form, raising ``NotImplementedError`` for jobs
-  the port has no kernel for yet - the plain path never stands in for
-  a kernel on the card;
-* on the CPU through the exact path: target rays (models/stepper),
-  ``environment.lookup`` and ``spline.eval_spline``, in row chunks;
-  under twining the three ray grids of the ninepack and
-  ``synopsis.twined``, each tap masked by its own deflected validity.
+* on CUDA through one launch of an inline-coordinates kernel or of a
+  planar kernel (runtime/fastpath.py), each with its twined form, and
+  for an untwined stitch one such launch per facet and the synopsis of
+  their stacks, raising ``NotImplementedError`` for jobs the port has
+  no kernel for yet - the plain path never stands in for a kernel on
+  the card;
+* on the CPU through the exact path: target rays per facet
+  (models/stepper), ``environment.lookup`` and ``spline.eval_spline``,
+  then the synopsis (models/synopsis: voronoi, voronoi_plus,
+  hdr_merge), in row chunks; under twining the three ray grids of the
+  ninepack and ``synopsis.twined``, each tap masked by its own
+  deflected validity.
 
 Translated facets use the 'generic' transform chain (generic_r3 /
 tf_ex_facet, envutil_payload.cc:1629-1883) instead of a plain
 rotation. ``--single`` re-creations of a lens-corrected facet (the
-inverse lens LUT) and multi-facet synopses wait for later slices.
+inverse lens LUT) wait for a later slice.
 """
 
 from __future__ import annotations
@@ -113,11 +116,11 @@ def tf_ex_facet(ft: Facet, fs: Facet) -> Callable:
     """planar (target model space) -> ray in the source facet's CS
     (tf_ex_facet, envutil_payload.cc:1841-1883). Returns fn(px, py) ->
     ray. A lens-corrected *target* (a --single re-creation) needs the
-    inverse lens LUT, which waits for the multi-facet slice."""
+    inverse lens LUT, which waits for the PTO slice."""
     if ft.has_2d_tf:
         raise NotImplementedError(
             "a lens-corrected target (--single) needs the inverse lens "
-            "LUT, which waits for the multi-facet slice of the PyTorch "
+            "LUT, which waits for the PTO slice of the PyTorch "
             "port")
     tf33 = generic_r3(ft, fs)
     tf23 = geo.to_ray(ft.projection,
@@ -160,7 +163,7 @@ def build_plan(args, facets: Sequence[Facet]) -> RenderPlan:
         if fct.has_2d_tf or fct.has_translation:
             raise NotImplementedError(
                 "--single with lens/translation transforms waits, with "
-                "--single/--split, for the multi-facet slice of the "
+                "--single/--split, for the PTO slice of the "
                 "PyTorch port")
 
     indices = [args.solo] if args.solo >= 0 else list(range(len(facets)))
@@ -203,22 +206,21 @@ def _solo(sources, rays, nch):
 
 def _render_window(plan: RenderPlan, sources: List[E.FacetSource],
                    window) -> torch.Tensor:
-    """Exact render of one output window (single facet, with or without
-    twining) on the sources' device."""
-    if len(sources) != 1:
-        raise NotImplementedError(
-            "multi-facet synopses wait for the multi-facet slice of the "
-            "PyTorch port")
-    geometry = dict(basis=plan.bases[0], normalize=True,
-                    planar_to_ray=plan.planar_to_ray[0], window=window,
-                    device=sources[0].spl.coeff.device)
+    """Exact render of one output window on the sources' device: rays
+    per facet, then the synopsis (one facet: its lookup), under twining
+    through ``synopsis.twined``."""
+    syn = _solo if len(sources) == 1 else \
+        SYN.pick_synopsis(plan.synopsis, plan.nchannels)
+    geometry = [dict(basis=b, normalize=True, planar_to_ray=p, window=window,
+                     device=src.spl.coeff.device)
+                for b, p, src in zip(plan.bases, plan.planar_to_ray, sources)]
     if plan.spread is None:
-        ray = ST.target_rays(plan.projection, plan.width, plan.height,
-                             plan.extent, **geometry)
-        return _solo(sources, [ray], plan.nchannels)
-    pack = ST.target_ninepack(plan.projection, plan.width, plan.height,
-                              plan.extent, **geometry)
-    return SYN.twined(_solo, sources, [pack], plan.nchannels, plan.spread,
+        rays = [ST.target_rays(plan.projection, plan.width, plan.height,
+                               plan.extent, **g) for g in geometry]
+        return syn(sources, rays, plan.nchannels)
+    packs = [ST.target_ninepack(plan.projection, plan.width, plan.height,
+                                plan.extent, **g) for g in geometry]
+    return SYN.twined(syn, sources, packs, plan.nchannels, plan.spread,
                       precise=plan.twine_precise)
 
 

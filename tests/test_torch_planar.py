@@ -1,6 +1,7 @@
 """The port's planar-coordinates resampler (``resample_planar``, the
 counterpart of the JAX kernels resample_planar_into and resample_planar)
-and its render route (``fastpath.coords`` + ``planar_frame``) against
+and its render routes (``planar_frame``: the chain form, or
+``fastpath.coords`` and the planes form for a translated facet) against
 the JAX package, on the CPU.
 
 The kernel's plain version is held against the JAX kernels in
@@ -220,17 +221,30 @@ def facet_job(request):
 
 
 def test_coords_match_jax_coords(facet_job):
-    """``fastpath.coords`` against the JAX ``_coords`` ("orig"): the same
-    validity mask and, where it holds, the same padded coordinates."""
+    """The port's coordinates against the JAX ``_coords`` ("orig"): the
+    same validity mask and, where it holds, the same padded coordinates.
+    The translated facet's come from ``fastpath.coords`` (its generic
+    chain), the lens facet's from the planar chain form's plain chain
+    (``planar_chain_coords``); for the translated facet the z of the
+    facet-CS ray as well."""
     jplan, tplan = facet_job["jplan"], facet_job["tplan"]
     h, w = facet_job["shape"]
     window = (0, h, 0, w)
-    if facet_job["kind"] == "translated":
-        assert tplan.bases[0] is None and tplan.planar_to_ray[0] is not None
-    jsx, jsy, jmask, _z = JFP._coords(JFP._geom_static(jplan), window,
+    jsx, jsy, jmask, jz = JFP._coords(JFP._geom_static(jplan), window,
                                       "orig", facet_job["jsrc"], 0,
                                       (0.0, 0.0), JFP._basis_arg(jplan, 0))
-    sx, sy, mask = FP.coords(tplan, window, facet_job["tsrc"])
+    if facet_job["kind"] == "translated":
+        assert tplan.bases[0] is None and tplan.planar_to_ray[0] is not None
+        sx, sy, mask, z = FP.coords(tplan, window, facet_job["tsrc"])
+        np.testing.assert_allclose(z.numpy()[np.asarray(jmask)],
+                                   np.asarray(jz)[np.asarray(jmask)],
+                                   rtol=0, atol=1e-6)
+    else:
+        assert tplan.planar_to_ray[0] is None
+        ops = FP.chain_operands(tplan, facet_job["tsrc"])
+        sx, sy, mask = R.planar_chain_coords(
+            ops["xfeat"], ops["yfeat"], ops["bmats"], tmode=ops["tmode"],
+            pick=ops["pick"], row0=ops["row0"], face_rows=ops["face_rows"])
     jmask = np.asarray(jmask)
     np.testing.assert_array_equal(mask.numpy(), jmask)
     assert 0.02 < jmask.mean() < 0.98, "the facet covers part of the view"

@@ -1,10 +1,11 @@
 """The chain forms of the port's planar kernels (``resample_planar_chain``,
 ``resample_twined_chain``): the coordinate chain that each computes per
-pixel, run as its plain version on the CPU, against the PyTorch
-coordinate passes that the planes forms take (``fastpath.coords``,
-``fastpath.twined_coords``) and against the JAX ``_coords``; and
-``planar_frame`` through the chain forms against the JAX
-``render_frame``.
+pixel, run as its plain version on the CPU, against the exact path's
+coordinates of the same rays (the stepper's rays and
+``environment.source_spline_coords``, computed here as the planes forms'
+coordinate pass computed them for every plan) and against the JAX
+``_coords``; and ``planar_frame`` through the chain forms against the
+JAX ``render_frame``.
 
 Every table is built by the JAX package and carried over as numpy
 (``source_from_arrays``), so a comparison of frames is not also one of
@@ -51,11 +52,13 @@ from envutil_tpu.models import environment as JE
 from envutil_tpu.runtime import fastpath as JFP
 from envutil_tpu.runtime.render import build_plan as jbuild_plan
 from envutil_tpu.runtime.render import render_frame as jrender_frame
+from envutil_tpu_torch.core import geometry as geo
 from envutil_tpu_torch.core.conventions import Projection as TP
 from envutil_tpu_torch.models import environment as TE
 from envutil_tpu_torch.models import stepper as ST
 from envutil_tpu_torch.models import synopsis as SYN
 from envutil_tpu_torch.ops import resample as R
+from envutil_tpu_torch.ops import spline as S
 from envutil_tpu_torch.runtime import fastpath as FP
 from envutil_tpu_torch.runtime.render import build_plan
 
@@ -170,11 +173,76 @@ def _exact_rays(plan, window, bias=(0.0, 0.0)):
                           window=window)
 
 
+def _exact_coords(plan, window, src):
+    """The exact path's padded, gated coordinates and validity of the
+    plan's rays: the stepper's rays, ``source_spline_coords``, the gates
+    and the pad."""
+    spl = src.spl
+    sx, sy, mask = TE.source_spline_coords(src, _exact_rays(plan, window))
+    h, w = spl.core_shape
+    return (S.gate(sx, spl.bcs[1], w) + spl.pad,
+            S.gate(sy, spl.bcs[0], h) + spl.pad, mask)
+
+
+def _exact_twined_operands(plan, window, src):
+    """The twined planes form's operands from the exact path's rays and
+    pickups: the stepper's ninepack and derivative rays; an IR source's
+    three pickups in the centre ray's face (past its edge they run on
+    into the section's support frame); x derivatives wrapped by a
+    periodic source's width; non-finite derivatives 0; the ungated,
+    padded centre; for a source that does not cover every ray, each
+    tap's deflected validity."""
+    spl, st = src.spl, src.static
+    pad, w = spl.pad, spl.core_shape[1]
+    p0, p10, p01 = ST.target_ninepack(
+        plan.projection, plan.width, plan.height, plan.extent,
+        basis=plan.bases[0], window=window)
+    du, dv = SYN.derivative_rays(p0, p10, p01, plan.twine_precise)
+    if plan.twine_precise:
+        p10 = tuple(a + b for a, b in zip(p0, du))
+        p01 = tuple(a + b for a, b in zip(p0, dv))
+    if st.kind == "cubemap":
+        face = geo.ray_to_cubeface(*p0)[0]
+
+        def pickup(ray):
+            fx, fy = geo.ray_to_cubeface_fixed(*ray, face)
+            if st.projection == TP.BIATAN6:
+                fx = (4.0 / math.pi) * torch.atan(fx)
+                fy = (4.0 / math.pi) * torch.atan(fy)
+            return st.metrics.get_pickup_coordinate_px(face, fx, fy)
+    else:
+        def pickup(ray):
+            return TE.source_spline_coords(src, ray)[:2]
+    x0, y0 = pickup(p0)
+    periodic = st.kind != "cubemap" and spl.bcs[1] == S.PERIODIC
+
+    def derivative(ray):
+        x, y = pickup(ray)
+        dx, dy = x - x0, y - y0
+        if periodic:
+            dx = torch.remainder(dx + 0.5 * w, float(w)) - 0.5 * w
+        return (torch.nan_to_num(dx, 0.0, 0.0, 0.0),
+                torch.nan_to_num(dy, 0.0, 0.0, 0.0))
+
+    dux, duy = derivative(p10)
+    dvx, dvy = derivative(p01)
+    tap_weights = None
+    if not FP._covers_every_ray(src):
+        tap_weights = torch.stack([
+            TE.source_spline_coords(src, SYN.deflect(p0, du, dv, cx, cy))[2]
+            for cx, cy, _w in SYN.scaled_spread(plan.spread)]
+        ).to(torch.uint8)
+    return dict(sx=x0 + pad, sy=y0 + pad, dux=dux, duy=duy, dvx=dvx,
+                dvy=dvy, tap_weights=tap_weights,
+                wrap_x=(pad - 0.5, float(w)) if periodic else None)
+
+
 @pytest.mark.parametrize("case", sorted(COORD_CASES))
 def test_chain_coords_match_coords_and_jax(case):
     """The planar chain's coordinates and validity (``planar_chain_coords``
-    from ``chain_operands``) against ``fastpath.coords`` and the JAX
-    ``_coords``, as ``test_coords_match_jax_coords`` runs it."""
+    from ``chain_operands``) against the exact path's coordinates of the
+    stepper's rays and against the JAX ``_coords``, as
+    ``test_coords_match_jax_coords`` runs it."""
     source, target = COORD_CASES[case]
     jsrc, tsrc, jplan, tplan = _job(source, target)
     h, w = tplan.height, tplan.width
@@ -184,7 +252,7 @@ def test_chain_coords_match_coords_and_jax(case):
     sx, sy, mask = R.planar_chain_coords(
         ops["xfeat"], ops["yfeat"], ops["bmats"], tmode=ops["tmode"],
         pick=pick, row0=ops["row0"], face_rows=ops["face_rows"])
-    psx, psy, pmask = FP.coords(tplan, window, tsrc)
+    psx, psy, pmask = _exact_coords(tplan, window, tsrc)
     jsx, jsy, jmask, _z = JFP._coords(JFP._geom_static(jplan), window,
                                       "orig", jsrc, 0, (0.0, 0.0),
                                       JFP._basis_arg(jplan, 0))
@@ -193,7 +261,7 @@ def test_chain_coords_match_coords_and_jax(case):
     ray = _exact_rays(tplan, window)
     edge = _near_face_edge(ray) if pick.smode != "mount" \
         else _near_window_edge(pick, ray)
-    for name, (ox, oy, om) in (("coords", (psx, psy, pmask)),
+    for name, (ox, oy, om) in (("the exact path", (psx, psy, pmask)),
                                ("JAX _coords", (jsx, jsy, jmask))):
         differ = mask != om
         assert not bool((differ & ~edge).any()), \
@@ -228,10 +296,11 @@ TWINED_CASES = {
 def test_twined_chain_operands_match_twined_coords(case):
     """Every operand the twined chain computes per pixel
     (``twined_chain_operands``: centre coordinates, coordinate
-    derivatives, per-tap validity, wrap) against ``fastpath.twined_coords``
-    (forced-face pickups of a cubemap source, the periodic wrap of a full
-    sphere under --twine_precise, the tap validity of a lens-corrected
-    partial facet, none for a full fisheye)."""
+    derivatives, per-tap validity, wrap) against the same operands from
+    the exact path's rays and pickups (forced-face pickups of a cubemap
+    source, the periodic wrap of a full sphere under --twine_precise, the
+    tap validity of a lens-corrected partial facet, none for a full
+    fisheye)."""
     source, target, spread, precise = TWINED_CASES[case]
     _jsrc, tsrc, _jplan, tplan = _job(source, target, spread=spread,
                                       precise=precise)
@@ -243,7 +312,7 @@ def test_twined_chain_operands_match_twined_coords(case):
         tmode=ops["tmode"], pick=ops["pick"], row0=ops["row0"],
         face_rows=ops["face_rows"], precise=precise,
         tap_valid=ops["tap_valid"])
-    want = FP.twined_coords(tplan, window, tsrc)
+    want = _exact_twined_operands(tplan, window, tsrc)
     assert got["wrap_x"] == want["wrap_x"]
     assert (got["tap_weights"] is None) == (want["tap_weights"] is None) \
         == (source in ("biatan6", "sphere") or case.startswith("fullfish"))

@@ -119,11 +119,13 @@ def test_render_matches_jax_and_oracle(env, oracle_sources, name, proj, w,
 
 def test_uncovered_jobs_raise(env):
     """No plain path stands in for a kernel: jobs the port has no kernel
-    for (multi-facet synopses, bf16 tables, --mask_for paint) raise
+    for (twined stitches, bf16 tables, --mask_for paint) raise
     NotImplementedError naming the later slice. A twined single-facet
     job is covered: a one-tap spread at the pixel centre renders what
     the untwined job renders, on the exact path and on the kernel
-    route."""
+    route. So is an untwined stitch, on the kernel route
+    (``render_fast`` runs the kernels' plain versions on CPU tensors);
+    a twined stitch renders on the exact path only."""
     tf = port_facet(TP.SPHERICAL, 256, 128, 2 * math.pi)
     src = TE.make_mount_source(tf, env, 3, 3, device="cpu")
     twined = build_plan(port_args(TP.RECTILINEAR, 32, 32, 60.0, [tf], 3,
@@ -137,11 +139,26 @@ def test_uncovered_jobs_raise(env):
     np.testing.assert_allclose(
         FP.fused_frame(twined, src, device="cpu").numpy(), want, rtol=0,
         atol=JAX_TOL)
-    with pytest.raises(NotImplementedError, match="multi-facet"):
-        render_frame(twined, [src, src], device="cpu")
+    tf2 = port_facet(TP.SPHERICAL, 256, 128, 2 * math.pi)
+    tf2.yaw = math.radians(90.0)
+    tf2.process_geometry()
+
+    def stitch(spread=None):
+        a = port_args(TP.RECTILINEAR, 32, 32, 60.0, [tf, tf2], 3,
+                      twine_spread=spread)
+        a.solo = -1
+        return build_plan(a, [tf, tf2])
+    untwined, twined2 = stitch(), stitch([[0.0, 0.0, 1.0]])
+    assert FP.uncovered(untwined, [src, src]) is None
+    want = render_frame(untwined, [src, src], device="cpu")
+    np.testing.assert_allclose(FP.render_fast(untwined, [src, src]), want,
+                               rtol=0, atol=JAX_TOL)
+    np.testing.assert_allclose(render_frame(twined2, [src, src],
+                                            device="cpu"),
+                               want, rtol=0, atol=JAX_TOL)
+    with pytest.raises(NotImplementedError, match="twined multi-facet"):
+        FP.render_fast(twined2, [src, src])
     plan = build_plan(port_args(TP.FISHEYE, 32, 32, 120.0, [tf], 3), [tf])
-    with pytest.raises(NotImplementedError, match="multi-facet"):
-        FP.render_fast(plan, [src, src])
     bf16 = TE.FacetSource(static=src.static, spl=dataclasses.replace(
         src.spl, coeff=src.spl.coeff.to(torch.bfloat16)))
     with pytest.raises(NotImplementedError, match="bf16"):

@@ -219,6 +219,20 @@ def test_twined_cubemap_source_matches_jax(env):
                                atol=INLINE_ROUTE_TOL)
 
 
+def _twined_operands(plan, src):
+    """The planar twined kernel's operands of a twined plan over its
+    frame: ``fastpath.twined_coords`` for a generic chain (a translated
+    facet), the twined chain form's plain operands otherwise."""
+    if plan.planar_to_ray[0] is not None:
+        return FP.twined_coords(plan, FP.frame_window(plan), src)
+    ops = FP.chain_operands(plan, src)
+    return R.twined_chain_operands(
+        ops["xfeat"], ops["yfeat"], ops["bmats"], ops["spread"],
+        tmode=ops["tmode"], pick=ops["pick"], row0=ops["row0"],
+        face_rows=ops["face_rows"], precise=ops["precise"],
+        tap_valid=ops["tap_valid"])
+
+
 @pytest.fixture(scope="module", params=["lens", "translated"])
 def facet_job(request):
     """A partial lens-corrected facet and a translated facet (the
@@ -247,7 +261,7 @@ def test_twined_facet_matches_jax_and_route(facet_job):
     covered = (got != 0).any(axis=-1).mean()
     assert 0.02 < covered < 0.98, "the facet covers part of the view"
 
-    ops = FP.twined_coords(plan, FP.frame_window(plan), src)
+    ops = _twined_operands(plan, src)
     count = ops["tap_weights"].sum(dim=0)
     assert ops["tap_weights"].dtype == torch.uint8 and ops["wrap_x"] is None
     assert int(((count > 0) & (count < 9)).sum()) > 0, \
@@ -546,7 +560,7 @@ def test_planar_twined_cubemap_route_matches_exact_path(env):
         port_args, TP.STEREOGRAPHIC, 96, 64, 150.0, [tc], 3, 25.0, -15.0,
         10.0, spread=BOX2, precise=False), [tc])
     want = render_frame(plan, [tsrc], device="cpu")
-    ops = FP.twined_coords(plan, FP.frame_window(plan), tsrc)
+    ops = _twined_operands(plan, tsrc)
     assert ops["tap_weights"] is None and ops["wrap_x"] is None
     # the derivative planes never jump by a section of the IR
     for k in ("dux", "duy", "dvx", "dvy"):
@@ -571,7 +585,7 @@ def test_planar_twined_full_sphere_route(env):
         port_args, TP.STEREOGRAPHIC, 64, 48, 200.0, [tf], 3, 170.0, 60.0,
         0.0, spread=BOX2, precise=False), [tf])
     want = render_frame(plan, [src], device="cpu")
-    ops = FP.twined_coords(plan, FP.frame_window(plan), src)
+    ops = _twined_operands(plan, src)
     assert ops["tap_weights"] is None and ops["wrap_x"] == (src.spl.pad - 0.5,
                                                            256.0)
     assert float(ops["dux"].abs().max()) <= 128.0
