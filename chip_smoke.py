@@ -44,6 +44,18 @@ The planar chain kernel's score output is held against its plain
 version over every small chain case, with the pixels required bit-equal
 to the launch without it.
 
+bf16 tables (--coeff bf16): every small phase runs its cases again on
+bfloat16 tables (each kernel against its plain version on the same
+table, the inline kernel's two branches bit-equal), and the main path,
+config 3 (the planar chain kernel), config 3 twined (the twined chain
+kernel), the translated facet untwined and twined (the planes forms),
+config 5 (a stitch) and config 4b (the 16384x8192 equirect's bf16
+table, 0.81 GB, through the inline twined kernel with 16 taps, held to
+40 dB against its float32 frame) render at full size on bf16 tables,
+each against the exact path on the same table. A degree-9 job (config
+3's view at a reduced size) renders through the exact-path route on the
+card and is held against the CPU's exact path.
+
 The inline kernel (resample_inline) stages each block's source window
 in shared memory and gathers from global memory where a window does not
 fit; every comparison of it with its plain version runs both branches
@@ -137,6 +149,16 @@ REGION_DEG = 1.0
 # one launch takes both branches
 SMALL_BUDGET = 4096
 
+# a bf16 frame against the float32 frame of the same job: the JAX
+# package's bar for --coeff bf16 (tests/test_modes.py)
+BF16_DB = 40.0
+# the card's exact-path route against the CPU's exact path: the same
+# float32 formulas, but the card's atan2/sqrt/division and PyTorch's CPU
+# kernels may differ by an ulp, which moves coordinates by ~1e-5 px
+# (times the noise's gradient), and sums in another order; an indexing
+# or weighting fault shows as O(0.1..1)
+EXACT_BOUND = 1e-3
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 
@@ -175,6 +197,57 @@ def events_ms(fn, reps):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def with_coeff(src, coeff_dtype):
+    """``src`` with its table in the storage dtype ``coeff_dtype`` ("f32"
+    or "bf16"), rounded from its float32 build as the loader rounds it
+    (ops/spline.storage_spline)."""
+    import dataclasses
+    from envutil_tpu_torch.ops import spline as S
+    return dataclasses.replace(src, spl=S.storage_spline(src.spl,
+                                                         coeff_dtype))
+
+
+def psnr(a, b):
+    """PSNR in dB of two host frames with values in [0, 1]."""
+    mse = float(np.mean((np.asarray(a, np.float64)
+                         - np.asarray(b, np.float64)) ** 2))
+    return 10 * math.log10(1.0 / mse) if mse > 0 else 999.0
+
+
+def dtype_turns(name, launch, burst=20):
+    """One kernel of a path on its float32 and its bf16 table, timed in
+    turns (f32, bf16, bf16, f32): ``launch(coeff_dtype)`` launches it
+    once. Each turn times single launches between two events (median of
+    20), which holds the wrapper's host time, and bursts of ``burst``
+    launches between two events (median of 5, per launch), which hides
+    it. Returns {dtype: {"ms": ..., "burst_ms": ...}}, each the mean of
+    its two turns."""
+    for _ in range(3):
+        launch("f32")
+        launch("bf16")
+    single = {"f32": [], "bf16": []}
+    bursts = {"f32": [], "bf16": []}
+    for d in ("f32", "bf16", "bf16", "f32"):
+        single[d].append(events_ms(lambda: launch(d), 20))
+
+        def many():
+            for _ in range(burst):
+                launch(d)
+        bursts[d].append(events_ms(many, 5) / burst)
+    out = {d: dict(ms=float(np.mean(single[d])),
+                   burst_ms=float(np.mean(bursts[d]))) for d in single}
+    print(f"{name}: float32 and bf16 tables in turns (f32, bf16, bf16, f32):"
+          f" single launches {single['f32'][0]:.4f}, {single['bf16'][0]:.4f},"
+          f" {single['bf16'][1]:.4f}, {single['f32'][1]:.4f} ms; bursts of "
+          f"{burst}, per launch {bursts['f32'][0]:.4f}, "
+          f"{bursts['bf16'][0]:.4f}, {bursts['bf16'][1]:.4f}, "
+          f"{bursts['f32'][1]:.4f} ms; bf16 / f32: single "
+          f"{out['bf16']['ms'] / out['f32']['ms']:.3f}, burst "
+          f"{out['bf16']['burst_ms'] / out['f32']['burst_ms']:.3f}; "
+          f"clocks/power/temp after: {smi_now()}", flush=True)
+    return out
 
 
 def make_facet(projection, w, h, hfov, **kw):
@@ -314,7 +387,8 @@ def window_model_text(coeff, degree, sx, sy):
     from envutil_tpu_torch.ops import resample as R
     tile = R.TILE_INLINE
     win = R.window_model(sx, sy, degree=degree,
-                         table_shape=tuple(coeff.shape))
+                         table_shape=tuple(coeff.shape),
+                         entry_bytes=coeff.element_size())
     staged = win["staged"]
     px = R.block_to_pixels(staged, tile, *sx.shape)
     touched = touched_bytes(coeff, sx[px], sy[px], degree)
@@ -329,12 +403,13 @@ def window_model_text(coeff, degree, sx, sy):
             f"(mean window {mean_kb:.1f} KB)")
 
 
-def phase_small_inline():
+def phase_small_inline(coeff_dtype="f32"):
     """Inline kernel, on both its branches, against plain version at
-    small shapes: degrees x channel counts on full-spherical mounts
-    (cubemap target) and on cubemap and biatan6 IR sources (every target
-    mode, across cube-face edges), every target mode on a mount, and the
-    cases that force the blocks a staged window cannot hold."""
+    small shapes, on tables of ``coeff_dtype``: degrees x channel counts
+    on full-spherical mounts (cubemap target) and on cubemap and biatan6
+    IR sources (every target mode, across cube-face edges), every target
+    mode on a mount, and the cases that force the blocks a staged window
+    cannot hold."""
     from envutil_tpu_torch.core.conventions import Projection as P
     from envutil_tpu_torch.models import cubemap as CBM
     from envutil_tpu_torch.models import environment as E
@@ -364,10 +439,12 @@ def phase_small_inline():
               (5, 2, P.RECTILINEAR, 97, 67, 110, (180, 88, 0))]
     for degree, nch, proj, w, h, hfov, ypr in cases:
         img = rng.uniform(0, 1, (128, 256, nch)).astype(np.float32)
-        src = E.make_mount_source(fct, img, degree, degree, device="cuda")
+        src = with_coeff(E.make_mount_source(fct, img, degree, degree,
+                                             device="cuda"), coeff_dtype)
         err = kernel_vs_plain(plan_for(fct, proj, w, h, hfov, degree, ypr,
                                        nch), src, degree)[0]
-        print(f"inline vs plain: sph source, degree {degree} C {nch} "
+        print(f"inline vs plain ({coeff_dtype}): sph source, degree "
+              f"{degree} C {nch} "
               f"{proj.name.lower()} {w}x{h}: max abs diff {err:.3e} "
               f"(bound {KERNEL_BOUND:g})", flush=True)
         check(err <= KERNEL_BOUND, f"inline kernel disagrees: {err}")
@@ -385,11 +462,12 @@ def phase_small_inline():
             (16, 8, 4, 1, P.RECTILINEAR, 96, 64, 75, (30, 10, 5))):
         ofct = make_facet(P.SPHERICAL, sw, sh, 2 * math.pi)
         img = rng.uniform(0, 1, (sh, sw, nch)).astype(np.float32)
-        src = E.make_mount_source(ofct, img, degree, degree, device="cuda")
+        src = with_coeff(E.make_mount_source(ofct, img, degree, degree,
+                                             device="cuda"), coeff_dtype)
         err = kernel_vs_plain(plan_for(ofct, proj, w, h, hfov, degree, ypr,
                                        nch), src, degree,
                               (R.WINDOW_BYTES, SMALL_BUDGET, 1024))[0]
-        print(f"inline vs plain: {sw}x{sh} sph source (table "
+        print(f"inline vs plain ({coeff_dtype}): {sw}x{sh} sph source (table "
               f"{tuple(src.spl.coeff.shape)}), degree {degree} C {nch} "
               f"{proj.name.lower()} {w}x{h}: max abs diff {err:.3e} "
               f"(bound {KERNEL_BOUND:g})", flush=True)
@@ -408,8 +486,9 @@ def phase_small_inline():
             for nch in (1, 3, 4):
                 faces = rng.uniform(0, 1, (6, 32, 32, nch)).astype(
                     np.float32)
-                src = CBM.make_cubemap_source(cfct, faces, degree, degree,
-                                              8, 16, device="cuda")
+                src = with_coeff(CBM.make_cubemap_source(
+                    cfct, faces, degree, degree, 8, 16, device="cuda"),
+                    coeff_dtype)
                 for proj, w, h, hfov, ypr in targets:
                     err, edge = kernel_vs_plain(
                         plan_for(cfct, proj, w, h, hfov, degree, ypr, nch),
@@ -421,19 +500,23 @@ def phase_small_inline():
                     worst = max(worst, err)
                     n_cases += 1
                     n_edge += edge
-        print(f"inline vs plain: {kind.name.lower()} source, degrees "
+        print(f"inline vs plain ({coeff_dtype}): {kind.name.lower()} source, "
+              f"degrees "
               f"0/1/3/5 x C 1/3/4 x 5 target modes: worst so far "
               f"{worst:.3e} (bound {KERNEL_BOUND:g})", flush=True)
-    print(f"inline vs plain: {n_cases} IR cases, {n_edge} pixels within "
+    print(f"inline vs plain ({coeff_dtype}): {n_cases} IR cases, {n_edge} "
+          f"pixels within "
           f"{FACE_EDGE_REL:g} of a face edge excluded; worst {worst:.3e}",
           flush=True)
     return worst
 
 
-def phase_small_planar():
-    """Planar kernel against plain version: degrees 0-7 x 1/3/4
-    channels, with and without a merge mask, over a NaN sentinel, with
-    NaN/inf coordinates where the mask is 0."""
+def phase_small_planar(coeff_dtype="f32"):
+    """Planar kernel against plain version on tables of
+    ``coeff_dtype``: degrees 0-7 x 1/3/4 channels, with and without a
+    merge mask, over a NaN sentinel, with NaN/inf coordinates where the
+    mask is 0."""
+    from envutil_tpu_torch.ops import spline as S
     import torch
     from envutil_tpu_torch.ops import resample as R
     rng = np.random.default_rng(8)
@@ -451,7 +534,8 @@ def phase_small_planar():
     for degree in range(8):
         for nch in (1, 3, 4):
             table = torch.from_numpy(rng.uniform(
-                -1, 1, (70, 80, nch)).astype(np.float32)).cuda()
+                -1, 1, (70, 80, nch)).astype(np.float32)).cuda().to(
+                    S.COEFF_DTYPES[coeff_dtype])
             for m in (None, dev[2]):
                 nan = torch.full((h, w, nch), float("nan"), device="cuda")
                 k = R.resample_planar(nan.clone(), table, dev[0], dev[1],
@@ -473,7 +557,8 @@ def phase_small_planar():
                       f"planar kernel disagrees (degree {degree}, C {nch},"
                       f" mask {m is not None}): {err}")
                 worst = max(worst, err)
-    print(f"planar vs plain: degrees 0-7 x C 1/3/4 x (mask, no mask), NaN "
+    print(f"planar vs plain ({coeff_dtype}): degrees 0-7 x C 1/3/4 x (mask, "
+          f"no mask), NaN "
           f"sentinel kept under the mask: max abs diff {worst:.3e} (bound "
           f"{KERNEL_BOUND:g})", flush=True)
     return worst
@@ -488,7 +573,8 @@ def ramp_fixture(w=8192, h=4096):
 
 
 def touched_bytes(coeff, sx, sy, n, more=()):
-    """Bytes of the coefficient table that the frame's taps read, for
+    """Bytes of the coefficient table that the frame's taps read (at the
+    table's element size: 4 bytes float32, 2 bfloat16), for
     padded coordinates (sx, sy) of the pixels evaluated (and the further
     (sx, sy) pairs of ``more``, one per twining tap): every entry that
     some (n+1)^2 window covers, counted once."""
@@ -507,7 +593,7 @@ def touched_bytes(coeff, sx, sy, n, more=()):
             for k in range(n + 1):
                 idx = ((by + j) * wp + bx + k).clamp_(0, hp * wp - 1)
                 touched[idx.reshape(-1)] = True
-    return int(touched.sum()) * nch * 4
+    return int(touched.sum()) * nch * coeff.element_size()
 
 
 def spline_flops(n, nch):
@@ -593,25 +679,29 @@ WRAPPERS = ("resample_inline", "resample_planar", "resample_planar_chain",
 
 def render(plan, src, name, want_inline=0, want_planar=0, want=None):
     """render_frame of ``src`` (a source, or a list of them for a stitch)
-    with every wrapper's launch count set to 0 just before and read just
-    after; checks that exactly the expected kernels were launched
-    (``want`` maps wrappers to counts where it is given) and returns
-    (frame, ms, launches)."""
+    with every wrapper's launch count, and the exact-path route's count
+    (``fastpath.exact_frame``), set to 0 just before and read just after;
+    checks that exactly the expected kernels were launched (``want`` maps
+    wrappers to counts where it is given) and returns (frame, ms,
+    launches)."""
     import torch
     from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
     from envutil_tpu_torch.runtime import render as RD
-    expect = dict.fromkeys(WRAPPERS, 0)
+    counters = {wrapper: getattr(R, wrapper) for wrapper in WRAPPERS}
+    counters["exact_frame"] = FP.exact_frame
+    expect = dict.fromkeys(counters, 0)
     expect.update(want or {"resample_inline": want_inline,
                            "resample_planar": want_planar})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for wrapper in WRAPPERS:
-        getattr(R, wrapper).launches = 0
+    for counter in counters.values():
+        counter.launches = 0
     t0 = time.perf_counter()
     frame = RD.render_frame(plan, src if isinstance(src, list) else [src],
                             device="cuda")
     ms = (time.perf_counter() - t0) * 1000.0
-    n = {wrapper: getattr(R, wrapper).launches for wrapper in WRAPPERS}
+    n = {k: counter.launches for k, counter in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     print(f"{name}: render_frame {frame.shape} in {ms:.1f} ms (first call,"
           f" host copy included); launches {n}; peak device memory "
@@ -662,7 +752,8 @@ def time_inline(plan, src, name):
     bound = inline_bound(plan, src, n_px)
     print(f"{name}: bound {bound[0]:.4f} ms by {bound[1]} (table bytes "
           f"touched {bound[4] / 1e6:.1f} MB of "
-          f"{src.spl.coeff.numel() * 4 / 1e6:.1f} MB; bytes "
+          f"{src.spl.coeff.numel() * src.spl.coeff.element_size() / 1e6:.1f}"
+          f" MB; bytes "
           f"{bound[2]:.4f} ms at 3.35 TB/s, operations {bound[3]:.4f} ms at "
           f"67 TFLOP/s)", flush=True)
     sx, sy = R.inline_coords(*args[1:], tmode=kw["tmode"],
@@ -850,9 +941,9 @@ def twined_kernel_vs_plain(plan, src):
     return float(diff.max()), int(edge.sum())
 
 
-def phase_small_inline_twined():
-    """Inline twined kernel against its plain version at small shapes:
-    {sph, cubemap, biatan6 sources} x {affine, sph, cyl targets} x
+def phase_small_inline_twined(coeff_dtype="f32"):
+    """Inline twined kernel against its plain version at small shapes,
+    on tables of ``coeff_dtype``: {sph, cubemap, biatan6 sources} x {affine, sph, cyl targets} x
     degrees {0, 1, 3} x channels {1, 3, 4} x taps {1, 4, 9} x precise
     {off, on}. The spherical target is pitched so that it holds a pole
     and the seam of the sph source."""
@@ -883,6 +974,7 @@ def phase_small_inline_twined():
                         np.float32)
                     src = CBM.make_cubemap_source(fct, faces, degree, degree,
                                                   8, 16, device="cuda")
+                src = with_coeff(src, coeff_dtype)
                 for proj, w, h, hfov, ypr in targets:
                     for taps, spread in small_spreads().items():
                         base = plan_for(fct, proj, w, h, hfov, degree, ypr,
@@ -899,17 +991,20 @@ def phase_small_inline_twined():
                             worst = max(worst, err)
                             n_cases += 1
                             n_edge += edge
-        print(f"inline twined vs plain: {sname} source, degrees 0/1/3 x C "
+        print(f"inline twined vs plain ({coeff_dtype}): {sname} source, "
+              f"degrees 0/1/3 x C "
               f"1/3/4 x 3 target modes x taps 1/4/9 x precise off/on: worst "
               f"so far {worst:.3e} (bound {KERNEL_BOUND:g})", flush=True)
-    print(f"inline twined vs plain: {n_cases} cases, {n_edge} pixels with a"
+    print(f"inline twined vs plain ({coeff_dtype}): {n_cases} cases, "
+          f"{n_edge} pixels with a"
           f" tap within {FACE_EDGE_REL:g} of a face edge excluded; worst "
           f"{worst:.3e}", flush=True)
     return worst
 
 
-def phase_small_twined():
-    """Planar twined kernel against its plain version: degrees {0, 1, 3}
+def phase_small_twined(coeff_dtype="f32"):
+    """Planar twined kernel against its plain version on tables of
+    ``coeff_dtype``: degrees {0, 1, 3}
     x 1/3/4 channels x taps {1, 4, 9} x {no mask, merge mask, 8-bit tap
     weights, float tap weights, periodic wrap}, over a NaN sentinel, with
     NaN/inf in all six planes where the mask (or every tap weight) is
@@ -917,6 +1012,7 @@ def phase_small_twined():
     import torch
     from envutil_tpu_torch.models import synopsis as SYN
     from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.ops import spline as S
     rng = np.random.default_rng(18)
     h, w = 40, 56
     mask = (rng.uniform(size=(h, w)) < 0.5).astype(np.float32)
@@ -938,7 +1034,8 @@ def phase_small_twined():
     for degree in (0, 1, 3):
         for nch in (1, 3, 4):
             table = torch.from_numpy(rng.uniform(
-                -1, 1, (70, 80, nch)).astype(np.float32)).cuda()
+                -1, 1, (70, 80, nch)).astype(np.float32)).cuda().to(
+                    S.COEFF_DTYPES[coeff_dtype])
             for taps, spread in small_spreads().items():
                 sp = torch.tensor(SYN.scaled_spread(spread),
                                   dtype=torch.float32, device="cuda")
@@ -984,7 +1081,8 @@ def phase_small_twined():
                           f"twined kernel disagrees (degree {degree}, C "
                           f"{nch}, {taps} taps, {form}): {err}")
                     worst = max(worst, err)
-    print(f"twined vs plain: degrees 0/1/3 x C 1/3/4 x taps 1/4/9 x (no "
+    print(f"twined vs plain ({coeff_dtype}): degrees 0/1/3 x C 1/3/4 x taps "
+          f"1/4/9 x (no "
           f"mask, mask, u8 and f32 tap weights, periodic wrap), NaN "
           f"sentinel kept under the mask, 0 where all weights are 0: max "
           f"abs diff {worst:.3e} (bound {KERNEL_BOUND:g})", flush=True)
@@ -1216,8 +1314,9 @@ def phase_small_combine():
           f"{err:.3e} of its largest value (bound 1e-5)", flush=True)
 
 
-def phase_small_chain():
-    """Both chain forms against their plain versions at small shapes:
+def phase_small_chain(coeff_dtype="f32"):
+    """Both chain forms against their plain versions at small shapes,
+    on tables of ``coeff_dtype``:
     every source of CHAIN_SOURCES (the three source modes, the five mount
     projections, partial, lens, shift, shear, full sphere and fisheye)
     to every target of CHAIN_TARGETS (the five target modes, a pole, the
@@ -1236,6 +1335,7 @@ def phase_small_chain():
             degree, nch = i % 8, 1 + (i // 8) % 4
             fct, src = chain_source(sname, kind, sw, sh, shfov, kw, degree,
                                     nch, rng)
+            src = with_coeff(src, coeff_dtype)
             proj = P[tname.upper()]
             plan = plan_for(fct, proj, w, h, hfov, degree, ypr, nch)
             tplan = dataclasses.replace(
@@ -1255,13 +1355,15 @@ def phase_small_chain():
                   f"({sname} -> {tname}) disagrees: {err}")
             worst["score"] = max(worst["score"], err)
             i += 1
-        print(f"chain forms vs plain: {sname} source x {len(CHAIN_TARGETS)} "
+        print(f"chain forms vs plain ({coeff_dtype}): {sname} source x "
+              f"{len(CHAIN_TARGETS)} "
               f"targets: worst so far planar {worst['planar']:.3e}, twined "
               f"{worst['twined']:.3e} (bound {KERNEL_BOUND:g}), planar "
               f"score {worst['score']:.3e} of z (bound {SCORE_BOUND:g}); "
               f"pixels bit-equal with and without the score", flush=True)
     for form in edges:
-        print(f"{form} chain vs plain: {i} cases, worst {worst[form]:.3e} "
+        print(f"{form} chain vs plain ({coeff_dtype}): {i} cases, worst "
+              f"{worst[form]:.3e} "
               f"(bound {KERNEL_BOUND:g}); {edges[form][0]} px at a window "
               f"or face edge excluded, {edges[form][1]} of them with the "
               f"coverage flipped", flush=True)
@@ -1309,11 +1411,12 @@ def errors_text(errs):
                      for k, v in errs.items())
 
 
-def twined_inline_path(name, plan, src):
+def twined_inline_path(name, plan, src, reference=None):
     """One twined frame through render_frame and the inline twined
     kernel: launches, the whole frame against the exact path, the kernel
-    against its plain version at this shape, the timings and the
-    bound."""
+    against its plain version at this shape, the timings and the bound;
+    with ``reference`` (the host frame of the same job on a float32
+    table) the frame's PSNR against it, held to BF16_DB."""
     import torch
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.runtime import fastpath as FP
@@ -1326,6 +1429,13 @@ def twined_inline_path(name, plan, src):
           f"{errors_text(errs)} (bound {TWINED_INLINE_BOUND:g})", flush=True)
     check(max(v[0] for v in errs.values()) <= TWINED_INLINE_BOUND,
           f"{name} disagrees with the exact path")
+    db = None
+    if reference is not None:
+        db = psnr(frame, reference)
+        print(f"{name}: frame vs the float32 table's frame {db:.2f} dB "
+              f"(bound >= {BF16_DB:g})", flush=True)
+        check(db >= BF16_DB, f"{name}: {db:.2f} dB against float32")
+    del frame
     err_k, _edge = twined_kernel_vs_plain(plan, src)
     print(f"{name}: inline twined vs plain at full shape: max abs diff "
           f"{err_k:.3e} (bound {KERNEL_BOUND:g})", flush=True)
@@ -1361,16 +1471,20 @@ def twined_inline_path(name, plan, src):
           f"Mpix/s; kernel alone {kernel_ms:.4f} ms; plain version "
           f"{plain_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.4f} ms by {by} "
           f"(table bytes under all taps {table / 1e6:.1f} MB of "
-          f"{coeff.numel() * 4 / 1e6:.1f} MB; bytes {bytes_ms:.4f} ms, "
+          f"{coeff.numel() * coeff.element_size() / 1e6:.1f} MB; bytes "
+          f"{bytes_ms:.4f} ms, "
           f"operations {ops_ms:.4f} ms); peak device memory of the first "
           f"frame {peak / 2**20:.1f} MiB; clocks/power/temp after: "
           f"{smi_now()}", flush=True)
-    return dict(taps=taps, launches=n["resample_inline_twined"],
-                max_abs_err=err_k, ms=kernel_ms, plain_ms=plain_ms,
-                frame_ms=frame_ms, bound_ms=max(bytes_ms, ops_ms),
-                bound_by=by, peak_mib=peak / 2**20,
-                vs_exact={k: v[0] for k, v in errs.items()},
-                region_px={k: v[1] for k, v in errs.items()})
+    rec = dict(taps=taps, launches=n["resample_inline_twined"],
+               max_abs_err=err_k, ms=kernel_ms, plain_ms=plain_ms,
+               frame_ms=frame_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_by=by, peak_mib=peak / 2**20,
+               vs_exact={k: v[0] for k, v in errs.items()},
+               region_px={k: v[1] for k, v in errs.items()})
+    if db is not None:
+        rec["psnr_vs_f32_db"] = db
+    return rec
 
 
 def live_tap_table(coeff, n, ops, spread):
@@ -1568,6 +1682,33 @@ def planes_at_path(plan, src, name):
                 bound_ms=bound[0], bound_by=bound[1])
 
 
+def planes_turns(plan, src, src_b, name):
+    """``dtype_turns`` of the planes form on its own path's operands (as
+    ``planes_at_path`` builds them) over ``src``'s float32 table and
+    ``src_b``'s bf16 one."""
+    import torch
+    from envutil_tpu_torch.models import synopsis as SYN
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    window = FP.frame_window(plan)
+    tables = {"f32": src.spl.coeff, "bf16": src_b.spl.coeff}
+    buf = torch.empty((plan.height, plan.width, src.spl.coeff.shape[-1]),
+                      device="cuda")
+    n = src.spl.degree
+    if plan.spread is None:
+        sx, sy, mask, _z = FP.coords(plan, window, src)
+        mask = mask.to(torch.float32)
+        return dtype_turns(f"{name} (K2 planes)", lambda d: R.resample_planar(
+            buf, tables[d], sx, sy, degree=n, merge_mask=mask))
+    pops = FP.twined_coords(plan, window, src)
+    sp = torch.tensor(SYN.scaled_spread(plan.spread), dtype=torch.float32,
+                      device="cuda")
+    planes = [pops[k] for k in ("sx", "sy", "dux", "duy", "dvx", "dvy")]
+    return dtype_turns(f"{name} (K3 planes)", lambda d: R.resample_twined(
+        buf, tables[d], *planes, sp, degree=n, n_taps=len(plan.spread),
+        tap_weights=pops["tap_weights"], wrap_x=pops["wrap_x"]))
+
+
 # ---------------------------------------------------------------- stitches
 
 # a pixel whose two best voronoi scores lie within this relative margin
@@ -1760,9 +1901,10 @@ def facet_vs_plain(fplan, src, scored):
     return rec
 
 
-def stitch_path(name, rng):
-    """One stitch of benchmarks.py at full size through render_frame and
-    multi_frame: the launches per form, the frame against the exact path
+def stitch_path(name, rng, coeff_dtype="f32"):
+    """One stitch of benchmarks.py at full size, its tables of
+    ``coeff_dtype``, through render_frame and multi_frame: the launches
+    per form, the frame against the exact path
     (window-edge and champion-flip pixels excluded and counted), each
     facet's kernel (and score) against its plain version at the
     stitch's shape (``facet_vs_plain``), the peak
@@ -1775,6 +1917,9 @@ def stitch_path(name, rng):
     from envutil_tpu_torch.models import synopsis as SYN
     from envutil_tpu_torch.runtime import fastpath as FP
     facets, sources, synopsis, nch = stitch_config(name, rng)
+    sources = [with_coeff(s, coeff_dtype) for s in sources]
+    if coeff_dtype != "f32":
+        name = f"{name}, {coeff_dtype}"
     plan = stitch_plan(facets, synopsis, nch)
     n_f, n_px = len(sources), plan.height * plan.width
     hdr = synopsis == "hdr_merge"
@@ -1874,6 +2019,42 @@ def stitch_path(name, rng):
                 stack_mib=stack_bytes / 2**20)
 
 
+def exact_route_path(rng):
+    """A job of a degree above the kernels' range: config 3's view at a
+    reduced size (a biatan6 noise source of 256-px faces, fov 100, at
+    degree 9 -> 480x288 stereographic, hfov 150, yaw 35, pitch 20)
+    through render_frame on the card, which takes the exact-path route
+    (``fastpath.exact_frame``, counted once, no kernel launched), held
+    against the CPU's exact path on the same table; the route's frame
+    timed (median of 3). Returns its record."""
+    import dataclasses
+    import torch
+    from envutil_tpu_torch.core.conventions import Projection as P
+    from envutil_tpu_torch.models import cubemap as CBM
+    from envutil_tpu_torch.runtime import fastpath as FP
+    from envutil_tpu_torch.runtime import render as RD
+    fct = make_facet(P.BIATAN6, 256, 1536, math.radians(100))
+    faces = rng.uniform(0, 1, (6, 256, 256, 3)).astype(np.float32)
+    src = CBM.make_cubemap_source(fct, faces, 9, 9, 32, 64, device="cuda")
+    plan = plan_for(fct, P.STEREOGRAPHIC, 480, 288, 150, 9, (35, 20, 0))
+    frame, first_ms, n = render(plan, src, "degree-9 job",
+                                want={"exact_frame": 1})
+    cpu = dataclasses.replace(src, spl=dataclasses.replace(
+        src.spl, coeff=src.spl.coeff.cpu()))
+    want = RD.render_frame(plan, [cpu], device="cpu")
+    err = float(np.abs(frame - want).max())
+    ms = events_ms(lambda: FP.exact_frame(plan, [src]), 3)
+    print(f"degree-9 job (biatan6 256-px faces -> 480x288 stereographic) "
+          f"through the exact-path route on the card: launches {n}; vs the "
+          f"CPU's exact path: max abs diff {err:.3e} (bound "
+          f"{EXACT_BOUND:g}); frame {ms:.3f} ms (median of 3), first "
+          f"render_frame {first_ms:.1f} ms", flush=True)
+    check(err <= EXACT_BOUND, "the exact-path route on the card disagrees "
+          "with the CPU's exact path")
+    return dict(degree=9, launches=n["exact_frame"], max_abs_err_vs_cpu=err,
+                frame_ms=ms, first_ms=first_ms)
+
+
 def smooth_environment(ray):
     """A smooth, seamless RGB function of the unit ray: low and medium
     frequencies with gradients of a few per radian."""
@@ -1886,8 +2067,9 @@ def smooth_environment(ray):
 
 def build_report():
     """Per kernel of each built source, from nvcc's -Xptxas -v log: the
-    instantiations, their registers and the spills; printed one line a
-    kernel and returned as {kernel: {...}}."""
+    instantiations, their registers and the spills, the float32 and the
+    bf16 instantiations apart; printed one line a kernel and returned as
+    {kernel: {...}}."""
     from envutil_tpu_torch.ops import resample as R
     report = {}
     for lib in R.LIBRARIES:
@@ -1895,16 +2077,23 @@ def build_report():
         for line in lib.build_log.splitlines():
             if "Compiling entry function" in line:
                 name = re.search(r"([a-z_]+_kernel)I", line)
-                args = re.search(r"kernelI((?:Li\d+E)+)E", line)
+                # template arguments: the ints, then the table's type
+                # (f, or 13__nv_bfloat16)
+                args = re.search(r"kernelI((?:Li\d+E)+)(\w+?)E", line)
                 entry = report.setdefault(
                     name.group(1) if name else line,
-                    dict(source=lib.source.name, regs=[], spills=[]))
+                    dict(source=lib.source.name, regs=[], spills=[],
+                         regs_bf16=[]))
+                bf16 = bool(args) and "bfloat16" in args.group(2)
                 targs = "<" + ", ".join(re.findall(
-                    r"Li(\d+)E", args.group(1) if args else "")) + ">"
+                    r"Li(\d+)E", args.group(1) if args else "")
+                    + ["bf16" if bf16 else "f32"]) + ">"
             elif entry is not None and "Used " in line \
                     and " registers" in line:
-                entry["regs"].append(int(line.split("Used ")[1].split(
-                    " registers")[0]))
+                regs = int(line.split("Used ")[1].split(" registers")[0])
+                entry["regs"].append(regs)
+                if targs.endswith("bf16>"):
+                    entry["regs_bf16"].append(regs)
             elif entry is not None and "bytes spill stores" in line and \
                     "0 bytes spill stores, 0 bytes spill loads" not in line:
                 entry["spills"].append((int(line.split(
@@ -1912,15 +2101,23 @@ def build_report():
                     targs))
     for kernel, e in report.items():
         worst = max(e["spills"], default=(0, "-"))
+        n_bf16 = sum(t.endswith("bf16>") for _b, t in e["spills"])
         print(f"build {e['source']}: {kernel}: {len(e['regs'])} "
-              f"instantiations, registers {min(e['regs'], default='?')}.."
-              f"{max(e['regs'], default='?')}, {len(e['spills'])} of them "
-              f"spill; most: {worst[0]} bytes of spill stores at {worst[1]}",
+              f"instantiations ({len(e['regs_bf16'])} bf16), registers "
+              f"{min(e['regs'], default='?')}..{max(e['regs'], default='?')}"
+              f" (bf16 {min(e['regs_bf16'], default='?')}.."
+              f"{max(e['regs_bf16'], default='?')}), {len(e['spills'])} of "
+              f"them spill ({len(e['spills']) - n_bf16} float32, {n_bf16} "
+              f"bf16); most: {worst[0]} bytes of spill stores at {worst[1]}",
               flush=True)
     return {k: dict(source=e["source"], instantiations=len(e["regs"]),
                     registers=[min(e["regs"], default=None),
                                max(e["regs"], default=None)],
+                    registers_bf16=[min(e["regs_bf16"], default=None),
+                                    max(e["regs_bf16"], default=None)],
                     spilling=len(e["spills"]),
+                    spilling_bf16=sum(t.endswith("bf16>")
+                                      for _b, t in e["spills"]),
                     worst_spill_bytes=max(e["spills"], default=(0, ""))[0])
             for k, e in report.items()}
 
@@ -1960,6 +2157,17 @@ def main():
     worst_twined = phase_small_twined()
     worst_chain, chain_edge_px = phase_small_chain()
     phase_small_combine()
+    # the same cases on bf16 tables
+    small_bf16 = {"resample_inline": phase_small_inline("bf16"),
+                  "resample_planar": phase_small_planar("bf16"),
+                  "resample_inline_twined": phase_small_inline_twined("bf16"),
+                  "resample_twined": phase_small_twined("bf16")}
+    chain_bf16 = phase_small_chain("bf16")[0]
+    small_bf16["resample_planar_chain"] = chain_bf16["planar"]
+    small_bf16["resample_twined_chain"] = chain_bf16["twined"]
+    # each kernel's bf16 record: its times and bound on a bf16 table at
+    # full size, the error against its plain version there and the path
+    t_bf16 = {}
 
     # ---- 3. main path at full width -----------------------------------
     w, h = 8192, 4096
@@ -2011,7 +2219,42 @@ def main():
           f"{err_main:.3e} (bound {KERNEL_BOUND:g})", flush=True)
     check(err_main <= KERNEL_BOUND, "kernel disagrees at main-path shape")
     t_main = time_inline(plan, src, "main path")
-    del src
+
+    # ---- 3a. the main path on a bf16 table ----------------------------
+    srcb = with_coeff(src, "bf16")
+    frame_b, _ms, main_b_n = render(plan, srcb, "main path, bf16", 1, 0)
+    band_b = band_errors(plan, srcb, frame_b, bands, False)[0]
+    db_main = psnr(frame_b, frame)
+    print(f"main path, bf16 (table {tuple(srcb.spl.coeff.shape)} "
+          f"{srcb.spl.coeff.dtype}, "
+          f"{srcb.spl.coeff.numel() * 2 / 1e6:.1f} MB) vs exact path on the "
+          f"same table, 18 bands: max abs diff {band_b:.3e} (bound "
+          f"{MAIN_BOUND:g}); vs the float32 frame {db_main:.2f} dB",
+          flush=True)
+    check(band_b <= MAIN_BOUND, "bf16 frame disagrees with exact path")
+    check(db_main >= BF16_DB, f"bf16 main path {db_main:.2f} dB")
+    del frame_b
+    err_b, _e, out_k, out_p = kernel_vs_plain(plan, srcb, 3)
+    del out_k, out_p
+    print(f"inline vs plain at main-path shape, bf16: max abs diff "
+          f"{err_b:.3e} (bound {KERNEL_BOUND:g})", flush=True)
+    check(err_b <= KERNEL_BOUND, "kernel disagrees at main-path shape, bf16")
+    ops = FP.frame_operands(plan, src)
+    kw = inline_kw(ops, 3)
+    tens = [ops[k] for k in ("xfeat", "yfeat", "bmats")]
+    buf = torch.empty((plan.height, plan.width, 3), device="cuda")
+    tables = {"f32": src.spl.coeff, "bf16": srcb.spl.coeff}
+    turns = dtype_turns("main path (K1 staged)", lambda d: R.resample_inline(
+        buf, tables[d], *tens, **kw))
+    turns_direct = dtype_turns(
+        "main path (K1 direct)", lambda d: R.resample_inline(
+            buf, tables[d], *tens, window_bytes=0, **kw))
+    t_bf16["resample_inline"] = dict(
+        time_inline(plan, srcb, "main path, bf16"), max_abs_err=err_b,
+        path="main path", launches=main_b_n["resample_inline"],
+        vs_exact=band_b, psnr_vs_f32_db=db_main, turns=turns,
+        turns_direct=turns_direct)
+    del src, srcb, tables, buf
     torch.cuda.empty_cache()
 
     # ---- 3b. config 4 twined: 8K -> 2048x1280, automatic twine --------
@@ -2107,6 +2350,32 @@ def main():
             check(deg1["max_abs_err_vs_library"] <= LIBRARY_BOUND,
                   "degree-1 planar kernel differs from grid_sample")
         del sx, sy
+        if name == "config 3":
+            # the planar chain kernel on the bf16 table
+            bsrc_b = with_coeff(bsrc, "bf16")
+            out3b, _ms, n3b = render(p3, bsrc_b, "config 3, bf16",
+                                     want={"resample_planar_chain": 1})
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            err3b, _e = band_errors(p3, bsrc_b, out3b, [(0, 8), (572, 580),
+                                                        (1144, 1152)], False)
+            print(f"config 3, bf16 through the chain form vs exact path on "
+                  f"the same table, 3 bands of 8 rows: max abs diff "
+                  f"{err3b:.3e} (bound {PATH_BOUND:g})", flush=True)
+            check(err3b <= PATH_BOUND, "config 3, bf16 disagrees with exact "
+                  "path")
+            rec = time_planar(p3, bsrc_b, "config 3, bf16", peak)
+            del rec["sx"], rec["sy"], out3b
+            cops = FP.chain_operands(p3, bsrc)
+            ctens = [cops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
+            buf = torch.empty((p3.height, p3.width, 3), device="cuda")
+            tables = {"f32": bsrc.spl.coeff, "bf16": bsrc_b.spl.coeff}
+            rec["turns"] = dtype_turns(
+                "config 3 (K2 chain)", lambda d: R.resample_planar_chain(
+                    buf, tables[d], *ctens, **cops))
+            del bsrc_b, tables, buf
+            t_bf16["resample_planar_chain"] = dict(
+                rec, path="config 3", launches=n3b["resample_planar_chain"],
+                vs_exact=err3b)
     del bsrc
     torch.cuda.empty_cache()
 
@@ -2127,7 +2396,17 @@ def main():
     t_twined["config 3"] = twined_planar_path("config 3 twined", plan3t, ssrc)
     check(t_twined["config 3"]["region_px"]["face edges"] > 0,
           "config 3 twined crosses no cube-face edge")
-    del ssrc
+    ssrc_b = with_coeff(ssrc, "bf16")
+    t_bf16["resample_twined_chain"] = dict(twined_planar_path(
+        "config 3 twined, bf16", plan3t, ssrc_b), path="config 3 twined")
+    cops = FP.chain_operands(plan3t, ssrc)
+    ctens = [cops.pop(k) for k in ("xfeat", "yfeat", "bmats", "spread")]
+    buf = torch.empty((plan3t.height, plan3t.width, 3), device="cuda")
+    tables = {"f32": ssrc.spl.coeff, "bf16": ssrc_b.spl.coeff}
+    t_bf16["resample_twined_chain"]["turns"] = dtype_turns(
+        "config 3 twined (K3 chain)", lambda d: R.resample_twined_chain(
+            buf, tables[d], *ctens, **cops))
+    del ssrc, ssrc_b, tables, buf
     torch.cuda.empty_cache()
 
     # ---- 6. a partial lens-corrected facet and a translated facet -----
@@ -2170,17 +2449,26 @@ def main():
         pt = plan_for(tf, P.RECTILINEAR, 1024, 768, 100, 3, (5, 0, 0),
                       twine=twine)
         check(pt.planar_to_ray[0] is not None, "translated facet not generic")
-        name = "translated facet" + (" twined" if twine else "")
-        outt, _ms, nt = render(pt, tsrc, name, want={want: 1})
-        planar_n[name] = nt[want]
-        covered = float((outt != 0).any(axis=-1).mean())
-        errt = max(v[0] for v in frame_errors(pt, tsrc, outt).values())
-        print(f"{name} through the planes form: {100 * covered:.1f}% of the "
-              f"view covered; vs exact path, whole frame: max abs diff "
-              f"{errt:.3e} (bound {bound:g})", flush=True)
-        check(0.05 < covered < 0.95, f"{name} coverage implausible")
-        check(errt <= bound, f"{name} disagrees with exact path")
-        t_translated[name] = planes_at_path(pt, tsrc, name)
+        for coeff_dtype in ("f32", "bf16"):
+            name = "translated facet" + (" twined" if twine else "") + (
+                ", bf16" if coeff_dtype == "bf16" else "")
+            tsrc_d = with_coeff(tsrc, coeff_dtype)
+            outt, _ms, nt = render(pt, tsrc_d, name, want={want: 1})
+            covered = float((outt != 0).any(axis=-1).mean())
+            errt = max(v[0] for v in frame_errors(pt, tsrc_d, outt).values())
+            print(f"{name} through the planes form: {100 * covered:.1f}% of "
+                  f"the view covered; vs exact path, whole frame: max abs "
+                  f"diff {errt:.3e} (bound {bound:g})", flush=True)
+            check(0.05 < covered < 0.95, f"{name} coverage implausible")
+            check(errt <= bound, f"{name} disagrees with exact path")
+            rec = planes_at_path(pt, tsrc_d, name)
+            if coeff_dtype == "f32":
+                planar_n[name] = nt[want]
+                t_translated[name] = rec
+            else:
+                rec["turns"] = planes_turns(pt, tsrc, tsrc_d, name[:-6])
+                t_bf16[want] = dict(rec, path=name[:-len(", bf16")],
+                                    launches=nt[want], vs_exact=errt)
 
     # the two facets stitched into the translated facet's view: the
     # lens facet through the chain form with its score, the translated
@@ -2224,15 +2512,47 @@ def main():
     plan16 = plan_for(fct16, P.RECTILINEAR, 2048, 1280, 100, 1, twine=-1)
     check(len(plan16.spread) == 16, f"16K spread has {len(plan16.spread)}")
     t_twined["16K"] = twined_inline_path("16K job", plan16, src16)
-    del src16
+    frame16 = RD.render_frame(plan16, [src16], device="cuda")
+
+    # ---- 6c. config 4b as benchmarks.py defines it: the bf16 table ----
+    # rounded from the float32 build as the loader does, the float32
+    # table dropped as the copy replaces it
+    src16_b = with_coeff(src16, "bf16")
+    tens16, kw16 = twined_inline_operands(plan16, src16)
+    buf16 = torch.empty((plan16.height, plan16.width, 3), device="cuda")
+    tables = {"f32": src16.spl.coeff, "bf16": src16_b.spl.coeff}
+    turns16 = dtype_turns("16K (K4, 16 taps)", lambda d:
+                          R.resample_inline_twined(buf16, tables[d], *tens16,
+                                                   **kw16))
+    del tables, buf16
+    src16 = src16_b
+    del src16_b
+    torch.cuda.empty_cache()
+    table16 = src16.spl.coeff
+    print(f"config 4b source: {w16}x{h16} RGB, table {tuple(table16.shape)} "
+          f"{table16.dtype} ({table16.numel() * table16.element_size() / 1e9:.2f}"
+          f" GB); device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(table16.dtype == torch.bfloat16, "config 4b's table is not bf16")
+    t_bf16["resample_inline_twined"] = dict(twined_inline_path(
+        "config 4b (16K, bf16)", plan16, src16, reference=frame16),
+        path="config 4b (16K, 16 taps)", turns=turns16,
+        table_gb=table16.numel() * table16.element_size() / 1e9)
+    del src16, table16, frame16
     torch.cuda.empty_cache()
 
-    # ---- 6c. untwined stitches of benchmarks.py at full size ----------
+    # ---- 6d. degree 9: the exact-path route on the card ---------------
+    t_exact = exact_route_path(np.random.default_rng(9))
+    torch.cuda.empty_cache()
+
+    # ---- 6e. untwined stitches of benchmarks.py at full size ----------
     t_stitch = {}
     for name in ("config 5", "config 5b", "config 5c",
                  "config 5, 4 channels"):
         t_stitch[name] = stitch_path(name, np.random.default_rng(5))
         torch.cuda.empty_cache()
+    t_stitch_bf16 = stitch_path("config 5", np.random.default_rng(5), "bf16")
+    torch.cuda.empty_cache()
     for name, t in t_stitch.items():
         if t["synopsis"] != "hdr_merge":
             planar_n[name] = t["launches"]["resample_planar_chain"]
@@ -2240,6 +2560,11 @@ def main():
     # ---- 7. the record ------------------------------------------------
     t3 = t_planar["config 3"]
     t4, t3t = t_twined["config 4"], t_twined["config 3"]
+    for k, v in small_bf16.items():
+        t_bf16[k]["small_case_max_abs_err"] = v
+    t_bf16["resample_planar_chain"]["stitch"] = dict(t_stitch_bf16,
+                                                     path="config 5")
+    print(f"exact route: {json.dumps(t_exact)}", flush=True)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -2256,6 +2581,7 @@ def main():
          "build": build.get("resample_inline_kernel"),
          "config_2r": dict(t_2r, launches=r2_n["resample_inline"],
                            max_abs_err=err2r_k),
+         "bf16": t_bf16["resample_inline"],
          "stitches": {k: t for k, t in t_stitch.items()
                       if t["synopsis"] == "hdr_merge"}},
         # the planes form: launched and measured on the translated
@@ -2269,6 +2595,7 @@ def main():
              path="translated facet", library_ms=None,
              degree1=dict(deg1, library="grid_sample bilinear"),
              small_case_max_abs_err=worst_planar,
+             bf16=t_bf16["resample_planar"],
              build=build.get("resample_planar_kernel")),
         {"name": "resample_planar_chain", "route": "cuda",
          "source": "envutil_tpu_torch/csrc/resample_planar.cu",
@@ -2284,6 +2611,7 @@ def main():
          "small_case_score_max_abs_err_of_z": worst_chain["score"],
          "launches_by_path": planar_n,
          "paths": t_planar,
+         "bf16": t_bf16["resample_planar_chain"],
          "stitches": {k: t for k, t in t_stitch.items()
                       if t["synopsis"] != "hdr_merge"}},
         dict({k: t4[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
@@ -2295,6 +2623,7 @@ def main():
              # deflected taps
              small_case_max_abs_err=worst_inline_twined,
              build=build.get("resample_inline_twined_kernel"),
+             bf16=t_bf16["resample_inline_twined"],
              paths={k: t_twined[k] for k in ("config 4", "pole and seam",
                                              "16K")}),
         # the planes form: launched and measured on the translated facet
@@ -2307,7 +2636,8 @@ def main():
              form="planes", launches=planar_n["translated facet twined"],
              path="translated facet twined", library_ms=None,
              small_case_max_abs_err=worst_twined,
-             build=build.get("resample_twined_kernel")),
+             build=build.get("resample_twined_kernel"),
+             bf16=t_bf16["resample_twined"]),
         dict({k: t3t[k] for k in ("launches", "max_abs_err", "ms",
                                   "plain_ms", "bound_ms", "bound_by")},
              name="resample_twined_chain", route="cuda",
@@ -2318,6 +2648,7 @@ def main():
              small_case_max_abs_err=worst_chain["twined"],
              small_case_edge_px=chain_edge_px["twined"],
              build=build.get("resample_twined_chain_kernel"),
+             bf16=t_bf16["resample_twined_chain"],
              paths={k: t_twined[k] for k in ("config 3", "lens facet")}),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -31,9 +31,26 @@
 // never depends on the window. The twined inline kernel does not stage:
 // it is bound by its per-tap arithmetic, and a window measured no gain
 // there (resample_inline_twined.cu).
+//
+// Table storage. The three functions that read the table (spline_at,
+// stage_window, spline_staged) take its element type T, float or
+// __nv_bfloat16 (--coeff bf16, the JAX kernels' bfloat16 coeff), and
+// evaluate in float: each tap is converted where it is loaded
+// (tap_value; bf16 -> float is exact), so a bf16 table differs from
+// the float32 table it was rounded from only by that rounding. A
+// staged window holds the raw entries, bf16 in half the shared memory
+// of float32, so at one byte budget more blocks stage; each tap read
+// from it is converted as spline_at converts it, and the two branches
+// stay bit-identical. A bf16 entry of three channels is 6 bytes, so a
+// row segment's first entry is only 2-byte aligned: the 16-byte copy
+// starts at the aligned-down element (Window.f0 carries the offset),
+// and where the table's rows are no multiple of 16 bytes the window is
+// copied element by element with plain loads (cp.async moves 4 bytes
+// at least).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -195,13 +212,26 @@ __device__ __forceinline__ void weights(const float* m, float t,
   }
 }
 
+// one table entry as float: a load through the read-only path, and for
+// a bf16 table the exact conversion
+__device__ __forceinline__ float tap_load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float tap_load(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+// an entry already in hand (a staged window's), as float
+__device__ __forceinline__ float tap_value(float v) { return v; }
+__device__ __forceinline__ float tap_value(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // The degree-n tensor-product b-spline of the (Hp, Wp, NCH)
-// channel-interleaved table at finite padded coordinates (sx, sy): each
-// of the (n+1)^2 taps is NCH contiguous floats read from global memory
-// through L1/L2. The flat table offset is 64-bit and clamped to the
-// table, as the JAX evaluator's take(mode="clip") does.
-template <int DEGREE, int NCH>
-__device__ __forceinline__ void spline_at(const float* __restrict__ coeff,
+// channel-interleaved table of T (float or __nv_bfloat16) at finite
+// padded coordinates (sx, sy): each of the (n+1)^2 taps is NCH
+// contiguous entries read from global memory through L1/L2 and
+// evaluated in float. The flat table offset is 64-bit and clamped to
+// the table, as the JAX evaluator's take(mode="clip") does.
+template <int DEGREE, int NCH, typename T>
+__device__ __forceinline__ void spline_at(const T* __restrict__ coeff,
                                           const Table& t, float sx, float sy,
                                           float (&acc)[NCH]) {
   // split (zimt/eval.h:595-610): floor for odd degrees, round for even
@@ -226,9 +256,9 @@ __device__ __forceinline__ void spline_at(const float* __restrict__ coeff,
     for (int k = 0; k <= DEGREE; ++k) {
       int64_t idx = row + k;
       idx = idx < 0 ? 0 : (idx > last ? last : idx);
-      const float* tap = coeff + idx * NCH;
+      const T* tap = coeff + idx * NCH;
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) racc[c] += wx[k] * __ldg(tap + c);
+      for (int c = 0; c < NCH; ++c) racc[c] += wx[k] * tap_load(tap + c);
     }
 #pragma unroll
     for (int c = 0; c < NCH; ++c) acc[c] += wy[j] * racc[c];
@@ -249,8 +279,8 @@ __device__ __forceinline__ Box empty_box() {
 }
 
 // The staged part of the table: entries [x0, x1] x [y0, y1] (empty when
-// x1 < x0), held in shared memory as rows of ``pitch`` floats that
-// start at float ``f0`` of the table row.
+// x1 < x0), held in shared memory as rows of ``pitch`` elements (floats
+// or bf16 values) that start at element ``f0`` of the table row.
 struct Window {
   int x0, x1, y0, y1;
   int f0, pitch;
@@ -287,7 +317,7 @@ __device__ __forceinline__ void box_add(Box& b, const Table& t, float sx,
   b.y1 = max(b.y1, by);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));
@@ -299,6 +329,17 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                "l"(src));
 }
 
+// one element of a window whose rows are not 16-byte aligned: a float
+// by a 4-byte cp.async, a bf16 value by a plain load and store (the
+// barrier after the copy makes both visible)
+__device__ __forceinline__ void copy_entry(float* dst, const float* src) {
+  cp_async4(dst, src);
+}
+__device__ __forceinline__ void copy_entry(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src) {
+  *dst = __ldg(src);
+}
+
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -306,14 +347,18 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Reduce the threads' boxes of support bases to the block's, add the
 // DEGREE + 1 support, and, if the window fits ``budget`` bytes, copy it
-// from the table into ``win`` (16-byte aligned shared memory of at
-// least ``budget`` bytes). Every thread of the block must call it; it
-// returns the window, empty when nothing was staged. ``sbox`` is four
-// ints of shared memory.
-template <int DEGREE, int NCH>
+// from the table of T into ``win`` (16-byte aligned shared memory of at
+// least ``budget`` bytes), entries as they are stored. Every thread of
+// the block must call it; it returns the window, empty when nothing was
+// staged. ``sbox`` is four ints of shared memory.
+template <int DEGREE, int NCH, typename T>
 __device__ __forceinline__ Window stage_window(
-    Box b, const Table& t, const float* __restrict__ coeff, float* win,
+    Box b, const Table& t, const T* __restrict__ coeff, T* win,
     int* sbox, int budget) {
+  // elements in 16 bytes (a cp.async16), and in the 128 bytes of a
+  // pass over the 32 banks
+  constexpr int VEC = 16 / (int)sizeof(T);
+  constexpr int BANKS = 128 / (int)sizeof(T);
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
   const int lane = threadIdx.x, warp = threadIdx.y;
   Window w{INT32_MAX, INT32_MIN, INT32_MAX, INT32_MIN, 0, 0};
@@ -337,30 +382,34 @@ __device__ __forceinline__ Window stage_window(
   const int wp = (int)t.wp, hp = (int)t.hp;
   const int x0 = max(b.x0, 0), x1 = min(b.x1 + DEGREE, wp - 1);
   const int y0 = max(b.y0, 0), y1 = min(b.y1 + DEGREE, hp - 1);
-  // rows of 16-byte aligned segments where the table allows it
-  const bool vec = ((wp * NCH) & 3) == 0 &&
+  // rows of 16-byte aligned segments where the table allows it: the
+  // segment starts at the aligned-down element (a bf16 entry of three
+  // channels is 6 bytes, so its own start may be 2-byte aligned only)
+  const bool vec = ((wp * NCH) % VEC) == 0 &&
                    (reinterpret_cast<uintptr_t>(coeff) & 15) == 0;
   int f0 = x0 * NCH, f1 = (x1 + 1) * NCH;
   if (vec) {
-    f0 &= ~3;
-    f1 = (f1 + 3) & ~3;           // <= wp * NCH, itself a multiple of 4
+    f0 &= ~(VEC - 1);
+    f1 = (f1 + VEC - 1) & ~(VEC - 1);   // <= wp * NCH, a multiple of VEC
   }
-  // Staged rows are ``pitch`` floats apart: the segment's length padded
-  // to 4 more than a multiple of 32, so that a warp whose lanes' taps
-  // lie on several rows (a slanted or rotated view) spreads over the
-  // banks instead of meeting in a few (an unpadded length that is a
-  // multiple of 32 would put a whole column into one bank)
+  // Staged rows are ``pitch`` elements apart: the segment's length padded
+  // to 16 bytes more than a multiple of 128, so that a warp whose lanes'
+  // taps lie on several rows (a slanted or rotated view) spreads over
+  // the banks instead of meeting in a few (an unpadded length that is a
+  // multiple of 128 bytes would put a whole column into one bank); every
+  // staged row then starts 16-byte aligned
   const int span = f1 - f0, rows = y1 - y0 + 1;
-  const int pitch = span + ((4 - span) & 31);
-  if ((int64_t)rows * pitch * 4 > (int64_t)budget) return w;
+  const int pitch = span + ((VEC - span) & (BANKS - 1));
+  if ((int64_t)rows * pitch * (int64_t)sizeof(T) > (int64_t)budget) return w;
 
   for (int r = warp; r < rows; r += WARPS) {
-    const float* src = coeff + ((int64_t)(y0 + r) * wp * NCH + f0);
-    float* dst = win + r * pitch;
+    const T* src = coeff + ((int64_t)(y0 + r) * wp * NCH + f0);
+    T* dst = win + r * pitch;
     if (vec) {
-      for (int v = lane * 4; v < span; v += 128) cp_async16(dst + v, src + v);
+      for (int v = lane * VEC; v < span; v += 32 * VEC)
+        cp_async16(dst + v, src + v);
     } else {
-      for (int v = lane; v < span; v += 32) cp_async4(dst + v, src + v);
+      for (int v = lane; v < span; v += 32) copy_entry(dst + v, src + v);
     }
   }
   cp_async_wait();
@@ -370,10 +419,11 @@ __device__ __forceinline__ Window stage_window(
 
 // spline_at, with the taps read from the block's staged window where
 // the support lies inside it, and by spline_at itself where it does
-// not. Same weights, tap order and accumulation order: bit-identical.
-template <int DEGREE, int NCH>
+// not. Same weights, conversion, tap order and accumulation order:
+// bit-identical.
+template <int DEGREE, int NCH, typename T>
 __device__ __forceinline__ void spline_staged(
-    const float* win, const Window& w, const float* __restrict__ coeff,
+    const T* win, const Window& w, const T* __restrict__ coeff,
     const Table& t, float sx, float sy, float (&acc)[NCH]) {
   int bx, by;
   if (!support_base<DEGREE>(t, sx, sy, bx, by) || bx < w.x0 ||
@@ -386,7 +436,7 @@ __device__ __forceinline__ void spline_staged(
   float wx[DEGREE + 1], wy[DEGREE + 1];
   weights<DEGREE>(t.wmat, sx - selx, wx);
   weights<DEGREE>(t.wmat, sy - sely, wy);
-  const float* row = win + ((by - w.y0) * w.pitch + (bx * NCH - w.f0));
+  const T* row = win + ((by - w.y0) * w.pitch + (bx * NCH - w.f0));
 
 #pragma unroll
   for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
@@ -398,7 +448,8 @@ __device__ __forceinline__ void spline_staged(
 #pragma unroll
     for (int k = 0; k <= DEGREE; ++k) {
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) racc[c] += wx[k] * row[k * NCH + c];
+      for (int c = 0; c < NCH; ++c)
+        racc[c] += wx[k] * tap_value(row[k * NCH + c]);
     }
 #pragma unroll
     for (int c = 0; c < NCH; ++c) acc[c] += wy[j] * racc[c];
@@ -418,7 +469,9 @@ inline void set_table(Table& t, long long hp, long long wp, int degree,
   for (int i = 0; i < (degree + 1) * (degree + 1); ++i) t.wmat[i] = wmat[i];
 }
 
-// Dispatch a runtime (degree, nch) to ``F::template run<DEGREE, NCH>(args...)``
+// Dispatch a runtime (degree, nch) to ``F::template run<DEGREE, NCH>(args...)``;
+// a launcher dispatches the table's element type first, by the struct
+// F<T> it names
 template <typename F, int DEGREE, typename... A>
 cudaError_t by_nch(int nch, A&&... args) {
   switch (nch) {

@@ -62,6 +62,14 @@
 // share the rest. Overlapping the copy with the next tile's chain (a
 // persistent block with two windows) is left for later.
 //
+// bf16 tables (--coeff bf16). The kernel is templated on the table's
+// element type; a bf16 window holds its raw entries, so at the same
+// 32 KB budget a block can stage a box twice as large (more blocks of a
+// steep view, of a pole's neighbourhood, stage), and each tap is
+// converted to float where it is read (resample_common.cuh). The
+// coordinate chain, the weights and the stores are the float32
+// kernel's.
+//
 // The direct branch. A block whose box does not fit - it holds a pole,
 // straddles the periodic seam (the box spans the table's width) or a
 // cube-face edge of an IR source (the box jumps by section_px), or the
@@ -106,17 +114,17 @@ struct Params {
   Table table;
 };
 
-template <int DEGREE, int NCH, int TMODE>
+template <int DEGREE, int NCH, int TMODE, typename T>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y, min_blocks<DEGREE>())
 resample_inline_kernel(float* __restrict__ out,
-                       const float* __restrict__ coeff,
+                       const T* __restrict__ coeff,
                        const float* __restrict__ xfeat,
                        const float* __restrict__ yfeat,
                        const float* __restrict__ bmats,
                        const Params p) {
   extern __shared__ float4 shared[];
   __shared__ int sbox[4];
-  float* win = reinterpret_cast<float*>(shared);
+  T* win = reinterpret_cast<T*>(shared);
 
   const int width = (int)p.width, height = (int)p.height;
   const int bx0 = blockIdx.x * BLOCK_X;
@@ -176,9 +184,10 @@ resample_inline_kernel(float* __restrict__ out,
   }
 }
 
+template <typename T>
 struct Launch {
   template <int DEGREE, int NCH, int TMODE>
-  static cudaError_t go(float* out, const float* coeff, const float* xfeat,
+  static cudaError_t go(float* out, const T* coeff, const float* xfeat,
                         const float* yfeat, const float* bmats,
                         const Params& p, cudaStream_t s) {
     const dim3 block(BLOCK_X, BLOCK_Y);
@@ -186,7 +195,7 @@ struct Launch {
                     (unsigned)((p.height + BLOCK_Y * ROWS - 1) /
                                (BLOCK_Y * ROWS)));
     const size_t smem = (size_t)p.budget;
-    auto kernel = resample_inline_kernel<DEGREE, NCH, TMODE>;
+    auto kernel = resample_inline_kernel<DEGREE, NCH, TMODE, T>;
     // Above 48 KB (static shared memory included) a kernel must opt
     // in, per device. Every launch tells the current device's copy of
     // the instantiation what it needs, downwards too (a size left set
@@ -203,7 +212,7 @@ struct Launch {
   }
 
   template <int DEGREE, int NCH>
-  static cudaError_t run(int tmode, float* out, const float* coeff,
+  static cudaError_t run(int tmode, float* out, const T* coeff,
                          const float* xfeat, const float* yfeat,
                          const float* bmats, const Params& p,
                          cudaStream_t s) {
@@ -230,15 +239,16 @@ struct Launch {
 // count / target mode / source mode. ``wmat`` is a host array of
 // (degree+1)^2 floats, copied into the kernel parameters.
 // ``window_bytes`` is the shared memory a block may stage its source
-// window in; 0 makes every block gather from global memory.
+// window in; 0 makes every block gather from global memory. ``coeff``
+// is float32, or bfloat16 where ``coeff_bf16`` is set.
 extern "C" int envutil_resample_inline(
-    float* out, const float* coeff, const float* xfeat, const float* yfeat,
+    float* out, const void* coeff, const float* xfeat, const float* yfeat,
     const float* bmats, const float* wmat,
     long long height, long long width, long long hp, long long wp,
     int row0, int face_rows, int degree, int nch, int tmode, int smode,
     int gate_x, float glx, float gux, int gate_y, float gly, float guy,
     float kx, float cx, float ky, float cy, float pad, float section_px,
-    int window_bytes, void* stream) {
+    int window_bytes, int coeff_bf16, void* stream) {
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (smode < SMODE_SPH || smode > SMODE_BIATAN6) return (int)cudaErrorInvalidValue;
   if (window_bytes < 0 || (window_bytes & 15)) return (int)cudaErrorInvalidValue;
@@ -255,6 +265,11 @@ extern "C" int envutil_resample_inline(
   p.pick = Pickup{smode, gate_x, gate_y, glx, gux, gly, guy,
                   kx, cx, ky, cy, pad, section_px};
   set_table(p.table, hp, wp, degree, wmat);
-  return (int)by_degree<Launch>(degree, nch, tmode, out, coeff, xfeat, yfeat,
-                                bmats, p, (cudaStream_t)stream);
+  if (coeff_bf16)
+    return (int)by_degree<Launch<__nv_bfloat16>>(
+        degree, nch, tmode, out, (const __nv_bfloat16*)coeff, xfeat, yfeat,
+        bmats, p, (cudaStream_t)stream);
+  return (int)by_degree<Launch<float>>(degree, nch, tmode, out,
+                                       (const float*)coeff, xfeat, yfeat,
+                                       bmats, p, (cudaStream_t)stream);
 }

@@ -58,6 +58,11 @@
 // barriers and a test per tap to a kernel that waits on none of its
 // loads. So this kernel gathers every tap with spline_at.
 //
+// bf16 tables (--coeff bf16): the kernel is templated on the table's
+// element type and converts each tap to float where spline_at loads it
+// (resample_common.cuh); the bound is the per-tap arithmetic either
+// way, and the table's device memory halves.
+//
 // Left for later: less arithmetic per tap that keeps each tap's ray and
 // face bit-identical (none is known), sharing the (n+1)^2 support
 // between neighbouring taps (the TPU kernel's union-tap form), and the
@@ -108,10 +113,10 @@ __device__ __forceinline__ void derivative(const float (&p)[3], float (&q)[3],
     q[i] = __fsub_rn(__fadd_rn(q[i], __fmul_rn(t, p[i])), p[i]);
 }
 
-template <int DEGREE, int NCH, int TMODE>
+template <int DEGREE, int NCH, int TMODE, typename T>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 resample_inline_twined_kernel(float* __restrict__ out,
-                              const float* __restrict__ coeff,
+                              const T* __restrict__ coeff,
                               const float* __restrict__ xfeat,
                               const float* __restrict__ yfeat,
                               const float* __restrict__ bmats,
@@ -170,9 +175,10 @@ resample_inline_twined_kernel(float* __restrict__ out,
   for (int c = 0; c < NCH; ++c) dst[c] = acc[c];
 }
 
+template <typename T>
 struct Launch {
   template <int DEGREE, int NCH>
-  static cudaError_t run(int tmode, float* out, const float* coeff,
+  static cudaError_t run(int tmode, float* out, const T* coeff,
                          const float* xfeat, const float* yfeat,
                          const float* bmats, const float* spread,
                          const Params& p, cudaStream_t s) {
@@ -181,17 +187,17 @@ struct Launch {
     const size_t smem = (size_t)3 * p.n_taps * sizeof(float);
     switch (tmode) {
       case TMODE_AFFINE:
-        resample_inline_twined_kernel<DEGREE, NCH, TMODE_AFFINE>
+        resample_inline_twined_kernel<DEGREE, NCH, TMODE_AFFINE, T>
             <<<grid, block, smem, s>>>(out, coeff, xfeat, yfeat, bmats,
                                        spread, p);
         break;
       case TMODE_SPH:
-        resample_inline_twined_kernel<DEGREE, NCH, TMODE_SPH>
+        resample_inline_twined_kernel<DEGREE, NCH, TMODE_SPH, T>
             <<<grid, block, smem, s>>>(out, coeff, xfeat, yfeat, bmats,
                                        spread, p);
         break;
       case TMODE_CYL:
-        resample_inline_twined_kernel<DEGREE, NCH, TMODE_CYL>
+        resample_inline_twined_kernel<DEGREE, NCH, TMODE_CYL, T>
             <<<grid, block, smem, s>>>(out, coeff, xfeat, yfeat, bmats,
                                        spread, p);
         break;
@@ -208,17 +214,18 @@ struct Launch {
 // ``yfeat`` (2 nfy, H): the centre's feature rows, then the
 // DERIV_BIAS-biased ones. ``spread`` is a device array of n_taps
 // (cx, cy, w) triplets, at most MAX_TAPS of them (the shared-memory
-// stage). Returns cudaGetLastError() after the launch, or
+// stage). ``coeff`` is float32, or bfloat16 where ``coeff_bf16`` is set.
+// Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for an unsupported argument.
 extern "C" int envutil_resample_inline_twined(
-    float* out, const float* coeff, const float* xfeat, const float* yfeat,
+    float* out, const void* coeff, const float* xfeat, const float* yfeat,
     const float* bmats, const float* spread, const float* wmat,
     long long height, long long width, long long hp, long long wp,
     int row0, int face_rows, int degree, int nch, int tmode, int smode,
     int n_taps, int precise,
     int gate_x, float glx, float gux, int gate_y, float gly, float guy,
     float kx, float cx, float ky, float cy, float pad, float section_px,
-    void* stream) {
+    int coeff_bf16, void* stream) {
   constexpr int MAX_TAPS = 4096;  // 48 KiB of shared memory
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (smode < SMODE_SPH || smode > SMODE_BIATAN6) return (int)cudaErrorInvalidValue;
@@ -234,6 +241,11 @@ extern "C" int envutil_resample_inline_twined(
   p.pick = Pickup{smode, gate_x, gate_y, glx, gux, gly, guy,
                   kx, cx, ky, cy, pad, section_px};
   set_table(p.table, hp, wp, degree, wmat);
-  return (int)by_degree<Launch>(degree, nch, tmode, out, coeff, xfeat, yfeat,
-                                bmats, spread, p, (cudaStream_t)stream);
+  if (coeff_bf16)
+    return (int)by_degree<Launch<__nv_bfloat16>>(
+        degree, nch, tmode, out, (const __nv_bfloat16*)coeff, xfeat, yfeat,
+        bmats, spread, p, (cudaStream_t)stream);
+  return (int)by_degree<Launch<float>>(degree, nch, tmode, out,
+                                       (const float*)coeff, xfeat, yfeat,
+                                       bmats, spread, p, (cudaStream_t)stream);
 }

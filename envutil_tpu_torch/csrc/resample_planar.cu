@@ -61,6 +61,11 @@
 // 12-27% of that bound, paced by the chain's dependent operations and
 // the scalar tap loads.
 //
+// bf16 tables (--coeff bf16): both forms are templated on the table's
+// element type and convert each tap to float where spline_at loads it
+// (resample_common.cuh); the coordinate planes, the stack a stitch
+// writes into and the score stay float32.
+//
 // No staged window. Ablation on the H100 (PERF.md, section 6) put the
 // chain form's tap loads at 49% of the kernel at config 3 (0.048 of
 // 0.097 ms) and 9% at the lens facet, where the chain over every pixel
@@ -80,10 +85,10 @@ struct Params {
   Table table;
 };
 
-template <int DEGREE, int NCH>
+template <int DEGREE, int NCH, typename T>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 resample_planar_kernel(float* __restrict__ out,
-                       const float* __restrict__ coeff,
+                       const T* __restrict__ coeff,
                        const float* __restrict__ sxp,
                        const float* __restrict__ syp,
                        const float* __restrict__ mask,
@@ -103,12 +108,13 @@ resample_planar_kernel(float* __restrict__ out,
   for (int c = 0; c < NCH; ++c) dst[c] = acc[c];
 }
 
+template <typename T>
 struct Launch {
   template <int DEGREE, int NCH>
-  static cudaError_t run(float* out, const float* coeff, const float* sx,
+  static cudaError_t run(float* out, const T* coeff, const float* sx,
                          const float* sy, const float* mask, const Params& p,
                          cudaStream_t stream) {
-    resample_planar_kernel<DEGREE, NCH>
+    resample_planar_kernel<DEGREE, NCH, T>
         <<<frame_grid(p.height, p.width), dim3(BLOCK_X, BLOCK_Y), 0, stream>>>(
             out, coeff, sx, sy, mask, p);
     return cudaGetLastError();
@@ -127,11 +133,11 @@ struct ChainParams {
   Table table;
 };
 
-template <int DEGREE, int NCH>
+template <int DEGREE, int NCH, typename T>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 resample_planar_chain_kernel(float* __restrict__ out,
                              float* __restrict__ score,
-                             const float* __restrict__ coeff,
+                             const T* __restrict__ coeff,
                              const float* __restrict__ xfeat,
                              const float* __restrict__ yfeat,
                              const float* __restrict__ bmats,
@@ -160,13 +166,14 @@ resample_planar_chain_kernel(float* __restrict__ out,
   if (score != nullptr) score[pix] = hit ? mul(r[2], p.recip_step) : LOWEST;
 }
 
+template <typename T>
 struct ChainLaunch {
   template <int DEGREE, int NCH>
-  static cudaError_t run(float* out, float* score, const float* coeff,
+  static cudaError_t run(float* out, float* score, const T* coeff,
                          const float* xfeat, const float* yfeat,
                          const float* bmats, const ChainParams& p,
                          cudaStream_t stream) {
-    resample_planar_chain_kernel<DEGREE, NCH>
+    resample_planar_chain_kernel<DEGREE, NCH, T>
         <<<frame_grid(p.height, p.width), dim3(BLOCK_X, BLOCK_Y), 0, stream>>>(
             out, score, coeff, xfeat, yfeat, bmats, p);
     return cudaGetLastError();
@@ -179,20 +186,25 @@ struct ChainLaunch {
 // whole window is written). Returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for an unsupported degree or channel
 // count. ``wmat`` is a host array of (degree+1)^2 floats, copied into
-// the kernel parameters.
+// the kernel parameters. ``coeff`` is float32, or bfloat16 where
+// ``coeff_bf16`` is set.
 extern "C" int envutil_resample_planar(
-    float* out, const float* coeff, const float* sx, const float* sy,
+    float* out, const void* coeff, const float* sx, const float* sy,
     const float* mask, const float* wmat, long long height,
     long long width, long long hp, long long wp, int degree, int nch,
-    void* stream) {
+    int coeff_bf16, void* stream) {
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (height <= 0 || width <= 0) return 0;
   if ((height + BLOCK_Y - 1) / BLOCK_Y > 65535) return (int)cudaErrorInvalidValue;
   Params p;
   p.height = height; p.width = width;
   set_table(p.table, hp, wp, degree, wmat);
-  return (int)by_degree<Launch>(degree, nch, out, coeff, sx, sy, mask, p,
-                                (cudaStream_t)stream);
+  if (coeff_bf16)
+    return (int)by_degree<Launch<__nv_bfloat16>>(
+        degree, nch, out, (const __nv_bfloat16*)coeff, sx, sy, mask, p,
+        (cudaStream_t)stream);
+  return (int)by_degree<Launch<float>>(degree, nch, out, (const float*)coeff,
+                                       sx, sy, mask, p, (cudaStream_t)stream);
 }
 
 // Plain C entry point of the chain form (loaded with ctypes). ``xfeat``
@@ -202,12 +214,13 @@ extern "C" int envutil_resample_planar(
 // order. Every pixel is written: 0 where the ray misses the source.
 // ``score`` may be null; otherwise it is an (H, W) device plane that
 // receives each pixel's score, the ray's z times ``recip_step``.
+// ``coeff`` is float32, or bfloat16 where ``coeff_bf16`` is set.
 extern "C" int envutil_resample_planar_chain(
-    float* out, float* score, const float* coeff, const float* xfeat,
+    float* out, float* score, const void* coeff, const float* xfeat,
     const float* yfeat, const float* bmats, const float* wmat,
     const int* ipick, const float* fpick, long long height, long long width,
     long long hp, long long wp, int row0, int face_rows, int degree, int nch,
-    int tmode, float recip_step, void* stream) {
+    int tmode, float recip_step, int coeff_bf16, void* stream) {
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (tmode < TMODE_AFFINE || tmode > TMODE_FISH) return (int)cudaErrorInvalidValue;
   if (height <= 0 || width <= 0) return 0;
@@ -218,6 +231,11 @@ extern "C" int envutil_resample_planar_chain(
   p.recip_step = recip_step;
   if (!set_pickup(p.pick, ipick, fpick)) return (int)cudaErrorInvalidValue;
   set_table(p.table, hp, wp, degree, wmat);
-  return (int)by_degree<ChainLaunch>(degree, nch, out, score, coeff, xfeat,
-                                     yfeat, bmats, p, (cudaStream_t)stream);
+  if (coeff_bf16)
+    return (int)by_degree<ChainLaunch<__nv_bfloat16>>(
+        degree, nch, out, score, (const __nv_bfloat16*)coeff, xfeat, yfeat,
+        bmats, p, (cudaStream_t)stream);
+  return (int)by_degree<ChainLaunch<float>>(degree, nch, out, score,
+                                            (const float*)coeff, xfeat, yfeat,
+                                            bmats, p, (cudaStream_t)stream);
 }

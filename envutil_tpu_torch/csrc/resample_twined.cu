@@ -59,6 +59,11 @@
 // facet) per pixel, K times the deflection and the spline per live
 // tap: at 4 taps the operations bound the chain form.
 //
+// bf16 tables (--coeff bf16): both forms are templated on the table's
+// element type and convert each tap to float where spline_at loads it
+// (resample_common.cuh); the operand planes and the tap weights stay
+// as they are.
+//
 // No staged window. Ablation on the H100 (PERF.md, section 6) put the
 // chain form's tap loads at 55% of the kernel at config 3 twined and 9%
 // at the lens facet twined, where the three rays, three pickups and
@@ -86,17 +91,17 @@ struct Params {
 // arrangement of the loop and its loads that was built, with registers
 // to spare. The kernel's parameters are __grid_constant__, so the call
 // reads the table's weights where they are.
-template <int DEGREE, int NCH>
-__device__ __noinline__ void tap_spline(const float* __restrict__ coeff,
+template <int DEGREE, int NCH, typename T>
+__device__ __noinline__ void tap_spline(const T* __restrict__ coeff,
                                         const Table& t, float sx, float sy,
                                         float (&val)[NCH]) {
   spline_at<DEGREE, NCH>(coeff, t, sx, sy, val);
 }
 
-template <int DEGREE, int NCH>
+template <int DEGREE, int NCH, typename T>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 resample_twined_kernel(float* __restrict__ out,
-                       const float* __restrict__ coeff,
+                       const T* __restrict__ coeff,
                        const float* __restrict__ sxp,
                        const float* __restrict__ syp,
                        const float* __restrict__ duxp,
@@ -164,16 +169,17 @@ resample_twined_kernel(float* __restrict__ out,
   for (int c = 0; c < NCH; ++c) dst[c] = acc[c];
 }
 
+template <typename T>
 struct Launch {
   template <int DEGREE, int NCH>
-  static cudaError_t run(float* out, const float* coeff, const float* sx,
+  static cudaError_t run(float* out, const T* coeff, const float* sx,
                          const float* sy, const float* dux, const float* duy,
                          const float* dvx, const float* dvy,
                          const float* spread, const float* mask,
                          const void* tapw, const Params& p,
                          cudaStream_t stream) {
     const size_t smem = (size_t)3 * p.n_taps * sizeof(float);
-    resample_twined_kernel<DEGREE, NCH>
+    resample_twined_kernel<DEGREE, NCH, T>
         <<<frame_grid(p.height, p.width), dim3(BLOCK_X, BLOCK_Y), smem,
            stream>>>(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, mask,
                      tapw, p);
@@ -199,10 +205,10 @@ struct ChainParams {
 
 // four blocks an SM (64 registers): without the cap ptxas spilled 8
 // bytes at degree 1, two channels; no instantiation needs more
-template <int DEGREE, int NCH>
+template <int DEGREE, int NCH, typename T>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y, 4)
 resample_twined_chain_kernel(float* __restrict__ out,
-                             const float* __restrict__ coeff,
+                             const T* __restrict__ coeff,
                              const float* __restrict__ xfeat,
                              const float* __restrict__ yfeat,
                              const float* __restrict__ bmats,
@@ -288,14 +294,15 @@ resample_twined_chain_kernel(float* __restrict__ out,
   for (int c = 0; c < NCH; ++c) dst[c] = acc[c];
 }
 
+template <typename T>
 struct ChainLaunch {
   template <int DEGREE, int NCH>
-  static cudaError_t run(float* out, const float* coeff, const float* xfeat,
+  static cudaError_t run(float* out, const T* coeff, const float* xfeat,
                          const float* yfeat, const float* bmats,
                          const float* spread, const ChainParams& p,
                          cudaStream_t stream) {
     const size_t smem = (size_t)3 * p.n_taps * sizeof(float);
-    resample_twined_chain_kernel<DEGREE, NCH>
+    resample_twined_chain_kernel<DEGREE, NCH, T>
         <<<frame_grid(p.height, p.width), dim3(BLOCK_X, BLOCK_Y), smem,
            stream>>>(out, coeff, xfeat, yfeat, bmats, spread, p);
     return cudaGetLastError();
@@ -310,13 +317,14 @@ struct ChainLaunch {
 // (n_taps, H, W), 8-bit when ``tapw_u8`` is set, else float32. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for an
 // unsupported argument. ``wmat`` is a host array of (degree+1)^2 floats.
+// ``coeff`` is float32, or bfloat16 where ``coeff_bf16`` is set.
 extern "C" int envutil_resample_twined(
-    float* out, const float* coeff, const float* sx, const float* sy,
+    float* out, const void* coeff, const float* sx, const float* sy,
     const float* dux, const float* duy, const float* dvx, const float* dvy,
     const float* spread, const float* mask, const void* tapw,
     const float* wmat, long long height, long long width, long long hp,
     long long wp, int degree, int nch, int n_taps, int tapw_u8,
-    float lower_x, float period_x, void* stream) {
+    float lower_x, float period_x, int coeff_bf16, void* stream) {
   constexpr int MAX_TAPS = 4096;  // 48 KiB of shared memory
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (n_taps < 1 || n_taps > MAX_TAPS) return (int)cudaErrorInvalidValue;
@@ -327,9 +335,13 @@ extern "C" int envutil_resample_twined(
   p.n_taps = n_taps; p.tapw_u8 = tapw_u8;
   p.lower_x = lower_x; p.period_x = period_x;
   set_table(p.table, hp, wp, degree, wmat);
-  return (int)by_degree<Launch>(degree, nch, out, coeff, sx, sy, dux, duy,
-                                dvx, dvy, spread, mask, tapw, p,
-                                (cudaStream_t)stream);
+  if (coeff_bf16)
+    return (int)by_degree<Launch<__nv_bfloat16>>(
+        degree, nch, out, (const __nv_bfloat16*)coeff, sx, sy, dux, duy, dvx,
+        dvy, spread, mask, tapw, p, (cudaStream_t)stream);
+  return (int)by_degree<Launch<float>>(degree, nch, out, (const float*)coeff,
+                                       sx, sy, dux, duy, dvx, dvy, spread,
+                                       mask, tapw, p, (cudaStream_t)stream);
 }
 
 // Plain C entry point of the chain form (loaded with ctypes). ``xfeat``
@@ -338,13 +350,15 @@ extern "C" int envutil_resample_twined(
 // ``ipick`` / ``fpick`` as for envutil_resample_planar_chain. With
 // ``tap_valid`` each tap counts only where its deflected ray falls into
 // the mount's window (a source that does not cover every ray). Every
-// pixel is written: 0 where no tap is valid.
+// pixel is written: 0 where no tap is valid. ``coeff`` is float32, or
+// bfloat16 where ``coeff_bf16`` is set.
 extern "C" int envutil_resample_twined_chain(
-    float* out, const float* coeff, const float* xfeat, const float* yfeat,
+    float* out, const void* coeff, const float* xfeat, const float* yfeat,
     const float* bmats, const float* spread, const float* wmat,
     const int* ipick, const float* fpick, long long height, long long width,
     long long hp, long long wp, int row0, int face_rows, int degree, int nch,
-    int tmode, int n_taps, int precise, int tap_valid, void* stream) {
+    int tmode, int n_taps, int precise, int tap_valid, int coeff_bf16,
+    void* stream) {
   constexpr int MAX_TAPS = 4096;  // 48 KiB of shared memory
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (tmode < TMODE_AFFINE || tmode > TMODE_FISH) return (int)cudaErrorInvalidValue;
@@ -360,6 +374,12 @@ extern "C" int envutil_resample_twined_chain(
   if (!set_pickup(p.pick, ipick, fpick)) return (int)cudaErrorInvalidValue;
   if (tap_valid && p.pick.smode != SMODE_MOUNT) return (int)cudaErrorInvalidValue;
   set_table(p.table, hp, wp, degree, wmat);
-  return (int)by_degree<ChainLaunch>(degree, nch, out, coeff, xfeat, yfeat,
-                                     bmats, spread, p, (cudaStream_t)stream);
+  if (coeff_bf16)
+    return (int)by_degree<ChainLaunch<__nv_bfloat16>>(
+        degree, nch, out, (const __nv_bfloat16*)coeff, xfeat, yfeat, bmats,
+        spread, p, (cudaStream_t)stream);
+  return (int)by_degree<ChainLaunch<float>>(degree, nch, out,
+                                            (const float*)coeff, xfeat, yfeat,
+                                            bmats, spread, p,
+                                            (cudaStream_t)stream);
 }

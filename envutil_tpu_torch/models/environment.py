@@ -162,7 +162,10 @@ def source_from_arrays(coeff: np.ndarray, static: dict, pad: int,
     metrics as dicts or as their dataclasses, the projection as its
     integer code). This carries a table built elsewhere, for example by
     the JAX package, into the port unchanged, so a comparison of
-    lookups is not also one of prefilters."""
+    lookups is not also one of prefilters. A bfloat16 table (a numpy
+    array of dtype ``bfloat16``, as the JAX package hands it over, or
+    its 16-bit view, int16 or uint16) crosses bit for bit into a
+    bfloat16 tensor; any other is carried as float32."""
     device = resolve_device(device)
     fields = dict(static)
     for key in ("total_extent", "window_extent"):
@@ -172,7 +175,13 @@ def source_from_arrays(coeff: np.ndarray, static: dict, pad: int,
     m = fields.get("metrics")
     if m is not None and not isinstance(m, CubemapMetrics):
         fields["metrics"] = CubemapMetrics(**m)
-    table = torch.from_numpy(np.array(coeff, np.float32)).to(device)
+    coeff = np.asarray(coeff)
+    if coeff.dtype.name == "bfloat16" or coeff.dtype in (np.int16,
+                                                          np.uint16):
+        bits = np.array(coeff).view(np.int16)     # a writable copy
+        table = torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    else:
+        table = torch.from_numpy(np.array(coeff, np.float32)).to(device)
     spl = S.Spline2D(coeff=table, pad=int(pad), degree=int(degree),
                      bcs=tuple(bcs), core_shape=tuple(core_shape),
                      spherical=bool(spherical))

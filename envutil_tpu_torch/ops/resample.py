@@ -53,10 +53,21 @@ which hold the two branches against each other. ``window_model`` and
 twined inline kernel is bound by its per-tap arithmetic and gathers
 every tap from global memory (a window measured no gain there).
 
-Operands of ``resample_inline`` (all float32, contiguous):
+Every kernel takes its table ``coeff`` in float32 or bfloat16
+(``--coeff bf16``, as the JAX kernels take it) and evaluates in float32:
+each tap is converted where it is read, in the kernel and in its plain
+version (``ops/spline.eval_spline``), so kernel and plain version agree
+at bf16 as at float32. The other operands are float32 whatever the
+table's type. A bf16 window of the inline kernel holds twice the
+entries of a float32 one at the same budget (``window_model``'s
+``entry_bytes``).
+
+Operands of ``resample_inline`` (contiguous; float32 but for
+``coeff``):
 
 - ``out``: (H, W, C) output window, rewritten in place and returned.
-- ``coeff``: (Hp, Wp, C) braced spline coefficients.
+- ``coeff``: (Hp, Wp, C) braced spline coefficients, float32 or
+  bfloat16.
 - ``xfeat``: (Fx, W) per-column features (affine: planar x; sph/cyl:
   sin and cos of the azimuth).
 - ``yfeat``: (Fy, H) per-row features (affine: planar y shifted into
@@ -115,21 +126,24 @@ TILE_INLINE = (32, 16)
 
 _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
+# every entry point ends in (..., int coeff_bf16, void* stream)
 _INLINE = K.Library("resample_inline.cu", {
     "envutil_resample_inline":
-        [_p] * 6 + [_ll] * 4 + [_i] * 7 + [_f, _f, _i] + [_f] * 8 + [_i, _p]})
+        [_p] * 6 + [_ll] * 4 + [_i] * 7 + [_f, _f, _i] + [_f] * 8
+        + [_i, _i, _p]})
 _PLANAR = K.Library("resample_planar.cu", {
-    "envutil_resample_planar": [_p] * 6 + [_ll] * 4 + [_i, _i, _p],
+    "envutil_resample_planar": [_p] * 6 + [_ll] * 4 + [_i, _i, _i, _p],
     "envutil_resample_planar_chain":
-        [_p] * 9 + [_ll] * 4 + [_i] * 5 + [_f, _p]})
+        [_p] * 9 + [_ll] * 4 + [_i] * 5 + [_f, _i, _p]})
 _INLINE_TWINED = K.Library("resample_inline_twined.cu", {
     "envutil_resample_inline_twined":
-        [_p] * 7 + [_ll] * 4 + [_i] * 9 + [_f, _f, _i] + [_f] * 8 + [_p]})
+        [_p] * 7 + [_ll] * 4 + [_i] * 9 + [_f, _f, _i] + [_f] * 8
+        + [_i, _p]})
 _TWINED = K.Library("resample_twined.cu", {
     "envutil_resample_twined": [_p] * 12 + [_ll] * 4 + [_i] * 4
-    + [_f, _f, _p],
+    + [_f, _f, _i, _p],
     "envutil_resample_twined_chain":
-        [_p] * 9 + [_ll] * 4 + [_i] * 8 + [_p]})
+        [_p] * 9 + [_ll] * 4 + [_i] * 9 + [_p]})
 LIBRARIES = (_INLINE, _PLANAR, _INLINE_TWINED, _TWINED)
 
 
@@ -137,6 +151,11 @@ def build():
     """Build (if needed, one nvcc per source in parallel) and load the
     kernel libraries; returns the wall seconds this took."""
     return K.build_all(LIBRARIES)
+
+
+def _bf16(coeff) -> int:
+    """The entry points' ``coeff_bf16`` flag."""
+    return int(coeff.dtype == torch.bfloat16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,12 +181,17 @@ def _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
                          "for the cubemap/biatan6 source modes")
 
 
+def _check_table(out, coeff):
+    if coeff.dtype not in S.COEFF_DTYPES.values() \
+            or not coeff.is_contiguous() \
+            or coeff.device != out.device:
+        raise ValueError("coeff must be a contiguous float32 or bfloat16 "
+                         "table on out's device")
+
+
 def _check_features(out, coeff, xfeat, yfeat, bmats, degree, tmode,
                     face_rows, sets, tmodes):
-    if coeff.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{coeff.dtype} coefficient tables wait for a later slice; "
-            "the kernel takes float32")
+    _check_table(out, coeff)
     if tmode not in tmodes:
         raise ValueError(f"unknown tmode {tmode!r}")
     if not 0 <= degree <= MAX_DEGREE:
@@ -189,7 +213,7 @@ def _check_features(out, coeff, xfeat, yfeat, bmats, degree, tmode,
             or nf not in (1, 6):
         raise ValueError("bmats must be (1, 9), or (6, 9) with "
                          "face_rows > 0")
-    for t in (out, coeff, xfeat, yfeat, bmats):
+    for t in (out, xfeat, yfeat, bmats):
         if t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != out.device:
             raise ValueError("operands must be contiguous float32 "
@@ -233,7 +257,8 @@ def resample_inline(out, coeff, xfeat, yfeat, bmats, *, degree: int,
         yfeat.data_ptr(), bmats.data_ptr(), _wmat(degree), h, w, hp, wp,
         int(row0), int(face_rows), int(degree), int(nch), _TMODES[tmode],
         _SMODES[smode], _GATES[gate_x], glx, gux, _GATES[gate_y], gly, guy,
-        kx, cx, ky, cy, pad, section_px, int(window_bytes), stream)
+        kx, cx, ky, cy, pad, section_px, int(window_bytes), _bf16(coeff),
+        stream)
     if err != 0:
         raise RuntimeError(f"resample_inline kernel launch failed: CUDA "
                            f"error {err}")
@@ -322,7 +347,8 @@ def resample_inline_plain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
                           face_rows: int = 0, smode: str = "sph"):
     """The kernel's computation in plain PyTorch, with its signature:
     features -> ray -> ``torch.atan2`` -> gate -> ``eval_spline``
-    (ungated) on the padded table. Runs on any device."""
+    (ungated, each tap of a bf16 table upcast) on the padded table. Runs
+    on any device."""
     _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
            row0, face_rows, smode)
     sx, sy = inline_coords(xfeat, yfeat, bmats, tmode=tmode,
@@ -350,22 +376,25 @@ def support_bases(sx, sy, degree: int, hp: int, wp: int):
 
 
 def window_model(sx, sy, *, degree: int, table_shape, tile=TILE_INLINE,
-                 window_bytes: int = WINDOW_BYTES):
+                 window_bytes: int = WINDOW_BYTES, entry_bytes: int = 4):
     """The inline kernel's staged windows in plain PyTorch: for the
     padded coordinates ``sx``, ``sy`` (H, W) of a launch's pixels, the
-    (Hp, Wp, C) ``table_shape`` and the ``tile`` = (x, y) of output
-    pixels a block covers, one entry per block, (H/y, W/x) tensors:
-    ``x0, x1, y0, y1`` the table entries of the block's window (the
-    bounding box of its pixels' supports, clamped to the table), ``f0``
-    and ``span``
-    the first float and the floats of a staged row segment (16-byte
-    aligned where the table's rows are), ``pitch`` the floats between
-    staged rows (the span padded against bank conflicts), ``bytes`` the
-    window's size in shared memory, ``copied`` the bytes it copies, and
-    ``staged`` whether the block stages it: some pixel's support lies in
-    the table and the window fits ``window_bytes``. Used by
-    chip_smoke.py's staging figures and the tests; no render path calls
-    it."""
+    (Hp, Wp, C) ``table_shape``, the bytes of one table element
+    (``entry_bytes``: 4 for float32, 2 for bfloat16; the window holds
+    the table's elements as they are stored) and the ``tile`` = (x, y)
+    of output pixels a block covers, one entry per block, (H/y, W/x)
+    tensors: ``x0, x1, y0, y1`` the table entries of the block's window
+    (the bounding box of its pixels' supports, clamped to the table),
+    ``f0`` and ``span`` the first element and the elements of a staged
+    row segment (starting at the aligned-down element and 16 bytes long
+    in whole where the table's rows are a multiple of 16 bytes),
+    ``pitch`` the elements between staged rows (the span padded to 16
+    bytes more than a multiple of 128, against bank conflicts),
+    ``bytes`` the window's size in shared memory, ``copied`` the bytes
+    it copies, and ``staged`` whether the block stages it: some pixel's
+    support lies in the table and the window fits ``window_bytes``. Used
+    by chip_smoke.py's staging figures and the tests; no render path
+    calls it."""
     hp, wp, nch = table_shape
     tw, th = tile
     h, w = sx.shape
@@ -384,15 +413,20 @@ def window_model(sx, sy, *, degree: int, table_shape, tile=TILE_INLINE,
     some = x1 >= x0
     x0, x1 = x0.clamp(min=0), (x1 + degree).clamp(max=wp - 1)
     y0, y1 = y0.clamp(min=0), (y1 + degree).clamp(max=hp - 1)
+    if entry_bytes not in (2, 4):
+        raise ValueError(f"entry_bytes {entry_bytes}: the tables are "
+                         "float32 (4) or bfloat16 (2)")
+    vec, banks = 16 // entry_bytes, 128 // entry_bytes
     f0, f1 = x0 * nch, (x1 + 1) * nch
-    if (wp * nch) % 4 == 0:
-        f0, f1 = f0 // 4 * 4, (f1 + 3) // 4 * 4
+    if (wp * nch) % vec == 0:
+        f0, f1 = f0 // vec * vec, (f1 + vec - 1) // vec * vec
     span = f1 - f0
-    pitch = span + ((4 - span) % 32)    # 4 more than a multiple of 32
-    size = torch.where(some, (y1 - y0 + 1) * pitch * 4, 0)
+    pitch = span + ((vec - span) % banks)
+    rows = y1 - y0 + 1
+    size = torch.where(some, rows * pitch * entry_bytes, 0)
     staged = some & (size <= window_bytes) & (window_bytes > 0)
     return dict(x0=x0, x1=x1, y0=y0, y1=y1, f0=f0, span=span, pitch=pitch,
-                bytes=size, copied=(y1 - y0 + 1) * span * 4, staged=staged)
+                bytes=size, copied=rows * span * entry_bytes, staged=staged)
 
 
 def block_to_pixels(per_block, tile, h: int, w: int):
@@ -458,7 +492,7 @@ def resample_inline_twined(out, coeff, xfeat, yfeat, bmats, spread, *,
         _wmat(degree), h, w, hp, wp, int(row0), int(face_rows), int(degree),
         int(nch), _TMODES[tmode], _SMODES[smode], int(n_taps), int(precise),
         _GATES[gate_x], glx, gux, _GATES[gate_y], gly, guy,
-        kx, cx, ky, cy, pad, section_px, stream)
+        kx, cx, ky, cy, pad, section_px, _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_inline_twined kernel launch failed: "
                            f"CUDA error {err}")
@@ -514,7 +548,8 @@ def resample_inline_twined_plain(out, coeff, xfeat, yfeat, bmats, spread, *,
     """The twined kernel's computation in plain PyTorch, with its
     signature: the three ``inline_rays`` grids normalised, the derivative
     rays, and per tap the deflected ray's pickup and ``eval_spline``
-    (ungated) on the padded table. Runs on any device."""
+    (ungated, each tap of a bf16 table upcast) on the padded table. Runs
+    on any device."""
     _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
            row0, face_rows, smode, sets=2)
     _spread_taps(spread, n_taps, out.device)
@@ -532,10 +567,7 @@ def resample_inline_twined_plain(out, coeff, xfeat, yfeat, bmats, spread, *,
 
 
 def _check_planar(out, coeff, sx, sy, degree, merge_mask):
-    if coeff.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{coeff.dtype} coefficient tables wait for a later slice; "
-            "the kernel takes float32")
+    _check_table(out, coeff)
     if not 0 <= degree <= MAX_DEGREE:
         raise ValueError(f"degree {degree} outside 0..{MAX_DEGREE}")
     if out.dim() != 3 or coeff.dim() != 3 or coeff.shape[2] != out.shape[2]:
@@ -546,7 +578,7 @@ def _check_planar(out, coeff, sx, sy, degree, merge_mask):
     planes = (sx, sy) if merge_mask is None else (sx, sy, merge_mask)
     if any(tuple(t.shape) != tuple(out.shape[:2]) for t in planes):
         raise ValueError("sx, sy and merge_mask must be (H, W) like out")
-    for t in (out, coeff) + planes:
+    for t in (out,) + planes:
         if t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != out.device:
             raise ValueError("operands must be contiguous float32 "
@@ -574,7 +606,8 @@ def resample_planar(out, coeff, sx, sy, *, degree: int, merge_mask=None):
     err = fn(out.data_ptr(), coeff.data_ptr(), sx.data_ptr(),
              sy.data_ptr(),
              None if merge_mask is None else merge_mask.data_ptr(),
-             _wmat(degree), h, w, hp, wp, int(degree), int(nch), stream)
+             _wmat(degree), h, w, hp, wp, int(degree), int(nch),
+             _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_planar kernel launch failed: CUDA "
                            f"error {err}")
@@ -596,8 +629,8 @@ def clamp_coords(s, extent: int, degree: int):
 def resample_planar_plain(out, coeff, sx, sy, *, degree: int,
                           merge_mask=None):
     """The kernel's computation in plain PyTorch, with its signature:
-    clamp the coordinates, ``eval_spline`` (ungated) on the padded
-    table, overlay by the mask. Finite wherever the table is, whatever
+    clamp the coordinates, ``eval_spline`` (ungated, each tap of a bf16
+    table upcast) on the padded table, overlay by the mask. Finite wherever the table is, whatever
     the coordinates. Runs on any device."""
     _check_planar(out, coeff, sx, sy, degree, merge_mask)
     hp, wp, _ = coeff.shape
@@ -674,7 +707,7 @@ def resample_twined(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, *,
              _wmat(degree), h, w, hp, wp, int(degree), int(nch), int(n_taps),
              int(tap_weights is not None
                  and tap_weights.dtype != torch.float32),
-             float(lower), float(period), stream)
+             float(lower), float(period), _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_twined kernel launch failed: CUDA "
                            f"error {err}")
@@ -888,7 +921,7 @@ def resample_planar_chain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
              coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
              bmats.data_ptr(), _wmat(degree), ints, floats, h, w, hp, wp,
              int(row0), int(face_rows), int(degree), int(nch),
-             _CHAIN_TMODES[tmode], float(recip_step), stream)
+             _CHAIN_TMODES[tmode], float(recip_step), _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_planar_chain kernel launch failed: "
                            f"CUDA error {err}")
@@ -1040,7 +1073,7 @@ def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
              yfeat.data_ptr(), bmats.data_ptr(), spread.data_ptr(),
              _wmat(degree), ints, floats, h, w, hp, wp, int(row0),
              int(face_rows), int(degree), int(nch), _CHAIN_TMODES[tmode],
-             int(n_taps), int(precise), int(tap_valid), stream)
+             int(n_taps), int(precise), int(tap_valid), _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_twined_chain kernel launch failed: "
                            f"CUDA error {err}")

@@ -16,7 +16,10 @@ spherical prefilter in environment.h:356-522):
 
 Images are (H, W, C) tensors; coordinates are SoA pairs (x, y) in
 spline units (0 .. M-1 across knots). The coefficient layout is
-(Hp, Wp, C), channel-interleaved, so one tap is C contiguous floats.
+(Hp, Wp, C), channel-interleaved, so one tap is C contiguous entries:
+float32, or bfloat16 after ``storage_spline`` (``--coeff bf16``), which
+``eval_spline`` upcasts tap by tap and evaluates in float32, as the JAX
+evaluator does by type promotion.
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ PERIODIC = "periodic"
 NATURAL = "natural"    # point-mirrored continuation: x[-i] = 2x[0]-x[i]
 CONSTANT = "constant"  # clamp / edge replication
 ZEROPAD = "zero"
+
+# --coeff: the storage dtypes of a coefficient table
+COEFF_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 # extra brace rows/columns beyond the evaluation half-width, kept equal
 # to the JAX package's so both packages build the same padded tables
@@ -274,6 +280,17 @@ def make_spline_from_coeffs(coeffs: torch.Tensor, spline_degree: int,
                     bcs=tuple(bcs), core_shape=tuple(coeffs.shape[:2]))
 
 
+def storage_spline(spl: Spline2D, coeff_dtype: str) -> Spline2D:
+    """``spl`` with its table in the storage dtype ``coeff_dtype`` ("f32"
+    or "bf16"; ``--coeff``): a float32 table rounded to bfloat16 to the
+    nearest even, as the JAX package's ``astype`` rounds it, or ``spl``
+    itself where the table is stored so already."""
+    dtype = COEFF_DTYPES[coeff_dtype]
+    if spl.coeff.dtype == dtype:
+        return spl
+    return dataclasses.replace(spl, coeff=spl.coeff.to(dtype))
+
+
 def split(c, degree: int):
     """Split a gated spline coordinate into cell index (int64) and
     fraction, following the even/odd convention (zimt/eval.h:595-610):
@@ -306,7 +323,8 @@ def eval_spline(spl: Spline2D, x, y, apply_gate: bool = True):
     (safe evaluator semantics, zimt/eval.h:2345). The flat table index
     is clamped to the table, as the JAX package's
     ``take(mode="clip")`` does; indexing would raise (CPU) or read out
-    of bounds (CUDA) instead."""
+    of bounds (CUDA) instead. A bfloat16 table's taps are upcast to
+    float32 as they are read (exactly), so the result is float32."""
     h, w = spl.core_shape
     n = spl.degree
     if apply_gate:
@@ -319,6 +337,7 @@ def eval_spline(spl: Spline2D, x, y, apply_gate: bool = True):
 
     hp, wp, ch = spl.coeff.shape
     flat = spl.coeff.reshape(hp * wp, ch)
+    upcast = flat.dtype == torch.bfloat16
     # base index of the coefficient window in the padded table
     bx = sx + (spl.pad - n // 2)
     by = sy + (spl.pad - n // 2)
@@ -331,6 +350,8 @@ def eval_spline(spl: Spline2D, x, y, apply_gate: bool = True):
         for k in range(n + 1):
             idx = (row + (bx + k)).clamp_(0, hp * wp - 1)
             tap = flat[idx.reshape(-1)].reshape(idx.shape + (ch,))
+            if upcast:
+                tap = tap.to(torch.float32)
             term = wx[k][..., None] * tap
             row_acc = term if row_acc is None else row_acc + term
         term = wy[j][..., None] * row_acc

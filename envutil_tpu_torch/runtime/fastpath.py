@@ -52,8 +52,17 @@ summed, where the exact path does so per tap; the two agree unless the
 channel adaptation divides by alpha (2 -> 1, 2 -> 3, 4 -> 1, 4 -> 3
 channels), as in the JAX package's fast path.
 
-Twined stitches, masking jobs and bf16 tables raise
-``NotImplementedError`` naming the slice that will cover them.
+Every route takes a float32 or a bfloat16 table (``--coeff bf16``);
+the wrappers pass the table's type to the kernels, which evaluate in
+float32.
+
+A job whose spline degree exceeds the kernels' (``R.MAX_DEGREE``) takes
+``exact_frame``: the port's exact path on the card in row chunks, the
+counterpart of the JAX package's XLA graph for the jobs its Pallas
+kernels do not cover. The plan decides it, never a kernel's failure.
+
+Twined stitches and masking jobs raise ``NotImplementedError`` naming
+the slice that will cover them.
 """
 
 from __future__ import annotations
@@ -91,9 +100,10 @@ _INLINE_TARGETS = (Projection.RECTILINEAR, Projection.CUBEMAP,
 
 
 def uncovered(plan, sources):
-    """Why the port has no kernel for the job yet (a message naming the
-    later slice), or None when ``fused_frame``, ``planar_frame`` or, for
-    several sources, ``multi_frame`` covers it."""
+    """Why the port has no route on the card for the job yet (a message
+    naming the later slice), or None when ``fused_frame``,
+    ``planar_frame``, ``multi_frame`` for several sources or
+    ``exact_frame`` covers it."""
     if not sources:
         return "no source"
     if len(sources) > 1 and plan.spread is not None:
@@ -105,15 +115,34 @@ def uncovered(plan, sources):
             return f"{st.kind} sources wait for the masking slice"
         if st.masked != -1:
             return "masked (--mask_for) jobs wait for the masking slice"
-        if src.spl.degree > R.MAX_DEGREE:
-            return (f"degree {src.spl.degree} exceeds the kernel's "
-                    f"{R.MAX_DEGREE}")
-        if src.spl.coeff.dtype != torch.float32:
-            return "bf16 tables wait for a later slice"
+        if src.spl.coeff.dtype not in S.COEFF_DTYPES.values():
+            return f"{src.spl.coeff.dtype} tables are not covered"
         if not 1 <= src.spl.coeff.shape[-1] <= 4:
             return (f"{src.spl.coeff.shape[-1]}-channel sources are not "
                     "covered")
     return None
+
+
+def exact_route(sources):
+    """Whether the job takes ``exact_frame``: some source's spline
+    degree exceeds the kernels' range 0..``R.MAX_DEGREE``."""
+    return any(src.spl.degree > R.MAX_DEGREE for src in sources)
+
+
+def exact_frame(plan, sources):
+    """Render the frame through the port's exact path
+    (``render.render_exact``: stepper rays, lookups, the synopsis, in
+    row chunks) on the sources' device: the route of the jobs no kernel
+    covers by its degree. Counted in ``exact_frame.launches``, once a
+    frame, as the kernels' wrappers count theirs. Returns the
+    (H, W, nchannels) image tensor."""
+    from . import render as RD
+    img = RD.render_exact(plan, sources)
+    exact_frame.launches += 1
+    return img
+
+
+exact_frame.launches = 0
 
 
 def inline_mode(plan, src):
@@ -629,6 +658,14 @@ def render_fast(plan, sources, verbose: bool = False) -> np.ndarray:
     if reason is not None:
         raise NotImplementedError(
             f"no CUDA kernel for this job yet: {reason}")
+    if exact_route(sources):
+        img = exact_frame(plan, sources)
+        if verbose:
+            print(f"fastpath: the exact path over {img.shape[0]}x"
+                  f"{img.shape[1]} px on {img.device} (degree "
+                  f"{max(s.spl.degree for s in sources)} exceeds the "
+                  f"kernels' {R.MAX_DEGREE})")
+        return img.cpu().numpy()
     if len(sources) > 1:
         log = []
         img = multi_frame(plan, sources, log=log)

@@ -5,9 +5,11 @@ Counterpart of envutil_tpu/runtime/loader.py: cubemap/biatan6 facets
 (a 1:6 stripe or a ``%s`` cubeface series) build the IR spline,
 everything else a mount source; a facet that ``--twine_pyramid``
 marked (``Args._apply_pyramid``) is box-decimated before its spline is
-built. The on-disk coefficient cache and bf16 tables wait for later
-slices; the TPU fast path's rolled/pitched/section source variants are
-not needed on the card at all.
+built. ``--coeff bf16`` stores the table in bfloat16 (half the device
+memory of float32; the kernels evaluate in float32), and
+``--coeff_cache DIR`` keeps prefiltered tables on disk
+(runtime/coeff_cache.py). The TPU fast path's rolled/pitched/section
+source variants are not needed on the card at all.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ from ..core.metrics import CubemapMetrics
 from ..io import imgio
 from ..models import cubemap as CBM
 from ..models import environment as E
-from . import assets
+from ..ops import spline as S
+from . import assets, coeff_cache
+from .platform import resolve_device
 
 _CUBE = (Projection.CUBEMAP, Projection.BIATAN6)
 
@@ -86,27 +90,42 @@ def _make_source_from(fct: Facet, args, spl) -> E.FacetSource:
 
 
 def load_source(fct: Facet, args, device=None) -> E.FacetSource:
-    """Build (or fetch from the asset cache) the FacetSource for a
-    facet, on ``device``."""
+    """Build (or fetch from the asset cache, then from the disk cache)
+    the FacetSource for a facet, on ``device``, its table in the storage
+    dtype ``args.coeff_dtype``."""
     if fct.masked != -1 and args.nchannels in (1, 3):
         raise NotImplementedError(
             "--mask_for paint sources wait for the masking slice of the "
             "PyTorch port")
-    if getattr(args, "coeff_dtype", "f32") != "f32":
-        raise NotImplementedError(
-            "bf16 coefficient tables wait for a later slice of the "
-            "PyTorch port")
-
+    device = resolve_device(device)
+    coeff_dtype = getattr(args, "coeff_dtype", "f32")
+    # the JAX package's key (envutil_tpu/runtime/loader.py), so that the
+    # two packages' disk entries are one; the RAM cache adds the device
     key = (fct.asset_key, args.spline_degree, args.prefilter_degree,
-           fct.projection, str(device), fct.pyramid_level)
-    cached = assets.cache.find(key)
+           fct.projection, args.nchannels if fct.masked != -1 else -1,
+           coeff_dtype, fct.pyramid_level)
+    ram_key = key + (str(device),)
+    cached = assets.cache.find(ram_key)
     if cached is not None:
         if args.verbose:
             print(f"asset {fct.asset_key} is already present in RAM")
         return _make_source_from(fct, args, cached)
-    img = _read_facet_image(fct, args)
-    if fct.pyramid_level > 0:
-        img = _decimate(img, fct.pyramid_level)
-    src = _build(fct, args, img, device)
-    assets.cache.add(key, src.spl)
+
+    # the on-disk cache skips the image read and the prefilter across
+    # process restarts; its tables are stored in their storage dtype
+    spl = coeff_cache.load(args, fct, key, device)
+    if spl is not None:
+        src = _make_source_from(fct, args,
+                                S.storage_spline(spl, coeff_dtype))
+    else:
+        img = _read_facet_image(fct, args)
+        if fct.pyramid_level > 0:
+            img = _decimate(img, fct.pyramid_level)
+        src = _build(fct, args, img, device)
+        del img
+        # the float32 table is dropped as its bf16 copy replaces it, so
+        # the peak is one float32 table and its copy
+        src.spl = S.storage_spline(src.spl, coeff_dtype)
+        coeff_cache.store(args, fct, key, src.spl)
+    assets.cache.add(ram_key, src.spl)
     return src

@@ -8,9 +8,12 @@ holds the target geometry and one camera-to-facet basis per facet;
 * on CUDA through one launch of an inline-coordinates kernel or of a
   planar kernel (runtime/fastpath.py), each with its twined form, and
   for an untwined stitch one such launch per facet and the synopsis of
-  their stacks, raising ``NotImplementedError`` for jobs the port has
-  no kernel for yet - the plain path never stands in for a kernel on
-  the card;
+  their stacks; a job whose spline degree exceeds the kernels'
+  (``ops.resample.MAX_DEGREE``) takes the exact path below on the card,
+  as the JAX package sends it to its XLA graph. Jobs the port has no
+  route for yet raise ``NotImplementedError``: the plan picks the
+  route, and the plain versions never stand in for a kernel on the
+  card;
 * on the CPU through the exact path: target rays per facet
   (models/stepper), ``environment.lookup`` and ``spline.eval_spline``,
   then the synopsis (models/synopsis: voronoi, voronoi_plus,
@@ -224,6 +227,29 @@ def _render_window(plan: RenderPlan, sources: List[E.FacetSource],
                       precise=plan.twine_precise)
 
 
+def render_exact(plan: RenderPlan, sources: List[E.FacetSource],
+                 amplify: Optional[float] = None) -> torch.Tensor:
+    """The exact path over the plan's window on the sources' device, in
+    row chunks that bound the working set to 512 MB of float32
+    intermediates over pixels * facets * taps; the (H, W, C) tensor."""
+    from . import fastpath
+
+    y0, y1, x0, x1 = fastpath.frame_window(plan)
+    taps = len(plan.spread) if plan.spread else 1
+    budget = 512 * 1024 * 1024 // 4
+    per_px = max(1, len(sources)) * (4 + plan.nchannels) * max(1, taps // 4)
+    chunks = max(1, int(np.ceil((y1 - y0) * (x1 - x0) * per_px / budget)))
+    chunk_rows = max(1, (y1 - y0 + chunks - 1) // chunks)
+    parts = []
+    for yy in range(y0, y1, chunk_rows):
+        out = _render_window(plan, sources,
+                             (yy, min(yy + chunk_rows, y1), x0, x1))
+        if amplify is not None:
+            out = E.apply_brighten(out, amplify)
+        parts.append(out)
+    return torch.cat(parts, dim=0)
+
+
 def render_frame(plan: RenderPlan, sources: List[E.FacetSource],
                  verbose: bool = False,
                  amplify: Optional[float] = None,
@@ -248,25 +274,7 @@ def render_frame(plan: RenderPlan, sources: List[E.FacetSource],
         if amplify is not None:
             img = E.apply_brighten(torch.from_numpy(img), amplify).numpy()
     else:
-        # bound the working set: 512 MB of float32 intermediates over
-        # pixels * facets * taps
-        taps = len(plan.spread) if plan.spread else 1
-        budget = 512 * 1024 * 1024 // 4
-        per_px = max(1, len(sources)) * (4 + plan.nchannels) \
-            * max(1, taps // 4)
-        chunks = max(1, int(np.ceil(n_px * per_px / budget)))
-        rows = y1 - y0
-        chunk_rows = max(1, (rows + chunks - 1) // chunks)
-        parts = []
-        yy = y0
-        while yy < y1:
-            ye = min(yy + chunk_rows, y1)
-            out = _render_window(plan, sources, (yy, ye, x0, x1))
-            if amplify is not None:
-                out = E.apply_brighten(out, amplify)
-            parts.append(out)
-            yy = ye
-        img = torch.cat(parts, dim=0).numpy().astype(np.float32)
+        img = render_exact(plan, sources, amplify).numpy().astype(np.float32)
     msec = (time.perf_counter() - start) * 1000.0
     if verbose:
         print(f"frame rendering time: {msec:.1f} ms "

@@ -119,8 +119,9 @@ def test_render_matches_jax_and_oracle(env, oracle_sources, name, proj, w,
 
 def test_uncovered_jobs_raise(env):
     """No plain path stands in for a kernel: jobs the port has no kernel
-    for (twined stitches, bf16 tables, --mask_for paint) raise
-    NotImplementedError naming the later slice. A twined single-facet
+    for (twined stitches, --mask_for paint) raise NotImplementedError
+    naming the later slice; a bf16 table is covered and renders what the
+    float32 table it upcasts to renders. A twined single-facet
     job is covered: a one-tap spread at the pixel centre renders what
     the untwined job renders, on the exact path and on the kernel
     route. So is an untwined stitch, on the kernel route
@@ -161,8 +162,11 @@ def test_uncovered_jobs_raise(env):
     plan = build_plan(port_args(TP.FISHEYE, 32, 32, 120.0, [tf], 3), [tf])
     bf16 = TE.FacetSource(static=src.static, spl=dataclasses.replace(
         src.spl, coeff=src.spl.coeff.to(torch.bfloat16)))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        FP.planar_frame(plan, bf16)
+    upcast = TE.FacetSource(static=src.static, spl=dataclasses.replace(
+        src.spl, coeff=bf16.spl.coeff.float()))
+    assert FP.uncovered(plan, [bf16]) is None
+    torch.testing.assert_close(FP.planar_frame(plan, bf16),
+                               FP.planar_frame(plan, upcast), rtol=0, atol=0)
     painted = TE.FacetSource(
         static=dataclasses.replace(src.static, masked=1), spl=src.spl)
     with pytest.raises(NotImplementedError, match="mask_for"):

@@ -500,7 +500,8 @@ def test_twined_plain_matches_jax_whole_frame_kernel():
 def test_twined_contract_nonfinite_wrap_and_checks():
     """The wrapper's contract: NaN/inf planes stay harmless (clamped
     without a mask, untouched under one, unread under zero weights); a
-    deflected x is wrapped by ``wrap_x``; bad operands raise."""
+    deflected x is wrapped by ``wrap_x``; bad operands raise; a bfloat16
+    table renders what the float32 table it upcasts to renders."""
     rng = np.random.default_rng(12)
     table = _t(rng.uniform(-1, 1, (40, 72, 2)))
     h, w = 16, 24
@@ -545,8 +546,11 @@ def test_twined_contract_nonfinite_wrap_and_checks():
                           tap_weights=live, **kw)
     with pytest.raises(ValueError, match="triplets"):
         R.resample_twined(nan, table, *clean, spread[:3], **kw)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        R.resample_twined(nan, table.to(torch.bfloat16), *clean, spread, **kw)
+    half = table.to(torch.bfloat16)
+    torch.testing.assert_close(
+        R.resample_twined(nan.clone(), half, *clean, spread, **kw),
+        R.resample_twined(nan.clone(), half.float(), *clean, spread, **kw),
+        rtol=0, atol=0)
 
 
 # ----------------------------------------------- (e) the planar twined route
