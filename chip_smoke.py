@@ -37,12 +37,26 @@ events. The paths:
   voronoi; resample_planar_chain with its score output), the same
   facets with alpha (voronoi_plus), config 5b (six 1536x1152
   lens-corrected facets, voronoi) and config 5c (three 4096x2048
-  brackets, hdr_merge; resample_inline), each checked against the exact
-  path and timed per facet, combine and frame.
+  brackets, hdr_merge; resample_inline) and config 5d (six 1536x1152
+  rectilinear facets, yaw 60 i), each checked against the exact path
+  and timed per facet, combine and frame;
+- twined stitches through the same route once per tap of the spread
+  (one one-tap launch per facet and tap, the twined chain form with its
+  score for voronoi, resample_inline_twined for hdr_merge brackets,
+  then that tap's combine, summed by weight): config 5d at 2x2 taps
+  (the 4-tap twine its comment in benchmarks.py names) and at 2x1 (what
+  its twine=1 gives), config 5 with alpha and config 5c at 2x2, each
+  against the exact path with the launches counted and timed per
+  facet, combine and frame; config 5d at one tap off the pixel centre;
+  the lens and translated facets stitched under twining (the twined
+  planes form with its score); and a twined stereographic view of the
+  pole of an 8192x4096 smooth sphere (the twined chain form), held
+  against the exact path below 80 degrees of latitude and reported
+  above.
 
-The planar chain kernel's score output is held against its plain
-version over every small chain case, with the pixels required bit-equal
-to the launch without it.
+Both chain forms' score outputs are held against their plain versions
+over every small chain case (the twined one at one tap), with the
+pixels required bit-equal to the launch without it.
 
 bf16 tables (--coeff bf16): every small phase runs its cases again on
 bfloat16 tables (each kernel against its plain version on the same
@@ -67,7 +81,8 @@ its own as the plain window model's reckoning (ops/resample.
 window_model), not as a reading of the kernel.
 
 Every phase runs; any failure raises and the script exits non-zero. It
-exits non-zero without a result when no CUDA card is available. The
+exits non-zero without a result when no CUDA card is available. It
+prints its own command time (the build included) before the record. The
 second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -158,6 +173,8 @@ BF16_DB = 40.0
 # (times the noise's gradient), and sums in another order; an indexing
 # or weighting fault shows as O(0.1..1)
 EXACT_BOUND = 1e-3
+
+T_START = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -910,7 +927,8 @@ def twined_inline_operands(plan, src):
 def twined_kernel_vs_plain(plan, src):
     """Launch the inline twined kernel and its plain version on the same
     operands; returns (max abs difference over the compared pixels,
-    pixels excluded because a tap's ray lies at a cube-face edge)."""
+    pixels excluded because a tap's ray lies at a cube-face edge, plain
+    output)."""
     import torch
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.runtime import fastpath as FP
@@ -938,7 +956,7 @@ def twined_kernel_vs_plain(plan, src):
                                       smode=kw["smode"])
                 skip |= near_cell_edge(sx) | near_cell_edge(sy)
     diff = torch.where((skip | edge)[..., None], 0.0, (out_k - out_p).abs())
-    return float(diff.max()), int(edge.sum())
+    return float(diff.max()), int(edge.sum()), out_p
 
 
 def phase_small_inline_twined(coeff_dtype="f32"):
@@ -982,7 +1000,8 @@ def phase_small_inline_twined(coeff_dtype="f32"):
                         for precise in (False, True):
                             plan = dataclasses.replace(
                                 base, twine_precise=precise)
-                            err, edge = twined_kernel_vs_plain(plan, src)
+                            err, edge, _p = twined_kernel_vs_plain(plan,
+                                                                   src)
                             check(err <= KERNEL_BOUND,
                                   f"inline twined kernel ({sname} source, "
                                   f"degree {degree}, C {nch}, "
@@ -1240,12 +1259,14 @@ def chain_vs_plain(plan, src):
 
 
 def chain_score_vs_plain(plan, src):
-    """Launch the planar chain kernel with and without its score output
-    and its plain version with it, on the same operands; requires the
-    kernel's pixels bit-equal with and without the score, its score
-    LOWEST exactly where the plain version's is (away from window and
-    face edges); returns the max abs score difference over the pixels
-    both score, in units of the source's recip_step (so of z)."""
+    """Launch a chain form (the planar one, or the twined one for a
+    one-tap twined plan) with and without its score output and its plain
+    version with it, on the same operands; requires the kernel's pixels
+    bit-equal with and without the score, its score LOWEST exactly where
+    the plain version's is (away from window and face edges, of the
+    tap's deflected ray when twined); returns the max abs score
+    difference over the pixels both score, in units of the source's
+    recip_step (so of z), and their count."""
     import torch
     from envutil_tpu_torch.models import synopsis as SYN
     from envutil_tpu_torch.ops import resample as R
@@ -1254,23 +1275,28 @@ def chain_score_vs_plain(plan, src):
     coeff = src.spl.coeff
     shape = (plan.height, plan.width, coeff.shape[-1])
     args = [coeff] + [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
+    spread = ops.pop("spread", None)
     edge = chain_edges(dict(ops, xfeat=args[1], yfeat=args[2],
-                            bmats=args[3]))
+                            bmats=args[3]), spread)
+    if spread is None:
+        kernel, plain = R.resample_planar_chain, R.resample_planar_chain_plain
+    else:
+        args.append(spread)
+        kernel, plain = R.resample_twined_chain, R.resample_twined_chain_plain
     rs = src.static.recip_step
     nan = torch.full(shape, float("nan"), device="cuda")
-    bare = R.resample_planar_chain(nan.clone(), *args, **ops)
+    bare = kernel(nan.clone(), *args, **ops)
     sk = torch.full(shape[:2], float("nan"), device="cuda")
     sp = sk.clone()
-    with_score = R.resample_planar_chain(nan.clone(), *args, score=sk,
-                                         recip_step=rs, **ops)
-    R.resample_planar_chain_plain(nan.clone(), *args, score=sp,
-                                  recip_step=rs, **ops)
+    with_score = kernel(nan.clone(), *args, score=sk, recip_step=rs, **ops)
+    plain(nan.clone(), *args, score=sp, recip_step=rs, **ops)
     torch.cuda.synchronize()
-    check(bool(torch.equal(bare, with_score)), "the planar chain kernel's "
-          "pixels differ with and without the score output")
+    what = kernel.__name__
+    check(bool(torch.equal(bare, with_score)), f"{what}'s pixels differ "
+          f"with and without the score output")
     miss_k, miss_p = sk == SYN.LOWEST, sp == SYN.LOWEST
-    check(not bool(((miss_k != miss_p) & ~edge).any()), "the planar chain "
-          "kernel's score misses where its plain version's does not")
+    check(not bool(((miss_k != miss_p) & ~edge).any()), f"{what}'s score "
+          f"misses where its plain version's does not")
     both = ~miss_k & ~miss_p
     check(bool(torch.isfinite(sk[both]).all()), "score not finite")
     err = float((sk - sp)[both].abs().max()) / rs if bool(both.any()) \
@@ -1322,12 +1348,17 @@ def phase_small_chain(coeff_dtype="f32"):
     to every target of CHAIN_TARGETS (the five target modes, a pole, the
     seam, cube-face edges, window edges), degrees 0-7 and 1-4 channels
     in turn, each untwined and twined (1, 4 and 9 taps, --twine_precise
-    off and on in turn)."""
+    off and on in turn), and each chain form's score output: the planar
+    one's, and the twined one's at one tap off the pixel centre (a
+    twined stitch's launch)."""
     import dataclasses
     from envutil_tpu_torch.core.conventions import Projection as P
     rng = np.random.default_rng(27)
     spreads = list(small_spreads().values())
-    worst = {"planar": 0.0, "twined": 0.0, "score": 0.0}
+    one_taps = [[(0.25, 0.0, 1.0)], [(-0.125, 0.375, 1.0)],
+                [(0.5, -0.25, 1.0)]]
+    worst = {"planar": 0.0, "twined": 0.0, "score": 0.0,
+             "twined score": 0.0}
     edges = {"planar": [0, 0], "twined": [0, 0]}
     i = 0
     for sname, kind, sw, sh, shfov, kw in CHAIN_SOURCES:
@@ -1354,12 +1385,20 @@ def phase_small_chain(coeff_dtype="f32"):
             check(err <= SCORE_BOUND, f"planar chain kernel's score "
                   f"({sname} -> {tname}) disagrees: {err}")
             worst["score"] = max(worst["score"], err)
+            oplan = dataclasses.replace(
+                plan_for(fct, proj, w, h, hfov, degree, ypr, nch,
+                         twine=one_taps[i % 3]), twine_precise=bool(i % 2))
+            err = chain_score_vs_plain(oplan, src)[0]
+            check(err <= SCORE_BOUND, f"twined chain kernel's score "
+                  f"({sname} -> {tname}) disagrees: {err}")
+            worst["twined score"] = max(worst["twined score"], err)
             i += 1
         print(f"chain forms vs plain ({coeff_dtype}): {sname} source x "
               f"{len(CHAIN_TARGETS)} "
               f"targets: worst so far planar {worst['planar']:.3e}, twined "
               f"{worst['twined']:.3e} (bound {KERNEL_BOUND:g}), planar "
-              f"score {worst['score']:.3e} of z (bound {SCORE_BOUND:g}); "
+              f"score {worst['score']:.3e} of z, twined score at one tap "
+              f"{worst['twined score']:.3e} of z (bound {SCORE_BOUND:g}); "
               f"pixels bit-equal with and without the score", flush=True)
     for form in edges:
         print(f"{form} chain vs plain ({coeff_dtype}): {i} cases, worst "
@@ -1436,13 +1475,13 @@ def twined_inline_path(name, plan, src, reference=None):
               f"(bound >= {BF16_DB:g})", flush=True)
         check(db >= BF16_DB, f"{name}: {db:.2f} dB against float32")
     del frame
-    err_k, _edge = twined_kernel_vs_plain(plan, src)
+    err_k, _edge, _p = twined_kernel_vs_plain(plan, src)
     print(f"{name}: inline twined vs plain at full shape: max abs diff "
           f"{err_k:.3e} (bound {KERNEL_BOUND:g})", flush=True)
     check(err_k <= KERNEL_BOUND, f"inline twined kernel disagrees at {name}")
 
     tensors, kw = twined_inline_operands(plan, src)
-    coeff, n_deg, nch = src.spl.coeff, src.spl.degree, src.spl.coeff.shape[-1]
+    coeff, nch = src.spl.coeff, src.spl.coeff.shape[-1]
     buf = torch.empty((plan.height, plan.width, nch), device="cuda")
     for _ in range(3):
         R.resample_inline_twined(buf, coeff, *tensors, **kw)
@@ -1452,20 +1491,7 @@ def twined_inline_path(name, plan, src, reference=None):
         buf, coeff, *tensors, **kw), 3)
     frame_ms = events_ms(lambda: FP.fused_frame(plan, src, out=buf), 20)
     n_px = plan.height * plan.width
-    coords = [(sx, sy) for sx, sy, _w in R.inline_tap_coords(
-        *tensors, tmode=kw["tmode"], consts=kw["consts"], row0=kw["row0"],
-        face_rows=kw["face_rows"], smode=kw["smode"], precise=kw["precise"])]
-    table = touched_bytes(coeff, *coords[0], n_deg, coords[1:])
-    del coords
-    feat = sum(t.numel() * 4 for t in tensors)
-    bytes_ms = (table + n_px * nch * 4 + feat) / HBM_BYTES_PER_S * 1e3
-    # per pixel: three rays (15 flops each), their normalisation (12
-    # each) and differencing (6); per tap: the deflection (12), the
-    # pickup as for the inline kernel, the spline and the weighted sum
-    src_flops = {"sph": 53, "cubemap": 20, "biatan6": 60}[kw["smode"]]
-    ops_ms = n_px * (3 * 27 + 6 + taps * (12 + src_flops + spline_flops(
-        n_deg, nch) + 2 * nch)) / F32_FLOPS * 1e3
-    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    _b, by, bytes_ms, ops_ms, table = inline_twined_bound(plan, src)
     print(f"{name}: steady-state frame (fused_frame into one reused buffer,"
           f" median of 20) {frame_ms:.4f} ms = {n_px / 1e3 / frame_ms:.1f} "
           f"Mpix/s; kernel alone {kernel_ms:.4f} ms; plain version "
@@ -1485,6 +1511,34 @@ def twined_inline_path(name, plan, src, reference=None):
     if db is not None:
         rec["psnr_vs_f32_db"] = db
     return rec
+
+
+def inline_twined_bound(plan, src):
+    """(bound ms, 'bytes'/'operations', bytes ms, ops ms, touched bytes)
+    of one inline twined launch over the plan's frame: the table entries
+    under all taps, counted once, the output and the features; per
+    pixel three rays, their normalisation and differencing, per tap the
+    deflection, the pickup, the spline and the weighted sum."""
+    from envutil_tpu_torch.ops import resample as R
+    tensors, kw = twined_inline_operands(plan, src)
+    coeff, n_deg, nch = src.spl.coeff, src.spl.degree, src.spl.coeff.shape[-1]
+    n_px = plan.height * plan.width
+    coords = [(sx, sy) for sx, sy, _w in R.inline_tap_coords(
+        *tensors, tmode=kw["tmode"], consts=kw["consts"], row0=kw["row0"],
+        face_rows=kw["face_rows"], smode=kw["smode"], precise=kw["precise"])]
+    table = touched_bytes(coeff, *coords[0], n_deg, coords[1:])
+    del coords
+    feat = sum(t.numel() * 4 for t in tensors)
+    bytes_ms = (table + n_px * nch * 4 + feat) / HBM_BYTES_PER_S * 1e3
+    # per pixel: three rays (15 flops each), their normalisation (12
+    # each) and differencing (6); per tap: the deflection (12), the
+    # pickup as for the inline kernel, the spline and the weighted sum
+    src_flops = {"sph": 53, "cubemap": 20, "biatan6": 60}[kw["smode"]]
+    ops_ms = n_px * (3 * 27 + 6 + kw["n_taps"] * (
+        12 + src_flops + spline_flops(n_deg, nch) + 2 * nch)) \
+        / F32_FLOPS * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, bytes_ms, ops_ms, table
 
 
 def live_tap_table(coeff, n, ops, spread):
@@ -1711,6 +1765,10 @@ def planes_turns(plan, src, src_b, name):
 
 # ---------------------------------------------------------------- stitches
 
+# the pole view's regions: within and outside this many degrees of
+# latitude (the CPU tests hold the planar twined route to 5e-3 below it)
+POLE_LAT = 80
+
 # a pixel whose two best voronoi scores lie within this relative margin
 # may take the other champion under an ulp of its rays (the chain forms
 # each ray from the axis features, the exact path takes the stepper's
@@ -1724,9 +1782,10 @@ def stitch_config(name, rng):
     2048x1536 rectilinear facets, hfov 65, yaws -40/0/40; with
     ``name`` "config 5, 4 channels" the same facets with associated
     alpha), config 5b (six 1536x1152 rectilinear facets, hfov 72, yaw
-    60 i, lens a, b, c = 0.01, -0.02, 0.005) or config 5c (three 4096x2048
-    full-spherical brackets, exposure 2^eev for eev -2/0/2, brighten
-    2^-eev, hdr_merge); degree 3."""
+    60 i, lens a, b, c = 0.01, -0.02, 0.005), config 5d (the same six
+    facets without the lens; twined by its plan) or config 5c (three
+    4096x2048 full-spherical brackets, exposure 2^eev for eev -2/0/2,
+    brighten 2^-eev, hdr_merge); degree 3."""
     from envutil_tpu_torch.core.conventions import Projection as P
     from envutil_tpu_torch.models import environment as E
     if name == "config 5c":
@@ -1736,6 +1795,9 @@ def stitch_config(name, rng):
         specs = [(P.RECTILINEAR, 1536, 1152, 72.0,
                   dict(yaw=math.radians(60.0 * i), a=0.01, b=-0.02,
                        c=0.005), 0.0) for i in range(6)]
+    elif name == "config 5d":
+        specs = [(P.RECTILINEAR, 1536, 1152, 72.0,
+                  dict(yaw=math.radians(60.0 * i)), 0.0) for i in range(6)]
     else:
         specs = [(P.RECTILINEAR, 2048, 1536, 65.0,
                   dict(yaw=math.radians(y)), 0.0) for y in (-40.0, 0.0, 40.0)]
@@ -1755,11 +1817,14 @@ def stitch_config(name, rng):
         else "panorama", nch
 
 
-def stitch_plan(facets, synopsis, nch):
-    """The stitch's plan: a 4096x2048 equirect of all facets."""
+def stitch_plan(facets, synopsis, nch, twine=0):
+    """The stitch's plan: a 4096x2048 equirect of all facets, twined for
+    ``twine`` n > 0 as twine_setup twines it: make_spread(n, n), an n x n
+    box for n >= 2, 2 x 1 taps for n = 1."""
     from envutil_tpu_torch.core.conventions import Projection as P
     from envutil_tpu_torch.runtime.render import build_plan
-    a = make_args(facets[0], P.SPHERICAL, 4096, 2048, 360, 3, nch=nch)
+    a = make_args(facets[0], P.SPHERICAL, 4096, 2048, 360, 3, nch=nch,
+                  twine=twine)
     a.facets, a.solo, a.synopsis = facets, -1, synopsis
     return build_plan(a, facets)
 
@@ -1779,18 +1844,22 @@ def hdr_condition(px_list, brightens, out):
     return (num / sum(qs).abs()[..., None]).amax(dim=-1)
 
 
-def stitch_errors(plan, sources, frame, stack, chunk=128):
-    """A stitch's ``frame`` and its facets' slots ``stack`` (as
-    ``fastpath.facet_into`` wrote them) against the port's exact path on
-    the card, in row chunks: each slot against the facet's lookup, and
+def stitch_errors(plan, sources, frame, stack, score, chunk=128):
+    """A stitch's ``frame`` and its facets' slots against the port's
+    exact path on the card, in row chunks: each facet rendered into its
+    slot of ``stack`` (and ``score``, None for hdr_merge) as
+    ``fastpath.multi_frame`` renders it (``facet_into``; for a twined
+    stitch tap by tap, through the one-tap plans) and held against the
+    facet's lookup at the same rays (a twined tap's deflected rays), and
     the frame against the exact synopsis. Excluded: pixels whose planar
-    coordinate in some facet lies within WINDOW_EDGE of its window's
-    edge; voronoi pixels whose two best scores lie within FLIP_REL of
-    each other; hdr_merge pixels where the merge amplifies the slots'
-    own difference from the lookups past PATH_BOUND (``hdr_condition``
-    times that difference: a quality sum near 0). Returns (frame max abs
-    diff, slot max abs diff, window-edge px, champion-flip or
-    ill-conditioned px)."""
+    coordinate in some facet (at some tap) lies within WINDOW_EDGE of
+    its window's edge; voronoi pixels whose two best scores (at some
+    tap) lie within FLIP_REL of each other; hdr_merge pixels where the
+    merge (of some tap) amplifies the slots' own difference from the
+    lookups past PATH_BOUND (``hdr_condition`` times that difference: a
+    quality sum near 0). Returns (frame max abs diff, slot max abs diff,
+    window-edge px, champion-flip or ill-conditioned px); ``stack`` and
+    ``score`` hold the last tap's slots."""
     import torch
     from envutil_tpu_torch.models import environment as E
     from envutil_tpu_torch.models import stepper as ST
@@ -1800,93 +1869,135 @@ def stitch_errors(plan, sources, frame, stack, chunk=128):
     from envutil_tpu_torch.runtime import render as RD
     h, w = frame.shape[:2]
     nch = plan.nchannels
-    worst, worst_slot, n_edge, n_other = 0.0, 0.0, 0, 0
+    brightens = [s.static.brighten for s in sources]
+    if plan.spread is None:
+        taps = [(None, FP.facet_plans(plan))]
+    else:
+        taps = list(zip(SYN.scaled_spread(plan.spread),
+                        (fplans for _w, fplans in FP.tap_plans(plan))))
+    edge = torch.zeros((h, w), dtype=torch.bool, device="cuda")
+    other = torch.zeros_like(edge)
+    worst_slot = 0.0
+    for tap, fplans in taps:
+        for fi, (fplan, src) in enumerate(zip(fplans, sources)):
+            FP.facet_into(fplan, src, stack[fi],
+                          None if score is None else score[fi])
+        for r0 in range(0, h, chunk):
+            r1 = min(r0 + chunk, h)
+            geom = dict(normalize=True, window=(r0, r1, 0, w), device="cuda")
+            scores, lookups = [], []
+            slot_diff = torch.zeros((r1 - r0, w), device="cuda")
+            for fi, (src, b, p2r) in enumerate(zip(sources, plan.bases,
+                                                   plan.planar_to_ray)):
+                if tap is None:
+                    ray = ST.target_rays(plan.projection, plan.width,
+                                         plan.height, plan.extent, basis=b,
+                                         planar_to_ray=p2r, **geom)
+                else:
+                    p = ST.target_ninepack(plan.projection, plan.width,
+                                           plan.height, plan.extent, basis=b,
+                                           planar_to_ray=p2r, **geom)
+                    ray = SYN.deflect(p[0], *SYN.derivative_rays(
+                        *p, plan.twine_precise), tap[0], tap[1])
+                pick = FP._pickup(src)
+                px, py, hit = R.mount_planar(pick, *ray)
+                x0, x1, y0, y1 = pick.window
+                for v, e in ((px, x0), (px, x1), (py, y0), (py, y1)):
+                    edge[r0:r1] |= (v - e).abs() <= WINDOW_EDGE
+                if pick.projection == 2:       # rectilinear: z > 0
+                    edge[r0:r1] |= ray[2].abs() <= WINDOW_EDGE
+                scores.append(SYN.facet_score(ray[2], hit,
+                                              src.static.recip_step))
+                lookups.append(E.lookup(src, ray, nch)[0])
+                slot_diff = torch.maximum(slot_diff, (
+                    stack[fi, r0:r1] - lookups[-1]).abs().amax(dim=-1))
+            if plan.synopsis == "hdr_merge":
+                merged = SYN.hdr_merge_stack(lookups, brightens, nch)
+                other[r0:r1] |= hdr_condition(lookups, brightens, merged) \
+                    * slot_diff > PATH_BOUND
+            else:
+                top2 = torch.topk(torch.stack(scores), 2, dim=0).values
+                other[r0:r1] |= (top2[1] > SYN.LOWEST) & (
+                    (top2[0] - top2[1]).abs() <= FLIP_REL * top2[0].abs())
+            worst_slot = max(worst_slot, float(torch.where(
+                edge[r0:r1], 0.0, slot_diff).max()))
+    worst = 0.0
     for r0 in range(0, h, chunk):
         r1 = min(r0 + chunk, h)
-        win = (r0, r1, 0, w)
-        edge = torch.zeros((r1 - r0, w), dtype=torch.bool, device="cuda")
-        scores, lookups = [], []
-        slot_diff = torch.zeros_like(edge, dtype=torch.float32)
-        for fi, (src, b, p2r) in enumerate(zip(sources, plan.bases,
-                                               plan.planar_to_ray)):
-            ray = ST.target_rays(plan.projection, plan.width, plan.height,
-                                 plan.extent, basis=b, normalize=True,
-                                 planar_to_ray=p2r, window=win,
-                                 device="cuda")
-            pick = FP._pickup(src)
-            px, py, hit = R.mount_planar(pick, *ray)
-            x0, x1, y0, y1 = pick.window
-            for v, e in ((px, x0), (px, x1), (py, y0), (py, y1)):
-                edge |= (v - e).abs() <= WINDOW_EDGE
-            if pick.projection == 2:       # rectilinear: z > 0
-                edge |= ray[2].abs() <= WINDOW_EDGE
-            scores.append(SYN.facet_score(ray[2], hit, src.static.recip_step))
-            lookups.append(E.lookup(src, ray, nch)[0])
-            slot_diff = torch.maximum(slot_diff, (
-                stack[fi, r0:r1] - lookups[-1]).abs().amax(dim=-1))
-        exact = RD._render_window(plan, sources, win)
-        if plan.synopsis == "hdr_merge":
-            other = hdr_condition(lookups, [s.static.brighten
-                                            for s in sources], exact) \
-                * slot_diff > PATH_BOUND
-        else:
-            top2 = torch.topk(torch.stack(scores), 2, dim=0).values
-            other = (top2[1] > SYN.LOWEST) & (
-                (top2[0] - top2[1]).abs() <= FLIP_REL * top2[0].abs())
+        exact = RD._render_window(plan, sources, (r0, r1, 0, w))
         diff = (torch.from_numpy(frame[r0:r1]).cuda() - exact).abs().amax(
             dim=-1)
-        n_edge += int(edge.sum())
-        n_other += int((other & ~edge).sum())
-        worst = max(worst, float(torch.where(edge | other, 0.0, diff).max()))
-        worst_slot = max(worst_slot, float(torch.where(edge, 0.0,
-                                                       slot_diff).max()))
-    return worst, worst_slot, n_edge, n_other
+        worst = max(worst, float(torch.where(edge[r0:r1] | other[r0:r1],
+                                             0.0, diff).max()))
+    return worst, worst_slot, int(edge.sum()), int((other & ~edge).sum())
 
 
 def facet_kernel(fplan, src, out, score):
-    """A callable that launches one facet's kernel of a stitch, alone,
-    as ``fastpath.facet_into`` launches it (``out`` holds the source's
+    """A callable that launches one facet's kernel of a stitch (of one
+    tap, for a twined stitch's one-tap plan), alone, as
+    ``fastpath.facet_into`` launches it (``out`` holds the source's
     channels); and the launch's bound (bound ms, by, bytes, ops ms)."""
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.runtime import fastpath as FP
     coeff = src.spl.coeff
     n_px = out.shape[0] * out.shape[1]
+    twined = fplan.spread is not None
     if score is None and FP.inline_mode(fplan, src) is not None:
         ops = FP.frame_operands(fplan, src)
         tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
+        if twined:
+            tensors.append(ops.pop("spread"))
+            b = inline_twined_bound(fplan, src)
+            return (lambda: R.resample_inline_twined(out, coeff, *tensors,
+                                                     **ops),
+                    (b[0], b[1], b[4] + n_px * coeff.shape[-1] * 4, b[3]))
         b = inline_bound(fplan, src, n_px)
         return (lambda: R.resample_inline(out, coeff, *tensors, **ops),
                 (b[0], b[1], b[4] + n_px * coeff.shape[-1] * 4, b[3]))
     ops = FP.chain_operands(fplan, src)
-    b = chain_bound(fplan, src, ops)
-    tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
+    if twined:
+        b = twined_chain_bound(fplan, src, ops)
+    else:
+        b = chain_bound(fplan, src, ops)
+    tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")
+               + (("spread",) if twined else ())]
+    kernel = R.resample_twined_chain if twined else R.resample_planar_chain
     moved = b[4] + n_px * coeff.shape[-1] * 4 + (0 if score is None
                                                   else n_px * 4)
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    return (lambda: R.resample_planar_chain(
-        out, coeff, *tensors, score=score, recip_step=src.static.recip_step,
-        **ops), (max(bytes_ms, b[3]), "bytes" if bytes_ms >= b[3]
-                 else "operations", moved, b[3]))
+    return (lambda: kernel(out, coeff, *tensors, score=score,
+                           recip_step=src.static.recip_step, **ops),
+            (max(bytes_ms, b[3]), "bytes" if bytes_ms >= b[3]
+             else "operations", moved, b[3]))
 
 
 def facet_vs_plain(fplan, src, scored):
-    """One facet of a stitch at the stitch's shape: the kernel that
-    ``fastpath.launch`` takes for it against its plain version on the
-    same operands (``kernel_vs_plain`` for the inline kernel, both of
-    its branches; ``chain_vs_plain`` for the planar chain kernel, and
-    with ``scored`` its score by ``chain_score_vs_plain``, pixels
-    bit-equal with and without it). The pixels are held to KERNEL_BOUND
-    in units of the facet's largest value where that exceeds 1: float
-    rounding scales with the values, and config 5c's brightest bracket
-    reaches 4. Checks each against its bound; returns a dict of the
-    errors, that scale and the window- or face-edge pixels excluded."""
+    """One facet of a stitch at the stitch's shape (of one tap, for a
+    twined stitch's one-tap plan): the kernel that ``fastpath.launch``
+    takes for it against its plain version on the same operands
+    (``kernel_vs_plain`` for the inline kernel, both of its branches;
+    ``twined_kernel_vs_plain`` for the inline twined kernel;
+    ``chain_vs_plain`` for a chain form, and with ``scored`` its score
+    by ``chain_score_vs_plain``, pixels bit-equal with and without it).
+    The pixels are held to KERNEL_BOUND in units of the facet's largest
+    value where that exceeds 1: float rounding scales with the values,
+    and config 5c's brightest bracket reaches 4. Checks each against its
+    bound; returns a dict of the errors, that scale and the window- or
+    face-edge pixels excluded."""
     from envutil_tpu_torch.runtime import fastpath as FP
+    twined = fplan.spread is not None
     if not scored and FP.inline_mode(fplan, src) is not None:
-        err, n_edge, _k, plain = kernel_vs_plain(fplan, src, src.spl.degree)
-        rec = dict(kernel="resample_inline", edge_px=n_edge)
+        if twined:
+            err, n_edge, plain = twined_kernel_vs_plain(fplan, src)
+            rec = dict(kernel="resample_inline_twined", edge_px=n_edge)
+        else:
+            err, n_edge, _k, plain = kernel_vs_plain(fplan, src,
+                                                     src.spl.degree)
+            rec = dict(kernel="resample_inline", edge_px=n_edge)
     else:
         err, n_edge, n_flip, _k, plain = chain_vs_plain(fplan, src)
-        rec = dict(kernel="resample_planar_chain", edge_px=n_edge,
+        rec = dict(kernel="resample_twined_chain" if twined
+                   else "resample_planar_chain", edge_px=n_edge,
                    coverage_flips=n_flip)
         if scored:
             rec["score_err"], rec["scored_px"] = chain_score_vs_plain(fplan,
@@ -1901,18 +2012,21 @@ def facet_vs_plain(fplan, src, scored):
     return rec
 
 
-def stitch_path(name, rng, coeff_dtype="f32"):
+def stitch_path(name, rng, coeff_dtype="f32", twine=0):
     """One stitch of benchmarks.py at full size, its tables of
-    ``coeff_dtype``, through render_frame and multi_frame: the launches
-    per form, the frame against the exact path
+    ``coeff_dtype``, twined for ``twine`` n > 0 (``stitch_plan``),
+    through render_frame and multi_frame: the launches per form
+    (twined: one a facet and tap), the frame against the exact path
     (window-edge and champion-flip pixels excluded and counted), each
     facet's kernel (and score) against its plain version at the
-    stitch's shape (``facet_vs_plain``), the peak
-    device memory of the first frame, and CUDA-event timings (median of
-    10 each) of every facet's kernel alone, of every facet into its slot
-    (``facet_into``: the kernel and the channel adaptation and brighten),
-    of the synopsis combine on the stacks and of the whole frame, each
-    beside its bound."""
+    stitch's shape (``facet_vs_plain``; twined, the first tap's), the
+    peak device memory of the first frame, and CUDA-event timings
+    (median of 10 each) of every facet's kernel alone, of every facet
+    into its slot (``facet_into``: the kernel and the channel
+    adaptation and brighten), of the synopsis combine on the stacks and
+    of the whole frame, each beside its bound; twined, the kernels and
+    the combine of one tap, the combine's share of the frame counting
+    every tap's."""
     import torch
     from envutil_tpu_torch.models import synopsis as SYN
     from envutil_tpu_torch.runtime import fastpath as FP
@@ -1920,24 +2034,30 @@ def stitch_path(name, rng, coeff_dtype="f32"):
     sources = [with_coeff(s, coeff_dtype) for s in sources]
     if coeff_dtype != "f32":
         name = f"{name}, {coeff_dtype}"
-    plan = stitch_plan(facets, synopsis, nch)
+    plan = stitch_plan(facets, synopsis, nch, twine)
     n_f, n_px = len(sources), plan.height * plan.width
+    n_t = 1 if plan.spread is None else len(plan.spread)
+    if n_t > 1:
+        name = f"{name}, twined ({n_t} taps)"
     hdr = synopsis == "hdr_merge"
-    want = {"resample_inline" if hdr else "resample_planar_chain": n_f}
-    frame, first_ms, n = render(plan, sources, name, want=want)
+    kernel = ("resample_inline" if hdr else "resample_planar_chain") \
+        if plan.spread is None else \
+        ("resample_inline_twined" if hdr else "resample_twined_chain")
+    frame, first_ms, n = render(plan, sources, name,
+                                want={kernel: n_f * n_t})
     peak = torch.cuda.max_memory_allocated() / 2**20
     covered = float((frame != 0).any(axis=-1).mean())
     stack = torch.empty((n_f, plan.height, plan.width, nch), device="cuda")
     score = None if hdr else torch.empty((n_f, plan.height, plan.width),
                                          device="cuda")
-    fplans = FP.facet_plans(plan)
-    for fi, (fplan, src) in enumerate(zip(fplans, sources)):
-        FP.facet_into(fplan, src, stack[fi], None if hdr else score[fi])
     err, err_slot, n_edge, n_other = stitch_errors(plan, sources, frame,
-                                                   stack)
+                                                   stack, score)
+    fplans = FP.facet_plans(plan) if plan.spread is None \
+        else FP.tap_plans(plan)[0][1]
     vs_plain = [facet_vs_plain(fp, s, not hdr)
                 for fp, s in zip(fplans, sources)]
-    print(f"{name}: each facet's kernel vs its plain version at this shape: "
+    print(f"{name}: each facet's kernel vs its plain version at this shape"
+          + ("" if n_t == 1 else " (the first tap's launches)") + ": "
           + "; ".join(
               f"{v['kernel']} {v['max_abs_err']:.3e}"
               + (f", score {v['score_err']:.3e} of z over {v['scored_px']} px"
@@ -1952,10 +2072,11 @@ def stitch_path(name, rng, coeff_dtype="f32"):
           f"{100 * covered:.2f}% of the equirect not 0; vs exact path, whole "
           f"frame: max abs diff {err:.3e}, facets' slots vs their lookups "
           f"{err_slot:.3e} (bound {PATH_BOUND:g}); {n_edge} px at a window "
-          f"edge and {n_other} {other} excluded", flush=True)
+          f"edge and {n_other} {other} excluded"
+          + ("" if n_t == 1 else " (at any tap)"), flush=True)
     check(err <= PATH_BOUND and err_slot <= PATH_BOUND,
           f"{name} disagrees with the exact path")
-    check(hdr or n_edge + n_other <= 1e-3 * n_px,
+    check(hdr or n_edge + n_other <= 1e-3 * n_px * n_t,
           f"{name}: too many pixels excluded")
     check(covered > 0.0, f"{name}: the frame is empty")
     del frame
@@ -1988,35 +2109,138 @@ def stitch_path(name, rng, coeff_dtype="f32"):
     out_bytes = n_px * nch * 4
     stack_bytes = n_f * n_px * nch * 4 + (0 if hdr else n_f * n_px * 4)
     combine_bound = (stack_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    frame_bytes = sum(b[2] for b in k_bounds) + stack_bytes + out_bytes
-    frame_ops = sum(b[3] for b in k_bounds)
+    frame_bytes = n_t * (sum(b[2] for b in k_bounds) + stack_bytes
+                         + out_bytes)
+    frame_ops = n_t * sum(b[3] for b in k_bounds)
     frame_bound = max(frame_bytes / HBM_BYTES_PER_S * 1e3, frame_ops)
-    print(f"{name}: per-facet kernels alone "
+    share = n_t * combine_ms / frame_ms
+    tap = "" if n_t == 1 else " (one tap)"
+    print(f"{name}: per-facet kernels alone{tap} "
           f"{', '.join(f'{t:.4f}' for t in kernel_ms)} ms (sum "
           f"{sum(kernel_ms):.4f}; bounds "
           f"{', '.join(f'{b[0]:.4f} {b[1]}' for b in k_bounds)}); facets "
-          f"into their slots {', '.join(f'{t:.4f}' for t in into_ms)} ms "
-          f"(sum {sum(into_ms):.4f}); combine {combine_ms:.4f} ms (bound "
-          f"{combine_bound:.4f} ms by bytes: the stacks read, the frame "
-          f"written); frame (multi_frame, stacks allocated per frame) "
-          f"{frame_ms:.4f} ms = {n_px / 1e3 / frame_ms:.1f} Mpix/s, bound "
-          f"{frame_bound:.4f} ms (table entries read once, the stacks "
-          f"written and read, the output; the kernels' operations); the "
-          f"combine {100 * combine_ms / frame_ms:.0f}% of the frame; peak "
-          f"device memory of the first frame {peak:.1f} MiB (stacks "
-          f"{stack_bytes / 2**20:.1f} MiB); clocks/power/temp after: "
-          f"{smi_now()}", flush=True)
-    return dict(facets=n_f, synopsis=synopsis, channels=nch, launches=n,
-                first_ms=first_ms, max_abs_err=err, slot_max_abs_err=err_slot,
-                edge_px=n_edge, excluded_px=n_other, covered=covered,
-                vs_plain=vs_plain,
+          f"into their slots{tap} {', '.join(f'{t:.4f}' for t in into_ms)} "
+          f"ms (sum {sum(into_ms):.4f}); combine{tap} {combine_ms:.4f} ms "
+          f"(bound {combine_bound:.4f} ms by bytes: the stacks read, the "
+          f"frame written); frame (multi_frame, stacks allocated per frame"
+          + ("" if n_t == 1 else f", {n_f * n_t} launches and {n_t} "
+             f"combines") + f") {frame_ms:.4f} ms = "
+          f"{n_px / 1e3 / frame_ms:.1f} Mpix/s, bound "
+          f"{frame_bound:.4f} ms (table entries read once"
+          + ("" if n_t == 1 else " a tap") + ", the stacks written and "
+          f"read, the output; the kernels' operations); the combine"
+          + ("" if n_t == 1 else "s") + f" {100 * share:.0f}% of the "
+          f"frame; peak device memory of the first frame {peak:.1f} MiB "
+          f"(stacks {stack_bytes / 2**20:.1f} MiB); clocks/power/temp "
+          f"after: {smi_now()}", flush=True)
+    return dict(facets=n_f, taps=n_t, synopsis=synopsis, channels=nch,
+                launches=n, first_ms=first_ms, max_abs_err=err,
+                slot_max_abs_err=err_slot, edge_px=n_edge,
+                excluded_px=n_other, covered=covered, vs_plain=vs_plain,
                 kernel_ms=kernel_ms,
                 kernel_bound_ms=[b[0] for b in k_bounds],
                 kernel_bound_by=[b[1] for b in k_bounds], into_ms=into_ms,
                 combine_ms=combine_ms, combine_bound_ms=combine_bound,
                 frame_ms=frame_ms, frame_bound_ms=frame_bound,
-                combine_share=combine_ms / frame_ms, peak_mib=peak,
+                combine_share=share, peak_mib=peak,
                 stack_mib=stack_bytes / 2**20)
+
+
+def one_tap_stitch(rng):
+    """Config 5d with a one-tap spread off the pixel centre, (0.25, 0):
+    the kernels' operands fold 1/DERIV_BIAS in once, so that tap's ray
+    is the derivative grid's own ray and deflecting in coordinate space
+    (the twined chain form) and in ray space (the exact path) agree;
+    through render_frame (6 launches of the twined chain form) against
+    the exact path, and against the untwined stitch, from which the tap
+    moved by a quarter of a pixel. Returns the record."""
+    import dataclasses
+    import torch
+    from envutil_tpu_torch.runtime import render as RD
+    facets, sources, synopsis, nch = stitch_config("config 5d", rng)
+    plan = dataclasses.replace(stitch_plan(facets, synopsis, nch),
+                               spread=((0.25, 0.0, 1.0),))
+    name = "config 5d, one tap at (0.25, 0)"
+    frame, _ms, n = render(plan, sources, name,
+                           want={"resample_twined_chain": len(sources)})
+    stack = torch.empty((len(sources), plan.height, plan.width, nch),
+                        device="cuda")
+    score = torch.empty(stack.shape[:3], device="cuda")
+    err, err_slot, n_edge, n_other = stitch_errors(plan, sources, frame,
+                                                   stack, score)
+    untwined = RD.render_frame(dataclasses.replace(plan, spread=None),
+                               sources, device="cuda")
+    moved = float(np.abs(frame - untwined).max())
+    print(f"{name}: vs exact path, whole frame: max abs diff {err:.3e}, "
+          f"slots {err_slot:.3e} (bound {PATH_BOUND:g}); {n_edge} px at a "
+          f"window edge and {n_other} at a near-tied champion excluded; "
+          f"the untwined frame differs by up to {moved:.3f}", flush=True)
+    check(err <= PATH_BOUND and err_slot <= PATH_BOUND,
+          f"{name} disagrees with the exact path")
+    check(moved > 0.1, f"{name}: the tap did not move")
+    return dict(launches=n, max_abs_err=err, slot_max_abs_err=err_slot,
+                edge_px=n_edge, excluded_px=n_other,
+                max_abs_diff_vs_untwined=moved)
+
+
+def pole_view_path(fct, src):
+    """A twined stereographic view of the pole of a full-spherical source
+    (``src``, an 8192x4096 equirect of ``smooth_environment``): 1920x1152,
+    hfov 150, pitch 90, --twine 2, through render_frame and the twined
+    chain form (the planar twined route, which deflects in coordinate
+    space, where longitude is no linear function of the view near the
+    pole), against the exact path on the card, within and outside
+    POLE_LAT degrees of latitude. Below it is held to
+    TWINED_PLANAR_BOUND; above it is reported, and flagged as the fault
+    of ROADMAP Queue 3 where it exceeds that bound. The kernel against
+    its plain version at this shape, and the kernel timed alone (median
+    of 20). Returns the record."""
+    import torch
+    from envutil_tpu_torch.core import geometry as geo
+    from envutil_tpu_torch.core.conventions import Projection as P
+    from envutil_tpu_torch.models import stepper as ST
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    name = "pole view (stereographic, pitch 90, twined)"
+    plan = plan_for(fct, P.STEREOGRAPHIC, 1920, 1152, 150, 3, (0, 90, 0),
+                    twine=2)
+    frame, _ms, n = render(plan, src, name,
+                           want={"resample_twined_chain": 1})
+    ray = ST.target_rays(plan.projection, plan.width, plan.height,
+                         plan.extent, basis=plan.bases[0], normalize=True,
+                         device="cuda")
+    lat = geo.ray_to_ll(*ray)[1].abs()
+    near = lat >= math.radians(POLE_LAT)
+    above_k, below_k = (f"{w} {POLE_LAT} deg of latitude"
+                        for w in ("above", "below"))
+    errs = frame_errors(plan, src, frame, {above_k: near, below_k: ~near})
+    above, below = errs[above_k][0], errs[below_k][0]
+    fault = above > TWINED_PLANAR_BOUND
+    print(f"{name} ({len(plan.spread)} taps) vs exact path, whole frame: "
+          f"{errors_text(errs)} (bound {TWINED_PLANAR_BOUND:g} below "
+          f"{POLE_LAT} deg"
+          + (f"; above {POLE_LAT} deg it is exceeded: the fault of ROADMAP "
+             f"Queue 3" if fault else ", held above as well") + ")",
+          flush=True)
+    check(below <= TWINED_PLANAR_BOUND, f"{name} disagrees with the exact "
+          f"path below {POLE_LAT} degrees of latitude")
+    check(bool(near.any()) and bool((~near).any()),
+          f"{name} does not hold both regions")
+    err, n_edge, _n_flip = chain_vs_plain(plan, src)[:3]
+    check(err <= KERNEL_BOUND, f"twined chain kernel disagrees at {name}")
+    ops = FP.chain_operands(plan, src)
+    ctens = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats", "spread")]
+    buf = torch.empty((plan.height, plan.width, 3), device="cuda")
+    R.resample_twined_chain(buf, src.spl.coeff, *ctens, **ops)
+    kernel_ms = events_ms(lambda: R.resample_twined_chain(
+        buf, src.spl.coeff, *ctens, **ops), 20)
+    print(f"{name}: twined chain vs plain at full shape {err:.3e} (bound "
+          f"{KERNEL_BOUND:g}); kernel alone (median of 20) {kernel_ms:.4f} "
+          f"ms; clocks/power/temp after: {smi_now()}", flush=True)
+    return dict(launches=n["resample_twined_chain"], taps=len(plan.spread),
+                vs_exact={k: v[0] for k, v in errs.items()},
+                region_px={k: v[1] for k, v in errs.items()},
+                fault_above=fault, max_abs_err=err, ms=kernel_ms)
 
 
 def exact_route_path(rng):
@@ -2482,11 +2706,8 @@ def main():
                                  "resample_planar": 1})
     stack = torch.empty((2, 768, 1024, 3), device="cuda")
     score = torch.empty((2, 768, 1024), device="cuda")
-    for fi, (fplan, fsrc) in enumerate(zip(FP.facet_plans(ps),
-                                           [lsrc, tsrc])):
-        FP.facet_into(fplan, fsrc, stack[fi], score[fi])
     err_ls, err_lslot, edge_ls, flip_ls = stitch_errors(ps, [lsrc, tsrc],
-                                                        outs, stack)
+                                                        outs, stack, score)
     share = float((score[1] > score[0]).float().mean())
     print(f"lens and translated stitch (voronoi, 1024x768): the translated "
           f"facet wins {100 * share:.1f}% of the view; vs exact path, whole "
@@ -2497,6 +2718,31 @@ def main():
           "the lens and translated stitch disagrees with the exact path")
     check(0.05 < share < 0.95, "the translated facet wins no share")
     planar_n["lens and translated stitch"] = ns["resample_planar_chain"]
+    # the same stitch twined (--twine 2): per tap one one-tap launch of
+    # the twined chain form with its score for the lens facet and, for
+    # the translated facet, the coordinate pass and the twined planes
+    # form, its score from the pass's deflected rays
+    sa = make_args(lf, P.RECTILINEAR, 1024, 768, 100, 3, (5, 0, 0), twine=2)
+    sa.facets, sa.solo = [lf, tf], -1
+    pst = RD.build_plan(sa, [lf, tf])
+    outs, _ms, nst = render(pst, [lsrc, tsrc],
+                            "lens and translated stitch, twined (4 taps)",
+                            want={"resample_twined_chain": 4,
+                                  "resample_twined": 4})
+    errs_t = stitch_errors(pst, [lsrc, tsrc], outs, stack, score)
+    print(f"lens and translated stitch, twined (4 taps): vs exact path, "
+          f"whole frame: max abs diff {errs_t[0]:.3e}, slots {errs_t[1]:.3e}"
+          f" (bound {TWINED_PLANAR_BOUND:g}); {errs_t[2]} px at a window edge"
+          f" and {errs_t[3]} at a near-tied champion (at any tap) excluded",
+          flush=True)
+    check(errs_t[0] <= TWINED_PLANAR_BOUND
+          and errs_t[1] <= TWINED_PLANAR_BOUND,
+          "the twined lens and translated stitch disagrees with the exact "
+          "path")
+    t_lens_translated_twined = dict(
+        launches={k: v for k, v in nst.items() if v}, max_abs_err=errs_t[0],
+        slot_max_abs_err=errs_t[1], edge_px=errs_t[2],
+        excluded_px=errs_t[3])
     del lsrc, tsrc, stack, score, outs
     torch.cuda.empty_cache()
 
@@ -2548,7 +2794,7 @@ def main():
     # ---- 6e. untwined stitches of benchmarks.py at full size ----------
     t_stitch = {}
     for name in ("config 5", "config 5b", "config 5c",
-                 "config 5, 4 channels"):
+                 "config 5, 4 channels", "config 5d"):
         t_stitch[name] = stitch_path(name, np.random.default_rng(5))
         torch.cuda.empty_cache()
     t_stitch_bf16 = stitch_path("config 5", np.random.default_rng(5), "bf16")
@@ -2556,6 +2802,31 @@ def main():
     for name, t in t_stitch.items():
         if t["synopsis"] != "hdr_merge":
             planar_n[name] = t["launches"]["resample_planar_chain"]
+
+    # ---- 6f. twined stitches at full size: per tap, one one-tap launch
+    # per facet and the combine of that tap. --twine 2 is the 2x2 box
+    # (4 taps) that config 5d's comment in benchmarks.py names; its code
+    # passes twine=1, which make_spread(1, 1) (in both packages) turns
+    # into 2x1 taps: that runs too --------------------------------------
+    t_twined_stitch = {}
+    for name, twine in (("config 5d", 2), ("config 5d", 1),
+                        ("config 5, 4 channels", 2), ("config 5c", 2)):
+        t_twined_stitch[f"{name}, twine {twine}"] = stitch_path(
+            name, np.random.default_rng(5), twine=twine)
+        torch.cuda.empty_cache()
+    t_one_tap = one_tap_stitch(np.random.default_rng(5))
+    torch.cuda.empty_cache()
+
+    # ---- 6g. a twined view of a full sphere's pole --------------------
+    pfct = make_facet(P.SPHERICAL, 8192, 4096, 2 * math.pi)
+    peq = smooth_environment(ST.target_rays(
+        P.SPHERICAL, 8192, 4096, get_extent(P.SPHERICAL, 8192, 4096,
+                                            2 * math.pi), device="cuda"))
+    psrc = E.make_mount_source(pfct, peq.cpu().numpy(), 3, 3, device="cuda")
+    del peq
+    t_pole = pole_view_path(pfct, psrc)
+    del psrc
+    torch.cuda.empty_cache()
 
     # ---- 7. the record ------------------------------------------------
     t3 = t_planar["config 3"]
@@ -2565,6 +2836,9 @@ def main():
     t_bf16["resample_planar_chain"]["stitch"] = dict(t_stitch_bf16,
                                                      path="config 5")
     print(f"exact route: {json.dumps(t_exact)}", flush=True)
+    print(f"twined stitches: {json.dumps(t_twined_stitch)}", flush=True)
+    print(f"command time: {time.perf_counter() - T_START:.1f} s, the "
+          f"kernel build included", flush=True)
 
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -2625,7 +2899,9 @@ def main():
              build=build.get("resample_inline_twined_kernel"),
              bf16=t_bf16["resample_inline_twined"],
              paths={k: t_twined[k] for k in ("config 4", "pole and seam",
-                                             "16K")}),
+                                             "16K")},
+             stitches={k: t for k, t in t_twined_stitch.items()
+                       if t["synopsis"] == "hdr_merge"}),
         # the planes form: launched and measured on the translated facet
         # twined's operands; config 3 twined's planes beside them
         dict(t_translated["translated facet twined"],
@@ -2637,7 +2913,8 @@ def main():
              path="translated facet twined", library_ms=None,
              small_case_max_abs_err=worst_twined,
              build=build.get("resample_twined_kernel"),
-             bf16=t_bf16["resample_twined"]),
+             bf16=t_bf16["resample_twined"],
+             lens_and_translated_stitch_twined=t_lens_translated_twined),
         dict({k: t3t[k] for k in ("launches", "max_abs_err", "ms",
                                   "plain_ms", "bound_ms", "bound_by")},
              name="resample_twined_chain", route="cuda",
@@ -2647,9 +2924,15 @@ def main():
              form="chain", library_ms=None,   # as above
              small_case_max_abs_err=worst_chain["twined"],
              small_case_edge_px=chain_edge_px["twined"],
+             small_case_score_max_abs_err_of_z=worst_chain["twined score"],
              build=build.get("resample_twined_chain_kernel"),
              bf16=t_bf16["resample_twined_chain"],
-             paths={k: t_twined[k] for k in ("config 3", "lens facet")}),
+             paths={k: t_twined[k] for k in ("config 3", "lens facet")},
+             # per frame F x K one-tap launches, each with its score:
+             # the one-tap launch's time and bound per facet
+             stitches={k: t for k, t in t_twined_stitch.items()
+                       if t["synopsis"] != "hdr_merge"},
+             one_tap_stitch=t_one_tap, pole_view=t_pole),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

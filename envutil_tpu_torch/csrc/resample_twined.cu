@@ -25,7 +25,12 @@
 // is). For a source that does not cover every ray (``tap_valid``),
 // each tap counts only where its deflected ray p0 + cx du + cy dv
 // passes the mount's window test, the mask the exact path applies to
-// that tap; a pixel with no valid tap is written 0. These are the
+// that tap; a pixel with no valid tap is written 0. With a one-tap
+// spread the chain form can also write the tap's voronoi score, the z
+// of that deflected ray (not renormalised, as the exact path's
+// synopsis.twined hands it to the score) times recip_step, or LOWEST
+// where the tap misses: a twined stitch renders one tap of every facet
+// a launch and picks the champion per tap. These are the
 // operands fastpath.twined_coords computed as a string of PyTorch
 // launches (three coordinate chains and, for partial facets, one more
 // chain and a uint8 plane per tap) before every launch of the planes
@@ -199,15 +204,32 @@ struct ChainParams {
   int n_taps;
   int precise;                  // tangent-plane derivative basis
   int tap_valid;                // test each tap's ray against the window
+  float recip_step;             // score = z of the tap's ray * recip_step
   ChainPickup pick;
   Table table;
 };
+
+// The tap's deflected ray p0 + cx du + cy dv into ``r`` and whether the
+// tap counts: with ``tap_valid``, where the ray passes the mount's
+// window test, the mask the exact path applies to that tap.
+__device__ __forceinline__ bool tap_ray(const ChainParams& p,
+                                        const float (&p0)[3],
+                                        const float (&du)[3],
+                                        const float (&dv)[3], float cx,
+                                        float cy, float (&r)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    r[i] = add(add(p0[i], mul(cx, du[i])), mul(cy, dv[i]));
+  float px, py;
+  return !p.tap_valid || mount_planar(p.pick, r[0], r[1], r[2], px, py);
+}
 
 // four blocks an SM (64 registers): without the cap ptxas spilled 8
 // bytes at degree 1, two channels; no instantiation needs more
 template <int DEGREE, int NCH, typename T>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y, 4)
 resample_twined_chain_kernel(float* __restrict__ out,
+                             float* __restrict__ score,
                              const T* __restrict__ coeff,
                              const float* __restrict__ xfeat,
                              const float* __restrict__ yfeat,
@@ -264,22 +286,25 @@ resample_twined_chain_kernel(float* __restrict__ out,
   const float dvx = coord_derivative(xv, x0, p.pick.period);
   const float dvy = coord_derivative(yv, y0, 0.0f);
   const float sx0 = add(x0, p.pick.pad), sy0 = add(y0, p.pick.pad);
-  const float lower = sub(p.pick.pad, 0.5f);
 
+  if (score != nullptr) {
+    // a one-tap launch of a twined stitch (the entry point refuses a
+    // score with more taps): the tap's score first, so that nothing of
+    // it lives on into the tap loop (with the score in the loop ptxas
+    // spilled at degree 7); the loop tests the tap's ray again
+    float r[3];
+    const bool hit = tap_ray(p, p0, du, dv, taps[0], taps[1], r);
+    score[y * p.width + x] = hit ? mul(r[2], p.recip_step) : LOWEST;
+  }
+  const float lower = sub(p.pick.pad, 0.5f);
   float acc[NCH];
 #pragma unroll
   for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
 #pragma unroll 1
   for (int k = 0; k < p.n_taps; ++k) {
     const float cx = taps[3 * k], cy = taps[3 * k + 1], w = taps[3 * k + 2];
-    if (p.tap_valid) {
-      // the validity of the tap's deflected ray, the exact path's mask
-      float r[3], px, py;
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        r[i] = add(add(p0[i], mul(cx, du[i])), mul(cy, dv[i]));
-      if (!mount_planar(p.pick, r[0], r[1], r[2], px, py)) continue;
-    }
+    float r[3];
+    if (p.tap_valid && !tap_ray(p, p0, du, dv, cx, cy, r)) continue;
     float sx = sx0 + cx * dux + cy * dvx;
     float sy = sy0 + cx * duy + cy * dvy;
     if (p.pick.period > 0.0f) sx = lower + floor_mod(sx - lower, p.pick.period);
@@ -297,14 +322,14 @@ resample_twined_chain_kernel(float* __restrict__ out,
 template <typename T>
 struct ChainLaunch {
   template <int DEGREE, int NCH>
-  static cudaError_t run(float* out, const T* coeff, const float* xfeat,
-                         const float* yfeat, const float* bmats,
-                         const float* spread, const ChainParams& p,
-                         cudaStream_t stream) {
+  static cudaError_t run(float* out, float* score, const T* coeff,
+                         const float* xfeat, const float* yfeat,
+                         const float* bmats, const float* spread,
+                         const ChainParams& p, cudaStream_t stream) {
     const size_t smem = (size_t)3 * p.n_taps * sizeof(float);
     resample_twined_chain_kernel<DEGREE, NCH, T>
         <<<frame_grid(p.height, p.width), dim3(BLOCK_X, BLOCK_Y), smem,
-           stream>>>(out, coeff, xfeat, yfeat, bmats, spread, p);
+           stream>>>(out, score, coeff, xfeat, yfeat, bmats, spread, p);
     return cudaGetLastError();
   }
 };
@@ -350,19 +375,23 @@ extern "C" int envutil_resample_twined(
 // ``ipick`` / ``fpick`` as for envutil_resample_planar_chain. With
 // ``tap_valid`` each tap counts only where its deflected ray falls into
 // the mount's window (a source that does not cover every ray). Every
-// pixel is written: 0 where no tap is valid. ``coeff`` is float32, or
+// pixel is written: 0 where no tap is valid. ``score`` may be null;
+// otherwise the spread has one tap and ``score`` is an (H, W) device
+// plane that receives that tap's score, its deflected ray's z times
+// ``recip_step``, LOWEST where the tap misses. ``coeff`` is float32, or
 // bfloat16 where ``coeff_bf16`` is set.
 extern "C" int envutil_resample_twined_chain(
-    float* out, const void* coeff, const float* xfeat, const float* yfeat,
-    const float* bmats, const float* spread, const float* wmat,
-    const int* ipick, const float* fpick, long long height, long long width,
-    long long hp, long long wp, int row0, int face_rows, int degree, int nch,
-    int tmode, int n_taps, int precise, int tap_valid, int coeff_bf16,
-    void* stream) {
+    float* out, float* score, const void* coeff, const float* xfeat,
+    const float* yfeat, const float* bmats, const float* spread,
+    const float* wmat, const int* ipick, const float* fpick,
+    long long height, long long width, long long hp, long long wp, int row0,
+    int face_rows, int degree, int nch, int tmode, int n_taps, int precise,
+    int tap_valid, float recip_step, int coeff_bf16, void* stream) {
   constexpr int MAX_TAPS = 4096;  // 48 KiB of shared memory
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (tmode < TMODE_AFFINE || tmode > TMODE_FISH) return (int)cudaErrorInvalidValue;
   if (n_taps < 1 || n_taps > MAX_TAPS) return (int)cudaErrorInvalidValue;
+  if (score != nullptr && n_taps != 1) return (int)cudaErrorInvalidValue;
   if (height <= 0 || width <= 0) return 0;
   if ((height + BLOCK_Y - 1) / BLOCK_Y > 65535) return (int)cudaErrorInvalidValue;
   ChainParams p;
@@ -371,14 +400,15 @@ extern "C" int envutil_resample_twined_chain(
   p.nfx = (tmode == TMODE_SPH || tmode == TMODE_CYL) ? 2 : 1;
   p.nfy = tmode == TMODE_SPH ? 2 : 1;
   p.n_taps = n_taps; p.precise = precise; p.tap_valid = tap_valid;
+  p.recip_step = recip_step;
   if (!set_pickup(p.pick, ipick, fpick)) return (int)cudaErrorInvalidValue;
   if (tap_valid && p.pick.smode != SMODE_MOUNT) return (int)cudaErrorInvalidValue;
   set_table(p.table, hp, wp, degree, wmat);
   if (coeff_bf16)
     return (int)by_degree<ChainLaunch<__nv_bfloat16>>(
-        degree, nch, out, (const __nv_bfloat16*)coeff, xfeat, yfeat, bmats,
-        spread, p, (cudaStream_t)stream);
-  return (int)by_degree<ChainLaunch<float>>(degree, nch, out,
+        degree, nch, out, score, (const __nv_bfloat16*)coeff, xfeat, yfeat,
+        bmats, spread, p, (cudaStream_t)stream);
+  return (int)by_degree<ChainLaunch<float>>(degree, nch, out, score,
                                             (const float*)coeff, xfeat, yfeat,
                                             bmats, spread, p,
                                             (cudaStream_t)stream);

@@ -18,7 +18,9 @@ facet axis because a gather is slow on the TPU; here ``torch.argmax``
 and ``torch.gather`` select it. Ties resolve as in the JAX package:
 ``argmax`` takes the first maximum and the depth order is a stable sort.
 The ``*_stack`` forms take stacked per-facet pixels and scores, as the
-card path (runtime/fastpath.multi_frame) produces them.
+card path (runtime/fastpath.multi_frame) produces them, and
+``twined_stack`` sums that path's combines over the taps of a twined
+stitch.
 
 Twining (the synopsis_t wrapper, envutil_payload.cc:587-691, and
 twining.h:152-263) is a loop over the spread coefficients: each tap
@@ -241,6 +243,17 @@ def scaled_spread(spread, bias: float = 1.0 / DERIV_BIAS):
     offsets: ((cx / DERIV_BIAS, cy / DERIV_BIAS, w), ...)."""
     return tuple((float(cx) * bias, float(cy) * bias, float(w))
                  for cx, cy, w in spread)
+
+
+def twined_stack(acc, term, w: float):
+    """Fold one tap's synopsis ``term`` into the running sum ``acc`` of a
+    twined stitch (None before the first tap): ``acc + w * term``, in
+    place (``term`` itself scaled for the first tap), the sum that
+    ``twined`` forms over the taps; the card route
+    (runtime/fastpath.multi_frame) combines its stacks once a tap."""
+    if acc is None:
+        return term.mul_(w)
+    return acc.add_(term, alpha=w)
 
 
 def twined(syn, sources, ninepacks, nch: int, spread,

@@ -143,7 +143,7 @@ _TWINED = K.Library("resample_twined.cu", {
     "envutil_resample_twined": [_p] * 12 + [_ll] * 4 + [_i] * 4
     + [_f, _f, _i, _p],
     "envutil_resample_twined_chain":
-        [_p] * 9 + [_ll] * 4 + [_i] * 9 + [_p]})
+        [_p] * 10 + [_ll] * 4 + [_i] * 8 + [_f, _i, _p]})
 LIBRARIES = (_INLINE, _PLANAR, _INLINE_TWINED, _TWINED)
 
 
@@ -957,11 +957,12 @@ def resample_planar_chain_plain(out, coeff, xfeat, yfeat, bmats, *,
 def twined_chain_operands(xfeat, yfeat, bmats, spread, *, tmode: str,
                           pick: ChainPickup, row0: int = 0,
                           face_rows: int = 0, precise: bool = False,
-                          tap_valid: bool = False):
+                          tap_valid: bool = False,
+                          recip_step: float | None = None):
     """The operands that the twined chain kernel computes per pixel, as
-    the dict of ``twined_ray_operands``: the kernel's three normalised
-    ray grids from the doubled feature sets, through the kernel's source
-    half."""
+    the dict of ``twined_ray_operands`` (with ``recip_step``, the one
+    tap's score too): the kernel's three normalised ray grids from the
+    doubled feature sets, through the kernel's source half."""
     nfx, nfy = _feature_rows(tmode)
     kw = dict(tmode=tmode, row0=row0, face_rows=face_rows)
     rays = [chain_rays(xf, yf, bmats, **kw)
@@ -969,11 +970,12 @@ def twined_chain_operands(xfeat, yfeat, bmats, spread, *, tmode: str,
                            (xfeat[nfx:], yfeat[:nfy]),
                            (xfeat[:nfx], yfeat[nfy:]))]
     return twined_ray_operands(*rays, spread, pick=pick, precise=precise,
-                               tap_valid=tap_valid)
+                               tap_valid=tap_valid, recip_step=recip_step)
 
 
 def twined_ray_operands(p0, p10, p01, spread, *, pick: ChainPickup,
-                        precise: bool = False, tap_valid: bool = False):
+                        precise: bool = False, tap_valid: bool = False,
+                        recip_step: float | None = None):
     """The twined chain's source half from the ninepack's three
     normalised ray grids, as the planar twined kernel's operands (the
     twined chain kernel computes them per pixel; ``fastpath.twined_coords``
@@ -982,7 +984,10 @@ def twined_ray_operands(p0, p10, p01, spread, *, pick: ChainPickup,
     coordinate derivatives (wrapped by the period, 0 where not finite),
     ``tap_weights`` (K, H, W) uint8, each tap's deflected validity (with
     ``tap_valid``, else None), and ``wrap_x``. An IR source's three
-    pickups are taken in the centre ray's face."""
+    pickups are taken in the centre ray's face. ``score`` is None, or
+    with ``recip_step`` (a one-tap spread only) the tap's voronoi score:
+    ``synopsis.facet_score`` of its deflected ray (not renormalised, as
+    ``synopsis.twined`` scores it) under the tap's validity."""
     du, dv = SYN.derivative_rays(p0, p10, p01, precise)
     if precise:
         p10 = tuple(a + b for a, b in zip(p0, du))
@@ -1017,33 +1022,49 @@ def twined_ray_operands(p0, p10, p01, spread, *, pick: ChainPickup,
 
     dux, duy = derivative(p10)
     dvx, dvy = derivative(p01)
-    tap_weights = None
-    if tap_valid:
-        tap_weights = torch.stack([
-            mount_planar(pick, *SYN.deflect(p0, du, dv, cx, cy))[2]
-            for cx, cy, _w in spread.reshape(-1, 3).tolist()]
-        ).to(torch.uint8)
+    tap_weights = score = None
+    if tap_valid or recip_step is not None:
+        taps = [SYN.deflect(p0, du, dv, cx, cy)
+                for cx, cy, _w in spread.reshape(-1, 3).tolist()]
+        hits = [mount_planar(pick, *ray)[2] if tap_valid
+                else torch.ones_like(ray[2], dtype=torch.bool)
+                for ray in taps]
+        if tap_valid:
+            tap_weights = torch.stack(hits).to(torch.uint8)
+        if recip_step is not None:
+            _one_tap(len(taps))
+            score = SYN.facet_score(taps[0][2], hits[0], recip_step)
     return dict(sx=(x0 + pick.pad).contiguous(),
                 sy=(y0 + pick.pad).contiguous(), dux=dux, duy=duy, dvx=dvx,
-                dvy=dvy, tap_weights=tap_weights,
+                dvy=dvy, tap_weights=tap_weights, score=score,
                 wrap_x=((pick.pad - 0.5, pick.period) if pick.period > 0
                         else None))
 
 
+def _one_tap(n_taps):
+    if n_taps != 1:
+        raise ValueError("a twined score is for one-tap spreads (a twined "
+                         "stitch launches one tap at a time)")
+
+
 def _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
-                        n_taps, tmode, pick, face_rows, tap_valid):
+                        n_taps, tmode, pick, face_rows, tap_valid, score):
     _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
                  face_rows, 2)
     _spread_taps(spread, n_taps, out.device)
     if tap_valid and pick.smode != "mount":
         raise ValueError("tap_valid is for mount sources only")
+    _check_score(out, score)
+    if score is not None:
+        _one_tap(n_taps)
 
 
 def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
                           degree: int, n_taps: int, tmode: str,
                           pick: ChainPickup, row0: int = 0,
                           face_rows: int = 0, precise: bool = False,
-                          tap_valid: bool = False):
+                          tap_valid: bool = False, score=None,
+                          recip_step: float = 1.0):
     """The chain form of the planar twined kernel: per pixel the three
     rays of the ninepack from the doubled feature sets (as for
     ``resample_inline_twined``, plus the ster / fish modes), the
@@ -1051,14 +1072,18 @@ def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
     the coordinate derivatives, and the weighted sum of the spline over
     the spread's taps deflected in coordinate space, each tap counted
     only where its deflected ray hits the source when ``tap_valid``;
-    into ``out`` (H, W, C), in place, 0 where no tap counts. Returns
-    ``out``. CUDA tensors go through the kernel; CPU tensors through
-    ``resample_twined_chain_plain``."""
+    into ``out`` (H, W, C), in place, 0 where no tap counts. With
+    ``score`` (H, W; a one-tap spread only) the tap's voronoi score is
+    written there as well: the z of its deflected ray p0 + cx du + cy dv
+    (not renormalised) times ``recip_step`` where the tap counts,
+    ``synopsis.LOWEST`` where it misses; ``out`` is the same bit for bit
+    with or without it. Returns ``out``. CUDA tensors go through the
+    kernel; CPU tensors through ``resample_twined_chain_plain``."""
     _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
-                        n_taps, tmode, pick, face_rows, tap_valid)
+                        n_taps, tmode, pick, face_rows, tap_valid, score)
     kw = dict(degree=degree, n_taps=n_taps, tmode=tmode, pick=pick,
               row0=row0, face_rows=face_rows, precise=precise,
-              tap_valid=tap_valid)
+              tap_valid=tap_valid, score=score, recip_step=recip_step)
     if out.device.type == "cpu":
         return resample_twined_chain_plain(out, coeff, xfeat, yfeat, bmats,
                                            spread, **kw)
@@ -1069,11 +1094,12 @@ def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
     hp, wp, _ = coeff.shape
     ints, floats = _pickup_arrays(pick)
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = fn(out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
-             yfeat.data_ptr(), bmats.data_ptr(), spread.data_ptr(),
-             _wmat(degree), ints, floats, h, w, hp, wp, int(row0),
-             int(face_rows), int(degree), int(nch), _CHAIN_TMODES[tmode],
-             int(n_taps), int(precise), int(tap_valid), _bf16(coeff), stream)
+    err = fn(out.data_ptr(), None if score is None else score.data_ptr(),
+             coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
+             bmats.data_ptr(), spread.data_ptr(), _wmat(degree), ints,
+             floats, h, w, hp, wp, int(row0), int(face_rows), int(degree),
+             int(nch), _CHAIN_TMODES[tmode], int(n_taps), int(precise),
+             int(tap_valid), float(recip_step), _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_twined_chain kernel launch failed: "
                            f"CUDA error {err}")
@@ -1088,15 +1114,21 @@ def resample_twined_chain_plain(out, coeff, xfeat, yfeat, bmats, spread, *,
                                 degree: int, n_taps: int, tmode: str,
                                 pick: ChainPickup, row0: int = 0,
                                 face_rows: int = 0, precise: bool = False,
-                                tap_valid: bool = False):
+                                tap_valid: bool = False, score=None,
+                                recip_step: float = 1.0):
     """The twined chain kernel's computation in plain PyTorch, with its
-    signature: ``twined_chain_operands``, then
-    ``resample_twined_plain`` on them. Runs on any device."""
+    signature: ``twined_chain_operands`` (the score, where asked, by
+    ``synopsis.facet_score`` of ``synopsis.deflect`` of the chain's
+    rays), then ``resample_twined_plain`` on them. Runs on any
+    device."""
     _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
-                        n_taps, tmode, pick, face_rows, tap_valid)
-    ops = twined_chain_operands(xfeat, yfeat, bmats, spread, tmode=tmode,
-                                pick=pick, row0=row0, face_rows=face_rows,
-                                precise=precise, tap_valid=tap_valid)
+                        n_taps, tmode, pick, face_rows, tap_valid, score)
+    ops = twined_chain_operands(
+        xfeat, yfeat, bmats, spread, tmode=tmode, pick=pick, row0=row0,
+        face_rows=face_rows, precise=precise, tap_valid=tap_valid,
+        recip_step=None if score is None else recip_step)
+    if score is not None:
+        score.copy_(ops["score"])
     return resample_twined_plain(
         out, coeff, *(ops[k] for k in ("sx", "sy", "dux", "duy", "dvx",
                                        "dvy")),

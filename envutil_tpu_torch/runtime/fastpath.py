@@ -41,11 +41,15 @@ with a twined form taken when the plan carries a spread:
   planar kernel (``resample_planar``) or of the planar twined kernel
   (``resample_twined``), the latter with per-pixel tap weights.
 
-An untwined stitch of several facets (``multi_frame``) renders each
-facet into its slot of a pixel stack by one launch of those kernels,
-with a voronoi score plane per facet where the synopsis needs one, and
+A stitch of several facets (``multi_frame``) renders each facet into
+its slot of a pixel stack by one launch of those kernels, with a
+voronoi score plane per facet where the synopsis needs one, and
 combines the stacks in PyTorch (``models/synopsis``), as the JAX package
-combines its per-facet frames in XLA.
+combines its per-facet frames in XLA. A twined stitch does so once per
+tap of the spread, each facet through a one-tap launch of its twined
+kernel, and sums the taps' combines with their weights: the exact
+path's ``synopsis.twined``, where every facet's ray deflects and the
+champion is chosen anew for each tap.
 
 The kernel routes adapt channels and brighten after the taps are
 summed, where the exact path does so per tap; the two agree unless the
@@ -61,8 +65,8 @@ A job whose spline degree exceeds the kernels' (``R.MAX_DEGREE``) takes
 counterpart of the JAX package's XLA graph for the jobs its Pallas
 kernels do not cover. The plan decides it, never a kernel's failure.
 
-Twined stitches and masking jobs raise ``NotImplementedError`` naming
-the slice that will cover them.
+Masking jobs raise ``NotImplementedError`` naming the slice that will
+cover them.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -106,9 +111,6 @@ def uncovered(plan, sources):
     ``exact_frame`` covers it."""
     if not sources:
         return "no source"
-    if len(sources) > 1 and plan.spread is not None:
-        return ("twined multi-facet stitches wait for the slice that "
-                "twines stitches (ROADMAP.md, Queue 1 item 3)")
     for src in sources:
         st = src.static
         if st.kind not in ("mount", "cubemap"):
@@ -307,7 +309,8 @@ def _operands(plan, static, core_shape, pad, bcs, device):
                 face_rows=face_rows)
 
 
-@functools.lru_cache(maxsize=16)
+# room for the one-tap spreads of a twined stitch (up to 8 x 8 taps)
+@functools.lru_cache(maxsize=128)
 def _spread_tensor(spread, device):
     """The plan's spread with 1/DERIV_BIAS folded into the offsets, as
     the (K, 3) float32 tensor the twined kernels take."""
@@ -321,8 +324,9 @@ def frame_operands(plan, src):
     twined plan the feature sets are doubled and ``spread``, ``n_taps``
     and ``precise`` are added."""
     spl = src.spl
-    ops = _operands(plan, src.static, tuple(spl.core_shape), spl.pad,
-                    tuple(spl.bcs), spl.coeff.device)
+    ops = _operands(_TAP_OF.get(plan, plan), src.static,
+                    tuple(spl.core_shape), spl.pad, tuple(spl.bcs),
+                    spl.coeff.device)
     ops = dict(ops, degree=spl.degree)
     if plan.spread is not None:
         ops.update(spread=_spread_tensor(plan.spread, spl.coeff.device),
@@ -477,12 +481,13 @@ def _covers_every_ray(src):
         or src.static.full_fisheye
 
 
-def twined_coords(plan, window, src):
+def twined_coords(plan, window, src, recip_step=None):
     """Operands of the planar twined kernel over ``window`` for a twined
     plan with a generic chain, as the dict of
     ``ops/resample.twined_ray_operands``: the stepper's ninepack through
     the chain, then the twined chain's source half, with per-tap validity
-    planes for a source that does not cover every ray."""
+    planes for a source that does not cover every ray, and with
+    ``recip_step`` (a one-tap plan) the tap's voronoi score."""
     device = src.spl.coeff.device
     rays = ST.target_ninepack(plan.projection, plan.width, plan.height,
                               plan.extent, normalize=True,
@@ -490,7 +495,8 @@ def twined_coords(plan, window, src):
                               window=window, device=device)
     return R.twined_ray_operands(
         *rays, _spread_tensor(plan.spread, device), pick=_pickup(src),
-        precise=plan.twine_precise, tap_valid=not _covers_every_ray(src))
+        precise=plan.twine_precise, tap_valid=not _covers_every_ray(src),
+        recip_step=recip_step)
 
 
 def planar_frame(plan, src, out=None, device=None):
@@ -513,18 +519,12 @@ def planar_frame(plan, src, out=None, device=None):
     return _finish(plan, src, out)
 
 
-def _untwined_score(plan, score):
-    if score is not None and plan.spread is not None:
-        raise ValueError("a score plane is for untwined frames")
-
-
 def chain_launch(plan, src, out, score=None):
     """One launch of a chain form over the plan's window into ``out``
     (H, W, C_source): the planar chain kernel, or the twined chain
     kernel for a twined plan. The plan must have no generic chain. With
-    ``score`` (H, W; untwined only) the planar chain kernel writes each
-    pixel's voronoi score there as well."""
-    _untwined_score(plan, score)
+    ``score`` (H, W; untwined, or twined with one tap) the kernel writes
+    each pixel's voronoi score there as well."""
     ops = chain_operands(plan, src)
     tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
     if plan.spread is None:
@@ -532,7 +532,8 @@ def chain_launch(plan, src, out, score=None):
                                 recip_step=src.static.recip_step, **ops)
     else:
         R.resample_twined_chain(out, src.spl.coeff, *tensors,
-                                ops.pop("spread"), **ops)
+                                ops.pop("spread"), score=score,
+                                recip_step=src.static.recip_step, **ops)
 
 
 def planes_launch(plan, src, out, score=None):
@@ -540,17 +541,20 @@ def planes_launch(plan, src, out, score=None):
     the plan's window into ``out`` (H, W, C_source): ``coords`` and the
     planar kernel (over a zero fill through the validity mask unless the
     source is a cubemap), or ``twined_coords`` and the planar twined
-    kernel for a twined plan. With ``score`` (H, W; untwined only) the
-    voronoi score of the pass's rays is written there."""
-    _untwined_score(plan, score)
+    kernel for a twined plan. With ``score`` (H, W; untwined, or twined
+    with one tap) the voronoi score of the pass's rays (twined: of the
+    tap's deflected rays) is written there."""
     coeff, degree = src.spl.coeff, src.spl.degree
     if plan.spread is not None:
-        ops = twined_coords(plan, frame_window(plan), src)
+        ops = twined_coords(plan, frame_window(plan), src,
+                            None if score is None else src.static.recip_step)
         R.resample_twined(
             out, coeff, *(ops[k] for k in _TWINED_PLANES),
             _spread_tensor(plan.spread, coeff.device), degree=degree,
             n_taps=len(plan.spread), tap_weights=ops["tap_weights"],
             wrap_x=ops["wrap_x"])
+        if score is not None:
+            score.copy_(ops["score"])
         return
     sx, sy, mask, z = coords(plan, frame_window(plan), src)
     if score is not None:
@@ -574,15 +578,38 @@ def facet_plans(plan):
                                     plan.planar_to_ray))
 
 
+# a one-tap plan of ``tap_plans`` -> its facet's twined plan, whose kernel
+# operands (all but the spread) it shares, so that a stitch caches one
+# set of features per facet, not per facet and tap
+_TAP_OF = weakref.WeakKeyDictionary()
+
+
+@functools.lru_cache(maxsize=16)
+def tap_plans(plan):
+    """Per tap (cx, cy, w) of a twined stitch's spread, (w, the facets'
+    one-tap plans): each facet's entry of ``facet_plans`` with the spread
+    ((cx, cy, 1.0),), so that one launch renders that tap alone, masked
+    by its own deflected validity. The offsets stay as the plan has them:
+    the kernels' operands fold 1/DERIV_BIAS in once
+    (``synopsis.scaled_spread``)."""
+    taps = []
+    for cx, cy, w in plan.spread:
+        one = tuple(dataclasses.replace(fp, spread=((cx, cy, 1.0),))
+                    for fp in facet_plans(plan))
+        _TAP_OF.update(zip(one, facet_plans(plan)))
+        taps.append((float(w), one))
+    return tuple(taps)
+
+
 def launch(plan, src, out, score=None, inline=True):
     """One kernel launch over the plan's window into ``out``
     (H, W, C_source), the one place where a facet's route is chosen: a
     generic chain (a translated facet) takes ``planes_launch``; any
     other plan the inline kernel where ``inline_mode`` allows it (unless
     ``inline`` is False or a ``score`` is asked for: the inline kernel
-    writes none), else ``chain_launch``. With ``score`` (H, W; untwined
-    only) the facet's voronoi score is written there too. Returns the
-    kernel's name."""
+    writes none), else ``chain_launch``. With ``score`` (H, W; untwined,
+    or twined with one tap) the facet's voronoi score is written there
+    too. Returns the kernel's name."""
     form = "twined" if plan.spread is not None else "planar"
     if plan.planar_to_ray[0] is not None:
         planes_launch(plan, src, out, score)
@@ -595,13 +622,13 @@ def launch(plan, src, out, score=None, inline=True):
 
 
 def facet_into(plan, src, slot, score=None):
-    """Render one facet of an untwined stitch (``plan`` is its entry of
-    ``facet_plans``) into ``slot`` (H, W, nchannels), what the exact
-    path's ``environment.lookup`` gives for it: one ``launch`` (with
-    ``score`` (H, W), the voronoi route, which writes the facet's score;
-    without it, hdr_merge's, the route a single-facet frame takes), then
-    the channel adaptation and brighten (``_finish``). Returns the
-    kernel's name."""
+    """Render one facet of a stitch (``plan`` is its entry of
+    ``facet_plans``, or of one tap's ``tap_plans``) into ``slot``
+    (H, W, nchannels), what the exact path's ``environment.lookup`` gives
+    for it at that tap's rays: one ``launch`` (with ``score`` (H, W), the
+    voronoi route, which writes the facet's score; without it,
+    hdr_merge's, the route a single-facet frame takes), then the channel
+    adaptation and brighten (``_finish``). Returns the kernel's name."""
     nch = src.spl.coeff.shape[-1]
     out = slot if nch == slot.shape[-1] else torch.empty(
         slot.shape[:2] + (nch,), dtype=torch.float32, device=slot.device)
@@ -611,15 +638,20 @@ def facet_into(plan, src, slot, score=None):
 
 
 def multi_frame(plan, sources, device=None, log=None):
-    """Render an untwined stitch of several sources: the counterpart of
-    the JAX ``fused_multi_frame`` followed by ``_combine_stack``. One
-    pixel stack (F, H, W, nchannels) and, for voronoi and voronoi_plus,
-    one score stack (F, H, W) are allocated per frame; each facet is
-    rendered into its slot by one kernel launch (``facet_into``); the
-    synopsis of the stacks (``models/synopsis``: ``voronoi_stack``,
-    ``voronoi_plus_stack`` or ``hdr_merge_stack``) gives the frame.
-    Returns the (H, W, nchannels) image tensor on the sources' device;
-    ``log``, a list, receives each facet's kernel name."""
+    """Render a stitch of several sources: the counterpart of the JAX
+    ``fused_multi_frame`` followed by ``_combine_stack`` and, twined, of
+    ``_render_fast_multi_pertap``. One pixel stack (F, H, W, nchannels)
+    and, for voronoi and voronoi_plus, one score stack (F, H, W) are
+    allocated per frame; each facet is rendered into its slot by one
+    kernel launch (``facet_into``); the synopsis of the stacks
+    (``models/synopsis``: ``voronoi_stack``, ``voronoi_plus_stack`` or
+    ``hdr_merge_stack``) gives the frame. A twined plan does that once
+    per tap of its spread through the facets' one-tap plans
+    (``tap_plans``), reusing the stacks, and sums the taps' combines with
+    their weights (``synopsis.twined_stack``), as ``synopsis.twined``
+    sums them on the exact path. Returns the (H, W, nchannels) image
+    tensor on the sources' device; ``log``, a list, receives each
+    launch's kernel name, tap by tap and facet by facet."""
     reason = uncovered(plan, sources)
     if reason is not None:
         raise NotImplementedError(reason)
@@ -635,18 +667,27 @@ def multi_frame(plan, sources, device=None, log=None):
                         device=dev)
     score = None if syn is SYN.hdr_merge else torch.empty(
         shape, dtype=torch.float32, device=dev)
-    for fi, (fplan, src) in enumerate(zip(facet_plans(plan), sources)):
-        what = facet_into(fplan, src, stack[fi],
-                          None if score is None else score[fi])
-        if log is not None:
-            log.append(what)
-    if score is None:
-        return SYN.hdr_merge_stack(list(stack),
-                                   [s.static.brighten for s in sources],
-                                   plan.nchannels)
-    combine = SYN.voronoi_stack if syn is SYN.voronoi \
-        else SYN.voronoi_plus_stack
-    return combine(stack, None, score)
+
+    def stitch(fplans):
+        for fi, (fplan, src) in enumerate(zip(fplans, sources)):
+            what = facet_into(fplan, src, stack[fi],
+                              None if score is None else score[fi])
+            if log is not None:
+                log.append(what)
+        if score is None:
+            return SYN.hdr_merge_stack(list(stack),
+                                       [s.static.brighten for s in sources],
+                                       plan.nchannels)
+        combine = SYN.voronoi_stack if syn is SYN.voronoi \
+            else SYN.voronoi_plus_stack
+        return combine(stack, None, score)
+
+    if plan.spread is None:
+        return stitch(facet_plans(plan))
+    acc = None
+    for w, fplans in tap_plans(plan):
+        acc = SYN.twined_stack(acc, stitch(fplans), w)
+    return acc
 
 
 def render_fast(plan, sources, verbose: bool = False) -> np.ndarray:
@@ -670,9 +711,17 @@ def render_fast(plan, sources, verbose: bool = False) -> np.ndarray:
         log = []
         img = multi_frame(plan, sources, log=log)
         if verbose:
-            for fi, what in enumerate(log):
-                print(f"fastpath: facet {fi}: 1 launch of {what}")
-            print(f"fastpath: {plan.synopsis} of {len(log)} facets over "
+            n_f = len(sources)
+            taps = plan.spread or ((0.0, 0.0, 1.0),)
+            for ti, (cx, cy, w) in enumerate(taps):
+                at = "" if plan.spread is None else \
+                    f"tap {ti} ({cx:g}, {cy:g}, weight {w:g}): "
+                for fi, what in enumerate(log[ti * n_f:(ti + 1) * n_f]):
+                    print(f"fastpath: {at}facet {fi}: 1 launch of {what}")
+            print(f"fastpath: {plan.synopsis} of {n_f} facets"
+                  + ("" if plan.spread is None else
+                     f" per tap, {len(taps)} taps")
+                  + f", {len(log)} launches over "
                   f"{img.shape[0]}x{img.shape[1]} px")
         return img.cpu().numpy()
     src = sources[0]

@@ -7,8 +7,9 @@ holds the target geometry and one camera-to-facet basis per facet;
 
 * on CUDA through one launch of an inline-coordinates kernel or of a
   planar kernel (runtime/fastpath.py), each with its twined form, and
-  for an untwined stitch one such launch per facet and the synopsis of
-  their stacks; a job whose spline degree exceeds the kernels'
+  for a stitch one such launch per facet and the synopsis of their
+  stacks (twined, once per tap of the spread, one-tap launches, the
+  taps' synopses summed); a job whose spline degree exceeds the kernels'
   (``ops.resample.MAX_DEGREE``) takes the exact path below on the card,
   as the JAX package sends it to its XLA graph. Jobs the port has no
   route for yet raise ``NotImplementedError``: the plan picks the

@@ -46,7 +46,7 @@ import oracle as O
 from test_golden_oracle import (fw_render, make_args, make_facet,
                                 synthetic_equirect)
 from test_torch_planar import _jax_tile, _planes
-from test_torch_render import port_args, port_facet
+from test_torch_render import port_args, port_facet, port_stripe
 from test_torch_twining import (_jax_planes, _twined_args, _warp,
                                 noise_mount)  # noqa: F401 (a fixture)
 from test_torch_window import staged_eval
@@ -146,10 +146,7 @@ def test_render_matches_jax_at_bf16(job):
     fast route's plain version against the exact path at bf16."""
     env = synthetic_equirect()
     if job == "biatan6":
-        jf = make_facet(JP.SPHERICAL, 256, 128, 2 * math.pi)
-        stripe = fw_render(make_args(JP.BIATAN6, 64, 384, 90.0, [jf],
-                                     degree=3),
-                           [JE.make_mount_source(jf, env, 3, 3)])
+        stripe = port_stripe(TP.BIATAN6, env)
         jc = make_facet(JP.BIATAN6, 64, 384, math.pi / 2)
         jsrc = JCBM.make_cubemap_source(jc, stripe.reshape(6, 64, 64, 3), 3,
                                         3, support_min=8, tile_size=64)

@@ -3,8 +3,8 @@ cubemap, the cubemap branches of models/environment.py and the inline
 kernel's IR source modes) against the JAX package, on the CPU.
 
 Inputs come from the golden-oracle fixture (a smooth synthetic
-equirect, rendered to a 64-px cubemap or biatan6 stripe by the JAX
-package); both packages then build the IR from the same faces.
+equirect, rendered to a 64-px cubemap or biatan6 stripe by the port);
+both packages then build the IR from the same faces.
 
 Tolerances, each with its reason:
 
@@ -38,7 +38,7 @@ import jax.numpy as jnp
 import oracle as O
 from test_golden_oracle import (GOLDEN_DB, fw_render, make_args,
                                 make_facet, synthetic_equirect)
-from test_torch_render import port_args, port_facet
+from test_torch_render import port_args, port_facet, port_stripe
 
 from envutil_tpu.core.conventions import Projection as JP
 from envutil_tpu.models import cubemap as JCBM
@@ -66,14 +66,11 @@ KINDS = {"cubemap": (JP.CUBEMAP, TP.CUBEMAP, O.CUBEMAP),
 
 @pytest.fixture(scope="module", params=sorted(KINDS))
 def ir(request):
-    """A 64-px cubemap or biatan6 stripe of the golden fixture and the
-    IR sources both packages build from it (degree 3, support_min 8,
-    tile 64, as tests/test_golden_oracle.py)."""
+    """A 64-px cubemap or biatan6 stripe of the golden fixture (rendered
+    by the port) and the IR sources both packages build from it (degree
+    3, support_min 8, tile 64, as tests/test_golden_oracle.py)."""
     jproj, tproj, oproj = KINDS[request.param]
-    env = synthetic_equirect()
-    jf = make_facet(JP.SPHERICAL, 256, 128, 2 * math.pi)
-    stripe = fw_render(make_args(jproj, 64, 384, 90.0, [jf], degree=3),
-                       [JE.make_mount_source(jf, env, 3, 3)])
+    stripe = port_stripe(tproj, synthetic_equirect())
     faces = stripe.reshape(6, 64, 64, 3)
     jc = make_facet(jproj, 64, 384, math.pi / 2)
     jsrc = JCBM.make_cubemap_source(jc, faces, 3, 3, support_min=8,

@@ -79,3 +79,29 @@ def test_render_frame_needs_a_card_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         render_frame(plan, [src])
     assert render_frame(plan, [src], device="cpu").shape == (8, 8, 3)
+
+
+def test_entry_point_argtypes_match_c_signatures():
+    """Every C entry point of the kernel sources (``extern "C" int
+    envutil_...(...)``) is declared to ctypes with one argtype per C
+    parameter, of the matching kind: a pointer, ``long long``, ``int`` or
+    ``float``. ctypes cannot see a C signature, so a parameter added on
+    one side only shows as a launch failure on the card."""
+    import ctypes
+    from envutil_tpu_torch.ops import resample as R
+    kinds = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    declared = {name: (lib, types) for lib in R.LIBRARIES
+                for name, types in lib.symbols.items()}
+    found = set()
+    for lib in R.LIBRARIES:
+        text = lib.source.read_text()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\((.*?)\)\s*\{', text, re.S):
+            want = [ctypes.c_void_p if "*" in p else
+                    kinds[" ".join(p.split()[:-1]).replace("const ", "")]
+                    for p in (q.strip() for q in params.split(","))]
+            assert declared[name][0] is lib, name
+            assert declared[name][1] == want, name
+            found.add(name)
+    assert found == set(declared)

@@ -45,6 +45,20 @@ def port_facet(projection, w, h, hfov):
     return f
 
 
+def port_stripe(projection, env, width=64, degree=3):
+    """A ``width``-px cubemap or biatan6 stripe (6 width x width faces) of
+    the full-spherical equirect ``env``, rendered at ``degree`` by the
+    port's exact path on the CPU: the faces from which the IR tests
+    build both packages' sources (they differ from the JAX package's
+    render of the same stripe by ~1e-6)."""
+    h, w = env.shape[:2]
+    tf = port_facet(TP.SPHERICAL, w, h, 2 * math.pi)
+    src = TE.make_mount_source(tf, env, degree, degree, device="cpu")
+    plan = build_plan(port_args(projection, width, 6 * width, 90.0, [tf],
+                                degree), [tf])
+    return render_frame(plan, [src], device="cpu")
+
+
 def port_args(projection, w, h, hfov_deg, facets, degree, yaw=0.0,
               pitch=0.0, roll=0.0, twine_spread=None):
     a = Args()
@@ -119,14 +133,13 @@ def test_render_matches_jax_and_oracle(env, oracle_sources, name, proj, w,
 
 def test_uncovered_jobs_raise(env):
     """No plain path stands in for a kernel: jobs the port has no kernel
-    for (twined stitches, --mask_for paint) raise NotImplementedError
-    naming the later slice; a bf16 table is covered and renders what the
-    float32 table it upcasts to renders. A twined single-facet
-    job is covered: a one-tap spread at the pixel centre renders what
-    the untwined job renders, on the exact path and on the kernel
-    route. So is an untwined stitch, on the kernel route
-    (``render_fast`` runs the kernels' plain versions on CPU tensors);
-    a twined stitch renders on the exact path only."""
+    for (--mask_for paint) raise NotImplementedError naming the later
+    slice; a bf16 table is covered and renders what the float32 table it
+    upcasts to renders. A twined single-facet job is covered: a one-tap
+    spread at the pixel centre renders what the untwined job renders, on
+    the exact path and on the kernel route. So are an untwined and a
+    twined stitch, on the kernel route (``render_fast`` runs the
+    kernels' plain versions on CPU tensors)."""
     tf = port_facet(TP.SPHERICAL, 256, 128, 2 * math.pi)
     src = TE.make_mount_source(tf, env, 3, 3, device="cpu")
     twined = build_plan(port_args(TP.RECTILINEAR, 32, 32, 60.0, [tf], 3,
@@ -157,8 +170,9 @@ def test_uncovered_jobs_raise(env):
     np.testing.assert_allclose(render_frame(twined2, [src, src],
                                             device="cpu"),
                                want, rtol=0, atol=JAX_TOL)
-    with pytest.raises(NotImplementedError, match="twined multi-facet"):
-        FP.render_fast(twined2, [src, src])
+    assert FP.uncovered(twined2, [src, src]) is None
+    np.testing.assert_allclose(FP.render_fast(twined2, [src, src]), want,
+                               rtol=0, atol=JAX_TOL)
     plan = build_plan(port_args(TP.FISHEYE, 32, 32, 120.0, [tf], 3), [tf])
     bf16 = TE.FacetSource(static=src.static, spl=dataclasses.replace(
         src.spl, coeff=src.spl.coeff.to(torch.bfloat16)))

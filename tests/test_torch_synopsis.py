@@ -27,13 +27,15 @@ Tolerances, each with its reason:
   ray from the axis features); and a pixel whose planar coordinate in some facet lies within EDGE
   model units of that facet's window edge, where an ulp decides whether
   the facet covers it (as tests/test_torch_planar_chain.py).
-- twined stitch (exact path only): 1e-5 as well; the exact path deflects
-  the same rays in both packages.
+- twined stitch on the exact path: 1e-5 as well; the exact path
+  deflects the same rays in both packages. Its card route deflects in
+  coordinate space: tests/test_torch_twined_stitch.py states that bound.
 - score planes: 1e-6 (relative to scores of order recip_step): z of a
   normalised float32 ray in another order times recip_step.
 """
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -106,11 +108,14 @@ def _crossover(jsrc):
         spl.degree, spl.bcs, spl.core_shape, spl.spherical, device="cpu")
 
 
-def _stitch(case, spread=None):
+def _stitch(case, spread=None, precise=False, jax=True):
     """(JAX sources, port sources, JAX plan, port plan) of a CASES
-    entry; the images are seeded noise (facets) or the golden fixture
-    (spheres), each bracket scaled by 1/brighten and brightened back."""
-    c = CASES[case]
+    entry (or of such a dict), twined by ``spread`` (``precise``:
+    --twine_precise) where given; the images are seeded noise (facets)
+    or the golden fixture (spheres), each bracket scaled by 1/brighten
+    and brightened back. Without ``jax`` the port builds its sources
+    from the same images and the JAX entries are None."""
+    c = CASES[case] if isinstance(case, str) else case
     rng = np.random.default_rng(21)
     nch, degree = c.get("nch", 3), c["degree"]
     brightens = c.get("brightens", (1.0,) * len(c["facets"]))
@@ -132,11 +137,13 @@ def _stitch(case, spread=None):
         for k, v in kw.items():
             setattr(tf, k, v)
         tf.process_geometry()
-        jsrc = JE.make_mount_source(jf, img / b, degree, degree)
-        jsrc.static = dataclasses.replace(jsrc.static, brighten=b)
+        make = JE.make_mount_source if jax else functools.partial(
+            TE.make_mount_source, device="cpu")
+        src = make(jf if jax else tf, img / b, degree, degree)
+        src.static = dataclasses.replace(src.static, brighten=b)
         jfs.append(jf)
         tfs.append(tf)
-        jsrcs.append(jsrc)
+        jsrcs.append(src)
     tproj, w, h, hfov, ypr = c["target"]
     synopsis = c.get("synopsis", "panorama")
     jargs = make_args(JP(int(tproj)), w, h, hfov, jfs, degree=degree,
@@ -146,6 +153,9 @@ def _stitch(case, spread=None):
                       twine_spread=spread)
     for a in (jargs, targs):
         a.nchannels, a.synopsis, a.solo = nch, synopsis, -1
+        a.twine_precise = precise
+    if not jax:
+        return None, jsrcs, None, build_plan(targs, tfs)
     return (jsrcs, [_crossover(s) for s in jsrcs], jbuild_plan(jargs, jfs),
             build_plan(targs, tfs))
 
@@ -214,7 +224,12 @@ def test_stitch_matches_jax(case):
 def test_twined_stitch_exact_path_matches_jax():
     """A twined voronoi stitch (2x2 box) on the exact path: every tap's
     rays through the synopsis, as the JAX package twines it; the card
-    route refuses it, naming the later slice."""
+    route (``render_fast``: one one-tap launch of the twined chain form
+    per facet and tap, as plain versions here) renders it too, within
+    the bound of its coordinate-space deflection
+    (tests/test_torch_twined_stitch.py, which holds the route over the
+    synopses)."""
+    from test_torch_twined_stitch import ROUTE_TOL as TWINED_ROUTE_TOL
     spread = [[-0.25, -0.25, 0.25], [0.25, -0.25, 0.25],
               [-0.25, 0.25, 0.25], [0.25, 0.25, 0.25]]
     jsrcs, tsrcs, jplan, tplan = _stitch("voronoi, 3 rectilinear facets",
@@ -224,8 +239,10 @@ def test_twined_stitch_exact_path_matches_jax():
     skip = _excluded(tplan, tsrcs).numpy()
     assert int(skip.sum()) <= MAX_EXCLUDED_PX
     _assert_close(got, want, ~skip, "twined stitch vs JAX")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        FP.render_fast(tplan, tsrcs)
+    assert FP.uncovered(tplan, tsrcs) is None
+    _assert_close(FP.render_fast(tplan, tsrcs), got, ~skip,
+                  "twined stitch through the card route vs the exact path",
+                  TWINED_ROUTE_TOL)
 
 
 def test_multi_frame_stacks_match_jax_combine_inputs():

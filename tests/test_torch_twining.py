@@ -52,7 +52,7 @@ import oracle as O
 from test_golden_oracle import (GOLDEN_DB, fw_render, make_args, make_facet,
                                 synthetic_equirect)
 from test_torch_planar import _sources as facet_sources
-from test_torch_render import port_args, port_facet
+from test_torch_render import port_args, port_facet, port_stripe
 
 from envutil_tpu.core.conventions import Projection as JP
 from envutil_tpu.core.metrics import get_extent as jget_extent
@@ -184,16 +184,18 @@ def test_twined_mount_matches_jax_and_oracle(env, name, spread, precise):
     assert not np.array_equal(got, other)
 
 
-def _cubemap_sources(env, kind="cubemap"):
+def _cubemap_sources(env, kind="cubemap", jax=True):
+    """(JAX facet, JAX source, port facet, port source) of a 64-px
+    cubemap or biatan6 stripe of ``env``, both sources built from the
+    same faces; without ``jax`` the JAX entries are None."""
     jproj, tproj = (JP.CUBEMAP, TP.CUBEMAP) if kind == "cubemap" \
         else (JP.BIATAN6, TP.BIATAN6)
-    jf = make_facet(JP.SPHERICAL, 256, 128, 2 * math.pi)
-    stripe = fw_render(make_args(jproj, 64, 384, 90.0, [jf], degree=3),
-                       [JE.make_mount_source(jf, env, 3, 3)])
-    faces = stripe.reshape(6, 64, 64, 3)
-    jc = make_facet(jproj, 64, 384, math.pi / 2)
-    jsrc = JCBM.make_cubemap_source(jc, faces, 3, 3, support_min=8,
-                                    tile_size=64)
+    faces = port_stripe(tproj, env).reshape(6, 64, 64, 3)
+    jc = jsrc = None
+    if jax:
+        jc = make_facet(jproj, 64, 384, math.pi / 2)
+        jsrc = JCBM.make_cubemap_source(jc, faces, 3, 3, support_min=8,
+                                        tile_size=64)
     tc = port_facet(tproj, 64, 384, math.pi / 2)
     tsrc = TCBM.make_cubemap_source(tc, faces, 3, 3, 8, 64, device="cpu")
     return jc, jsrc, tc, tsrc
@@ -559,7 +561,7 @@ def test_planar_twined_cubemap_route_matches_exact_path(env):
     """A biatan6 source seen stereographically across cube edges,
     twined: ``planar_frame`` (whole-frame form, every pickup of a pixel
     in its centre's face) against the exact path."""
-    _jc, _jsrc, tc, tsrc = _cubemap_sources(env, "biatan6")
+    _jc, _jsrc, tc, tsrc = _cubemap_sources(env, "biatan6", jax=False)
     plan = build_plan(_twined_args(
         port_args, TP.STEREOGRAPHIC, 96, 64, 150.0, [tc], 3, 25.0, -15.0,
         10.0, spread=BOX2, precise=False), [tc])
