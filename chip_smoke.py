@@ -52,7 +52,17 @@ events. The paths:
   planes form with its score); and a twined stereographic view of the
   pole of an 8192x4096 smooth sphere (the twined chain form), held
   against the exact path below 80 degrees of latitude and reported
-  above.
+  above;
+- PTO jobs: ``--single 0`` on config 5b (facet 0's 1536x1152 lens
+  geometry re-created from all six facets through the inverse lens LUT:
+  the coordinate pass and one resample_planar launch a facet, the
+  amplify of facet 0's brighten 2); config 5b's facets with a 5% lens
+  crop each and exclude polygons on facets 1 and 3 (alpha synthesized
+  on the host, four channels, voronoi_plus through resample_planar_chain);
+  ``--mask_for 1 --nchannels 1`` on config 5 (paint sources, the exact
+  route, held to the kernels' champion); and config 5d's facets ->
+  512x256 under ``--twine 2 --twine_precise`` (the exact route, beside
+  the twined chain route it replaced, whose deviation is reported).
 
 Both chain forms' score outputs are held against their plain versions
 over every small chain case (the twined one at one tap), with the
@@ -694,9 +704,11 @@ WRAPPERS = ("resample_inline", "resample_planar", "resample_planar_chain",
             "resample_twined_chain")
 
 
-def render(plan, src, name, want_inline=0, want_planar=0, want=None):
-    """render_frame of ``src`` (a source, or a list of them for a stitch)
-    with every wrapper's launch count, and the exact-path route's count
+def render(plan, src, name, want_inline=0, want_planar=0, want=None,
+           amplify=None):
+    """render_frame of ``src`` (a source, or a list of them for a stitch;
+    ``amplify`` as a ``--single`` job passes it) with every wrapper's
+    launch count, and the exact-path route's count
     (``fastpath.exact_frame``), set to 0 just before and read just after;
     checks that exactly the expected kernels were launched (``want`` maps
     wrappers to counts where it is given) and returns (frame, ms,
@@ -716,7 +728,7 @@ def render(plan, src, name, want_inline=0, want_planar=0, want=None):
         counter.launches = 0
     t0 = time.perf_counter()
     frame = RD.render_frame(plan, src if isinstance(src, list) else [src],
-                            device="cuda")
+                            amplify=amplify, device="cuda")
     ms = (time.perf_counter() - t0) * 1000.0
     n = {k: counter.launches for k, counter in counters.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1237,23 +1249,34 @@ def chain_vs_plain(plan, src):
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out_k).all()), "chain kernel output not finite")
     skip = edge.clone()
-    if src.spl.degree == 0:
-        if spread is None:
-            sx, sy, _m = R.planar_chain_coords(*args[1:4], **{
-                k: ops[k] for k in ("tmode", "pick", "row0", "face_rows")})
+    # coverage is the plain chain's validity (untwined: the ray's window
+    # test; twined: any tap's), not the output's zeros: a covered pixel
+    # whose support lies in an alpha-0 region of the source (a lens crop,
+    # an exclude polygon) holds only the prefilter's tail there and may
+    # round to exactly 0 in one evaluation order and not in the other
+    if spread is None:
+        sx, sy, hit = R.planar_chain_coords(*args[1:4], **{
+            k: ops[k] for k in ("tmode", "pick", "row0", "face_rows")})
+        if src.spl.degree == 0:
             skip |= near_cell_edge(sx) | near_cell_edge(sy)
-        else:
-            tw = R.twined_chain_operands(*args[1:5], **{
-                k: ops[k] for k in ("tmode", "pick", "row0", "face_rows",
-                                    "precise", "tap_valid")})
+    else:
+        tw = R.twined_chain_operands(*args[1:5], **{
+            k: ops[k] for k in ("tmode", "pick", "row0", "face_rows",
+                                "precise", "tap_valid")})
+        hit = torch.ones(shape[:2], dtype=torch.bool, device=coeff.device) \
+            if tw["tap_weights"] is None else tw["tap_weights"].bool().any(0)
+        if src.spl.degree == 0:
             for x, y, _w in R.twined_tap_coords(
                     *(tw[k] for k in ("sx", "sy", "dux", "duy", "dvx",
                                       "dvy")), args[4], coeff.shape[0],
                     coeff.shape[1], 0, tw["wrap_x"]):
                 skip |= near_cell_edge(x) | near_cell_edge(y)
+    missed = ~hit & ~edge
+    check(not bool(((out_k != 0).any(dim=-1) & missed).any())
+          and not bool(((out_p != 0).any(dim=-1) & missed).any()),
+          "a chain form or its plain version paints a pixel whose ray "
+          "misses the source, away from a window or face edge")
     flip = (out_k == 0).all(dim=-1) != (out_p == 0).all(dim=-1)
-    check(not bool((flip & ~edge).any()), "a chain form and its plain "
-          "version disagree on coverage away from a window or face edge")
     diff = torch.where(skip[..., None], 0.0, (out_k - out_p).abs())
     return float(diff.max()), int(edge.sum()), int(flip.sum()), out_k, out_p
 
@@ -1776,25 +1799,48 @@ POLE_LAT = 80
 FLIP_REL = 1e-6
 
 
-def stitch_config(name, rng):
+def pto_cuts(i, w, h):
+    """The facet ``i`` of config 5b's PTO masking (the pto_alpha phase): a
+    rectangular lens crop inset 5% on every facet and, on facets 1 and 3,
+    a 4-vertex k-line exclude polygon over a corner region."""
+    from envutil_tpu_torch.core.facet import PtoMask
+    kw = dict(has_lens_crop=True, crop_x0=int(0.05 * w),
+              crop_x1=int(0.95 * w), crop_y0=int(0.05 * h),
+              crop_y1=int(0.95 * h))
+    if i in (1, 3):
+        kw.update(has_pto_mask=True, pto_masks=[PtoMask(
+            i, 0, [0.10 * w, 0.35 * w, 0.30 * w, 0.08 * w],
+            [0.12 * h, 0.10 * h, 0.40 * h, 0.45 * h])])
+    return kw
+
+
+def stitch_config(name, rng, builds=None):
     """(facets, sources on the card, synopsis, channels) of a stitch of
     benchmarks.py at full size, its images seeded noise: config 5 (three
     2048x1536 rectilinear facets, hfov 65, yaws -40/0/40; with
     ``name`` "config 5, 4 channels" the same facets with associated
     alpha), config 5b (six 1536x1152 rectilinear facets, hfov 72, yaw
-    60 i, lens a, b, c = 0.01, -0.02, 0.005), config 5d (the same six
-    facets without the lens; twined by its plan) or config 5c (three
+    60 i, lens a, b, c = 0.01, -0.02, 0.005; "config 5b, alpha" with the
+    lens crops and exclude polygons of ``pto_cuts``, whose alpha
+    ``make_mount_source`` synthesizes: 4 channels), config 5d (the same
+    six facets without the lens; twined by its plan) or config 5c (three
     4096x2048 full-spherical brackets, exposure 2^eev for eev -2/0/2,
-    brighten 2^-eev, hdr_merge); degree 3."""
+    brighten 2^-eev, hdr_merge); degree 3. ``builds``, a list, receives
+    per facet the host-clock ms of ``make_mount_source`` (its host copy
+    and prefilter synchronised) and, for masked facets, of
+    ``synthesize_alpha`` alone on the same image."""
+    import torch
     from envutil_tpu_torch.core.conventions import Projection as P
     from envutil_tpu_torch.models import environment as E
     if name == "config 5c":
         specs = [(P.SPHERICAL, 4096, 2048, 360.0, {}, eev)
                  for eev in (-2.0, 0.0, 2.0)]
-    elif name == "config 5b":
+    elif name.startswith("config 5b"):
         specs = [(P.RECTILINEAR, 1536, 1152, 72.0,
                   dict(yaw=math.radians(60.0 * i), a=0.01, b=-0.02,
-                       c=0.005), 0.0) for i in range(6)]
+                       c=0.005, **(pto_cuts(i, 1536, 1152)
+                                   if name.endswith("alpha") else {})),
+                  0.0) for i in range(6)]
     elif name == "config 5d":
         specs = [(P.RECTILINEAR, 1536, 1152, 72.0,
                   dict(yaw=math.radians(60.0 * i)), 0.0) for i in range(6)]
@@ -1812,7 +1858,31 @@ def stitch_config(name, rng):
             img[..., 3] = 0.3 + 0.7 * rng.random((h, w), dtype=np.float32)
             img[..., :3] *= img[..., 3:]
         facets.append(fct)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         sources.append(E.make_mount_source(fct, img, 3, 3, device="cuda"))
+        torch.cuda.synchronize()
+        rec = dict(build_ms=(time.perf_counter() - t0) * 1e3)
+        if fct.has_lens_crop or fct.has_pto_mask:
+            # the synthesis alone (median of 3), and the rest of the build
+            # on its 4-channel result (the host copy and the prefilter)
+            synth = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                rgba = E.synthesize_alpha(img, fct)
+                synth.append((time.perf_counter() - t0) * 1e3)
+            bare = make_facet(proj, w, h, math.radians(hfov))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            E.make_mount_source(bare, rgba, 3, 3, device="cuda")
+            torch.cuda.synchronize()
+            rec.update(synth_ms=float(np.median(synth)),
+                       rest_ms=(time.perf_counter() - t0) * 1e3)
+            rec["synth_share"] = rec["synth_ms"] / (rec["synth_ms"]
+                                                    + rec["rest_ms"])
+        if builds is not None:
+            builds.append(rec)
+    nch = sources[0].spl.coeff.shape[-1]
     return facets, sources, "hdr_merge" if name == "config 5c" \
         else "panorama", nch
 
@@ -1844,7 +1914,8 @@ def hdr_condition(px_list, brightens, out):
     return (num / sum(qs).abs()[..., None]).amax(dim=-1)
 
 
-def stitch_errors(plan, sources, frame, stack, score, chunk=128):
+def stitch_errors(plan, sources, frame, stack, score, chunk=128,
+                  amplify=None):
     """A stitch's ``frame`` and its facets' slots against the port's
     exact path on the card, in row chunks: each facet rendered into its
     slot of ``stack`` (and ``score``, None for hdr_merge) as
@@ -1859,7 +1930,8 @@ def stitch_errors(plan, sources, frame, stack, score, chunk=128):
     lookups past PATH_BOUND (``hdr_condition`` times that difference: a
     quality sum near 0). Returns (frame max abs diff, slot max abs diff,
     window-edge px, champion-flip or ill-conditioned px); ``stack`` and
-    ``score`` hold the last tap's slots."""
+    ``score`` hold the last tap's slots. ``amplify`` (a ``--single``
+    job's) brightens the exact frame as ``render_frame`` brightens it."""
     import torch
     from envutil_tpu_torch.models import environment as E
     from envutil_tpu_torch.models import stepper as ST
@@ -1925,6 +1997,8 @@ def stitch_errors(plan, sources, frame, stack, score, chunk=128):
     for r0 in range(0, h, chunk):
         r1 = min(r0 + chunk, h)
         exact = RD._render_window(plan, sources, (r0, r1, 0, w))
+        if amplify is not None:
+            exact = E.apply_brighten(exact, amplify)
         diff = (torch.from_numpy(frame[r0:r1]).cuda() - exact).abs().amax(
             dim=-1)
         worst = max(worst, float(torch.where(edge[r0:r1] | other[r0:r1],
@@ -2030,8 +2104,20 @@ def stitch_path(name, rng, coeff_dtype="f32", twine=0):
     import torch
     from envutil_tpu_torch.models import synopsis as SYN
     from envutil_tpu_torch.runtime import fastpath as FP
-    facets, sources, synopsis, nch = stitch_config(name, rng)
+    builds = []
+    facets, sources, synopsis, nch = stitch_config(name, rng, builds)
     sources = [with_coeff(s, coeff_dtype) for s in sources]
+    if all("synth_ms" in b for b in builds):
+        print(f"{name}: per facet, make_mount_source (host clock, "
+              f"synchronised) " + ", ".join(
+                  f"{b['build_ms']:.1f}" for b in builds) + " ms; "
+              "synthesize_alpha alone (host numpy, median of 3) " + ", ".join(
+                  f"{b['synth_ms']:.1f}" for b in builds) + " ms, the rest of "
+              "the build (host copy, prefilter) " + ", ".join(
+                  f"{b['rest_ms']:.1f}" for b in builds) + " ms: the "
+              "synthesis " + ", ".join(
+                  f"{100 * b['synth_share']:.0f}%" for b in builds)
+              + " of the source build", flush=True)
     if coeff_dtype != "f32":
         name = f"{name}, {coeff_dtype}"
     plan = stitch_plan(facets, synopsis, nch, twine)
@@ -2143,7 +2229,7 @@ def stitch_path(name, rng, coeff_dtype="f32", twine=0):
                 combine_ms=combine_ms, combine_bound_ms=combine_bound,
                 frame_ms=frame_ms, frame_bound_ms=frame_bound,
                 combine_share=share, peak_mib=peak,
-                stack_mib=stack_bytes / 2**20)
+                stack_mib=stack_bytes / 2**20, builds=builds)
 
 
 def one_tap_stitch(rng):
@@ -2277,6 +2363,226 @@ def exact_route_path(rng):
           "with the CPU's exact path")
     return dict(degree=9, launches=n["exact_frame"], max_abs_err_vs_cpu=err,
                 frame_ms=ms, first_ms=first_ms)
+
+
+# the target geometry a --single job takes from its facet (runtime/args.py)
+SINGLE_FIELDS = ("projection", "hfov", "yaw", "pitch", "roll", "width",
+                 "height", "window_width", "window_height", "window_x_offset",
+                 "window_y_offset", "extent", "step", "tr_x", "tr_y", "tr_z",
+                 "tp_y", "tp_p", "tp_r", "shear_g", "shear_t", "s", "a", "b",
+                 "c", "h", "v", "r_max", "cap_radius", "has_shift", "has_lcp",
+                 "has_shear", "has_2d_tf", "has_translation")
+
+
+def single_path(rng):
+    """``--single 0`` on config 5b: facet 0 (1536x1152, hfov 72, the lens)
+    re-created at its own geometry from all six facets, facet 0 at
+    brighten 2 so that the amplify of 1/2 runs. Every facet takes a
+    generic chain through the inverse lens LUT, so each renders by the
+    PyTorch coordinate pass (``fastpath.coords``) and one launch of the
+    planar kernel's planes form (6 a frame, counted); the frame against
+    the exact path (window-edge and near-tie pixels excluded and
+    counted), each facet's kernel against its plain version on its own
+    operands (``planes_at_path``), CUDA-event timings of the frame
+    (``multi_frame``, median of 10), of each facet's coordinate pass
+    (median of 10) and kernel (median of 20), the kernels' bounds, and
+    the first frame's peak device memory. Returns the record."""
+    import dataclasses
+    import torch
+    from envutil_tpu_torch.core.conventions import Projection as P
+    from envutil_tpu_torch.runtime import fastpath as FP
+    from envutil_tpu_torch.runtime.render import build_plan
+    name = "single (--single 0 of config 5b)"
+    facets, sources, synopsis, nch = stitch_config("config 5b", rng)
+    facets[0].brighten = 2.0
+    sources[0] = dataclasses.replace(sources[0], static=dataclasses.replace(
+        sources[0].static, brighten=2.0))
+    f0 = facets[0]
+    a = make_args(f0, P.RECTILINEAR, f0.width, f0.height, 72, 3)
+    for field in SINGLE_FIELDS:
+        setattr(a, field, getattr(f0, field))
+    a.facets, a.solo, a.synopsis, a.single = facets, -1, synopsis, 0
+    plan = build_plan(a, facets)
+    check(all(p is not None for p in plan.planar_to_ray),
+          f"{name}: a facet without a generic chain")
+    n_f = len(sources)
+    frame, first_ms, n = render(plan, sources, name,
+                                want={"resample_planar": n_f}, amplify=0.5)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    stack = torch.empty((n_f, plan.height, plan.width, nch), device="cuda")
+    score = torch.empty((n_f, plan.height, plan.width), device="cuda")
+    err, err_slot, n_edge, n_other = stitch_errors(plan, sources, frame,
+                                                   stack, score, amplify=0.5)
+    covered = float((frame != 0).any(axis=-1).mean())
+    print(f"{name}: {n_f}-facet voronoi into facet 0's 1536x1152 lens "
+          f"geometry, {100 * covered:.2f}% not 0; vs exact path, whole "
+          f"frame: max abs diff {err:.3e}, slots {err_slot:.3e} (bound "
+          f"{PATH_BOUND:g}); {n_edge} px at a window edge and {n_other} at "
+          f"a near-tied champion excluded", flush=True)
+    check(err <= PATH_BOUND and err_slot <= PATH_BOUND,
+          f"{name} disagrees with the exact path")
+    check(n_edge + n_other <= 1e-3 * plan.height * plan.width,
+          f"{name}: too many pixels excluded")
+    check(covered > 0.9, f"{name}: facet 0's view is not covered")
+    del frame, stack, score
+    window = FP.frame_window(plan)
+    kernels, coords_ms = [], []
+    for fi, (fplan, src) in enumerate(zip(FP.facet_plans(plan), sources)):
+        kernels.append(planes_at_path(fplan, src, f"{name}, facet {fi}"))
+        FP.coords(fplan, window, src)
+        coords_ms.append(events_ms(lambda fp=fplan, sr=src: FP.coords(
+            fp, window, sr), 10))
+    FP.multi_frame(plan, sources)
+    frame_ms = events_ms(lambda: FP.multi_frame(plan, sources), 10)
+    print(f"{name}: frame (multi_frame, 6 coordinate passes and 6 planes "
+          f"launches, stacks allocated per frame) {frame_ms:.4f} ms; "
+          f"coordinate pass with the inverse lens LUT per facet "
+          + ", ".join(f"{t:.4f}" for t in coords_ms) + " ms; kernel alone "
+          + ", ".join(f"{k['ms']:.4f}" for k in kernels) + " ms (bounds "
+          + ", ".join(f"{k['bound_ms']:.4f} {k['bound_by']}"
+                      for k in kernels) + "); peak device memory of the "
+          f"first frame {peak:.1f} MiB; clocks/power/temp after: "
+          f"{smi_now()}", flush=True)
+    return dict(launches=n["resample_planar"], first_ms=first_ms,
+                max_abs_err=err, slot_max_abs_err=err_slot, edge_px=n_edge,
+                excluded_px=n_other, covered=covered, frame_ms=frame_ms,
+                coords_ms=coords_ms, kernels=kernels, peak_mib=peak)
+
+
+def window_edges(plan, sources, chunk=128):
+    """(H, W) pixels of an untwined stitch whose planar coordinate in some
+    facet lies within WINDOW_EDGE of its window's edge (or, rectilinear,
+    whose ray grazes the facet's plane), from the exact path's rays."""
+    import torch
+    from envutil_tpu_torch.models import stepper as ST
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    h, w = plan.height, plan.width
+    edge = torch.zeros((h, w), dtype=torch.bool, device="cuda")
+    for r0 in range(0, h, chunk):
+        r1 = min(r0 + chunk, h)
+        for src, b, p2r in zip(sources, plan.bases, plan.planar_to_ray):
+            ray = ST.target_rays(plan.projection, plan.width, plan.height,
+                                 plan.extent, basis=b, planar_to_ray=p2r,
+                                 normalize=True, window=(r0, r1, 0, w),
+                                 device="cuda")
+            pick = FP._pickup(src)
+            px, py, _hit = R.mount_planar(pick, *ray)
+            x0, x1, y0, y1 = pick.window
+            for v, e in ((px, x0), (px, x1), (py, y0), (py, y1)):
+                edge[r0:r1] |= (v - e).abs() <= WINDOW_EDGE
+            if pick.projection == 2:       # rectilinear: z > 0
+                edge[r0:r1] |= ray[2].abs() <= WINDOW_EDGE
+    return edge
+
+
+def mask_for_path(rng):
+    """``--mask_for 1 --nchannels 1`` on config 5's three 2048x1536
+    facets -> 4096x2048 equirect: paint sources (no table), so
+    render_frame takes ``fastpath.exact_frame`` (one launch, counted) and
+    no kernel. The mask is held to the champion of config 5's untwined
+    stitch as the kernels score it (the planar chain form's score planes
+    of the same facets, on their noise tables): 1 exactly where facet 1
+    wins, 0 elsewhere, pixels at a near-tied champion or a window edge
+    excluded and counted. The exact route's frame timed (median of 3).
+    Returns the record."""
+    import dataclasses
+    import torch
+    from envutil_tpu_torch.models import environment as E
+    from envutil_tpu_torch.models import synopsis as SYN
+    from envutil_tpu_torch.runtime import fastpath as FP
+    name = "mask_for (--mask_for 1 --nchannels 1, config 5)"
+    facets, sources, synopsis, nch = stitch_config("config 5", rng)
+    plan3 = stitch_plan(facets, synopsis, nch)
+    n_f, h, w = len(sources), plan3.height, plan3.width
+    slot = torch.empty((h, w, nch), device="cuda")
+    score = torch.empty((n_f, h, w), device="cuda")
+    for fi, (fplan, src) in enumerate(zip(FP.facet_plans(plan3), sources)):
+        FP.facet_into(fplan, src, slot, score[fi])
+    top2 = torch.topk(score, 2, dim=0)
+    champ, best, second = top2.indices[0], top2.values[0], top2.values[1]
+    want = ((best > SYN.LOWEST) & (champ == 1)).to(torch.float32)
+    tie = (second > SYN.LOWEST) & ((best - second).abs()
+                                   <= FLIP_REL * best.abs())
+    edge = window_edges(plan3, sources)
+    del slot, score, sources
+    torch.cuda.empty_cache()
+    masked = [dataclasses.replace(f, masked=1 if i == 1 else 0)
+              for i, f in enumerate(facets)]
+    paints = [E.make_paint_source(f) for f in masked]
+    plan = stitch_plan(masked, synopsis, 1)
+    frame, first_ms, n = render(plan, paints, name, want={"exact_frame": 1})
+    got = torch.from_numpy(frame[..., 0]).cuda()
+    wrong = (got != want) & ~(tie | edge)
+    n_tie, n_edge = int((tie & ~edge).sum()), int(edge.sum())
+    share = float(want.mean())
+    ms = events_ms(lambda: FP.exact_frame(plan, paints, "cuda"), 3)
+    print(f"{name}: the mask vs the kernels' champion of config 5: "
+          f"{int(wrong.sum())} px differ; {n_edge} px at a window edge and "
+          f"{n_tie} at a near-tied champion excluded; facet 1 wins "
+          f"{100 * share:.2f}% of the equirect; exact route's frame "
+          f"{ms:.3f} ms (median of 3), first render_frame {first_ms:.1f} ms; "
+          f"clocks/power/temp after: {smi_now()}", flush=True)
+    check(int(wrong.sum()) == 0, f"{name}: the mask misses the champion")
+    check(set(np.unique(frame).tolist()) <= {0.0, 1.0},
+          f"{name}: the mask is not 0/1")
+    check(n_edge + n_tie <= 1e-3 * h * w, f"{name}: too many pixels excluded")
+    check(0.0 < share < 0.5, f"{name}: facet 1 wins {share:.3f}")
+    return dict(launches=n["exact_frame"], kernel_launches=sum(
+        v for k, v in n.items() if k != "exact_frame"), frame_ms=ms,
+        first_ms=first_ms, wrong_px=int(wrong.sum()), edge_px=n_edge,
+        tie_px=n_tie, facet_1_share=share)
+
+
+def precise_path(rng):
+    """Config 5d's six facets (config 5b's without the lens) -> a 512x256
+    equirect (0.70-degree pixels) at ``--twine 2 --twine_precise``:
+    render_frame takes ``fastpath.exact_frame`` (one launch, no twined
+    kernel), where the port launched the twined chain form before. That
+    route (``multi_frame``: per tap one one-tap twined chain launch a
+    facet, 24 a frame) is launched directly on the same view and held
+    against the exact frame: its deviation, the fault this route moved
+    away from, whole frame and with window-edge and near-tie pixels
+    excluded; both routes timed (median of 5). Returns the record."""
+    import torch
+    from envutil_tpu_torch.core.conventions import Projection as P
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    from envutil_tpu_torch.runtime.render import build_plan
+    name = "precise (config 5d -> 512x256, --twine 2 --twine_precise)"
+    facets, sources, synopsis, nch = stitch_config("config 5d", rng)
+    a = make_args(facets[0], P.SPHERICAL, 512, 256, 360, 3, twine=2)
+    a.facets, a.solo, a.synopsis, a.twine_precise = facets, -1, synopsis, True
+    plan = build_plan(a, facets)
+    check(plan.twine_precise and len(plan.spread) == 4,
+          f"{name}: not a precise 4-tap plan")
+    frame, first_ms, n = render(plan, sources, name, want={"exact_frame": 1})
+    R.resample_twined_chain.launches = 0
+    old = FP.multi_frame(plan, sources)
+    old_n = R.resample_twined_chain.launches
+    old = old.cpu().numpy()
+    raw = float(np.abs(old - frame).max())
+    stack = torch.empty((len(sources), plan.height, plan.width, nch),
+                        device="cuda")
+    score = torch.empty(stack.shape[:3], device="cuda")
+    err, _slot, n_edge, n_other = stitch_errors(plan, sources, old, stack,
+                                                score)
+    exact_ms = events_ms(lambda: FP.exact_frame(plan, sources), 5)
+    old_ms = events_ms(lambda: FP.multi_frame(plan, sources), 5)
+    print(f"{name}: render_frame launches {n}; the twined chain route "
+          f"({old_n} one-tap launches) vs the exact frame: max abs diff "
+          f"{raw:.3e} over the whole frame, {err:.3e} with {n_edge} "
+          f"window-edge and {n_other} near-tie px excluded (the card's path "
+          f"bound {PATH_BOUND:g}); exact route {exact_ms:.3f} ms, the twined "
+          f"chain route {old_ms:.3f} ms (medians of 5); clocks/power/temp "
+          f"after: {smi_now()}", flush=True)
+    check(old_n == len(sources) * len(plan.spread),
+          f"{name}: the twined chain route launched {old_n} times")
+    return dict(launches=n["exact_frame"], kernel_launches=sum(
+        v for k, v in n.items() if k != "exact_frame"), first_ms=first_ms,
+        old_route_launches=old_n, old_route_max_abs_diff=raw,
+        old_route_max_abs_diff_excluded=err, edge_px=n_edge,
+        excluded_px=n_other, exact_ms=exact_ms, old_route_ms=old_ms)
 
 
 def smooth_environment(ray):
@@ -2828,6 +3134,18 @@ def main():
     del psrc
     torch.cuda.empty_cache()
 
+    # ---- 6h. PTO jobs: --single on a lens-corrected facet, alpha
+    # synthesis of lens crops and exclude masks, --mask_for, and a
+    # --twine_precise stitch on the exact route --------------------------
+    t_single = single_path(np.random.default_rng(5))
+    torch.cuda.empty_cache()
+    t_alpha = stitch_path("config 5b, alpha", np.random.default_rng(5))
+    torch.cuda.empty_cache()
+    t_mask = mask_for_path(np.random.default_rng(5))
+    torch.cuda.empty_cache()
+    t_precise = precise_path(np.random.default_rng(5))
+    torch.cuda.empty_cache()
+
     # ---- 7. the record ------------------------------------------------
     t3 = t_planar["config 3"]
     t4, t3t = t_twined["config 4"], t_twined["config 3"]
@@ -2837,6 +3155,8 @@ def main():
                                                      path="config 5")
     print(f"exact route: {json.dumps(t_exact)}", flush=True)
     print(f"twined stitches: {json.dumps(t_twined_stitch)}", flush=True)
+    print(f"mask_for: {json.dumps(t_mask)}", flush=True)
+    print(f"precise: {json.dumps(t_precise)}", flush=True)
     print(f"command time: {time.perf_counter() - T_START:.1f} s, the "
           f"kernel build included", flush=True)
 
@@ -2867,6 +3187,8 @@ def main():
                       "envutil_tpu/ops/pallas_resample.py:822 (K5)",
              form="planes", launches=planar_n["translated facet"],
              path="translated facet", library_ms=None,
+             # --single 0 of config 5b: one planes launch a facet
+             single=t_single,
              degree1=dict(deg1, library="grid_sample bilinear"),
              small_case_max_abs_err=worst_planar,
              bf16=t_bf16["resample_planar"],
@@ -2887,7 +3209,8 @@ def main():
          "paths": t_planar,
          "bf16": t_bf16["resample_planar_chain"],
          "stitches": {k: t for k, t in t_stitch.items()
-                      if t["synopsis"] != "hdr_merge"}},
+                      if t["synopsis"] != "hdr_merge"},
+         "pto_alpha": t_alpha},
         dict({k: t4[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
              name="resample_inline_twined", route="cuda",
@@ -2932,7 +3255,10 @@ def main():
              # the one-tap launch's time and bound per facet
              stitches={k: t for k, t in t_twined_stitch.items()
                        if t["synopsis"] != "hdr_merge"},
-             one_tap_stitch=t_one_tap, pole_view=t_pole),
+             one_tap_stitch=t_one_tap, pole_view=t_pole,
+             # --twine_precise jobs left this form for the exact route:
+             # the form's deviation on a precise job, and its time
+             precise_job=t_precise),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,12 @@ cubemap_view_t (environment.h:1396-1488) for cubemap/biatan6 IR
 sources: ray -> cube face + in-face coordinates -> IR pickup, with the
 biatan6 in-plane atan (the IR itself is built by models/cubemap.py).
 
-Paint (--mask_for) sources and the alpha synthesis of PTO masks and
-lens crops wait for later slices and raise ``NotImplementedError``.
+Image loading and the alpha synthesis of PTO exclude masks and lens
+crops (feathered, associated alpha) are host numpy at configuration
+time (source_t ctor, environment.h:594-962), copied from the JAX
+package; paint sources (``--mask_for`` without image alpha, masking_t,
+masking.h:74) carry no table and paint a constant where the facet
+covers.
 """
 
 from __future__ import annotations
@@ -79,6 +83,114 @@ class FacetSource:
 # host-side construction
 # ---------------------------------------------------------------------------
 
+def _fill_polygon_mask(alpha: np.ndarray, vx, vy) -> None:
+    """Scanline polygon fill with winding order, setting covered pixels
+    to 0 - panotools-compatible (self-intersections filled), same
+    algorithm family as envutil_basic.cc:236-321."""
+    h, w = alpha.shape
+    vx = np.asarray(vx, np.float64)
+    vy = np.asarray(vy, np.float64)
+    n = vx.size
+    if n < 3:
+        return
+    for y in range(int(max(0, math.floor(vy.min()))),
+                   int(min(h, math.ceil(vy.max()) + 1))):
+        nodes = []
+        j = n - 1
+        for i in range(n):
+            cross = 0
+            if vy[i] < y and vy[j] >= y:
+                cross = 1
+            elif vy[j] < y and vy[i] >= y:
+                cross = -1
+            if cross:
+                # the reference truncates the crossing x to int before
+                # sorting (envutil_basic.cc:266); its bubble sort keeps
+                # equal keys in insertion order, so sort stably on x
+                x = vx[i] + (y - vy[i]) / (vy[j] - vy[i]) * (vx[j] - vx[i])
+                nodes.append((int(x), cross))
+            j = i
+        nodes.sort(key=lambda t: t[0])
+        # cumulative winding over the sorted crossings; fill between
+        # node k and k+1 while it is nonzero. The crossings of a closed
+        # polygon sum to zero per scanline, so the last node never
+        # starts a filled span (the reference relies on the same).
+        w_ord = 0
+        for k in range(len(nodes) - 1):
+            w_ord += nodes[k][1]
+            if w_ord == 0:
+                continue
+            x0 = max(0, nodes[k][0])
+            x1 = min(w, nodes[k + 1][0])
+            if x0 < x1:
+                alpha[y, x0:x1] = 0.0
+
+
+def _binomial_blur(a: np.ndarray) -> np.ndarray:
+    """Separable 5-tap binomial low-pass with REFLECT boundaries -
+    feathers mask edges (environment.h:833-843)."""
+    k = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
+    for axis in range(2):
+        idx = np.arange(-2, a.shape[axis] + 2)
+        nn = a.shape[axis]
+        idx = np.mod(idx, 2 * nn)
+        idx = np.where(idx >= nn, 2 * nn - 1 - idx, idx)
+        ext = np.take(a, idx, axis=axis)
+        out = np.zeros_like(a)
+        for t in range(5):
+            out += k[t] * np.take(ext, np.arange(t, t + a.shape[axis]),
+                                  axis=axis)
+        a = out
+    return a
+
+
+def synthesize_alpha(img: np.ndarray, fct: Facet,
+                     verbose: bool = False) -> np.ndarray:
+    """Apply PTO exclude masks and lens cropping by alpha manipulation:
+    add an alpha channel if absent, rasterize masks/crop, feather, and
+    multiply into all channels (associated alpha).
+    Reference: environment.h:727-890."""
+    h, w, c = img.shape
+    if c in (1, 3):
+        img = np.concatenate([img, np.ones((h, w, 1), img.dtype)], axis=-1)
+    alpha = np.ones((h, w), np.float32)
+
+    if fct.has_pto_mask:
+        if verbose:
+            print("applying PTO 'exclude' masks")
+        for mask in fct.pto_masks:
+            if mask.variant == 0:
+                _fill_polygon_mask(alpha, mask.vx, mask.vy)
+            elif verbose:
+                print(f"skipping PTO masks variant {mask.variant}")
+
+    if fct.has_lens_crop:
+        a = abs(fct.crop_x1 - fct.crop_x0) / 2.0
+        b = abs(fct.crop_y1 - fct.crop_y0) / 2.0
+        if fct.projection == Projection.FISHEYE:
+            if verbose:
+                print("applying elliptic crop")
+            mx = (fct.crop_x0 + fct.crop_x1) / 2.0
+            my = (fct.crop_y0 + fct.crop_y1) / 2.0
+            ys = np.abs(np.arange(h) - my)[:, None]
+            xs = np.abs(np.arange(w) - mx)[None, :]
+            with np.errstate(invalid="ignore"):
+                xmargin = np.sqrt(np.maximum(
+                    a * a * (1.0 - (ys * ys) / (b * b)), 0.0))
+            alpha[(ys > b) | (xs > xmargin)] = 0.0
+        else:
+            if verbose:
+                print("applying rectangular crop")
+            ys = np.arange(h)[:, None]
+            xs = np.arange(w)[None, :]
+            outside = ((xs < fct.crop_x0) | (xs >= fct.crop_x1)
+                       | (ys < fct.crop_y0) | (ys >= fct.crop_y1))
+            alpha[np.broadcast_to(outside, alpha.shape)] = 0.0
+
+    alpha = _binomial_blur(alpha)
+    return img * alpha[..., None]
+
+
 def is_full_spherical(fct: Facet) -> bool:
     return (fct.projection == Projection.SPHERICAL
             and abs(fct.hfov - 2.0 * math.pi) < 1e-6
@@ -96,9 +208,7 @@ def make_mount_source(fct: Facet, img: np.ndarray, spline_degree: int,
         raise ValueError(
             f"mount source expects (H, W, C) pixel data, got {img.shape}")
     if fct.has_lens_crop or fct.has_pto_mask:
-        raise NotImplementedError(
-            "PTO exclude masks and lens crops (alpha synthesis) wait for "
-            "the PTO slice of the PyTorch port")
+        img = synthesize_alpha(img, fct, verbose)
     nch = img.shape[-1]
 
     bc0 = S.REFLECT
@@ -152,6 +262,23 @@ def mount_static(fct: Facet, nch: int) -> SourceStatic:
         has_shear=fct.has_shear, a=fct.a, b=fct.b, c=fct.c, s=fct.s,
         h=fct.h, v=fct.v, shear_g=fct.shear_g, shear_t=fct.shear_t)
     return static
+
+
+def make_paint_source(fct: Facet) -> FacetSource:
+    """--mask_for source without image data (masking_t, masking.h:74):
+    paints the constant fct.masked where the facet covers."""
+    total_extent = get_extent(fct.projection, fct.width, fct.height,
+                              fct.hfov)
+    static = SourceStatic(
+        kind="paint", projection=fct.projection,
+        total_extent=total_extent, window_extent=total_extent,
+        total_width=fct.width, total_height=fct.height,
+        window_x_offset=0, window_y_offset=0,
+        nch_native=1, recip_step=1.0 / fct.step, brighten=fct.brighten,
+        masked=fct.masked,
+        full_fisheye=(fct.projection == Projection.FISHEYE
+                      and fct.hfov >= 2.0 * math.pi))
+    return FacetSource(static=static, spl=None)
 
 
 def source_from_arrays(coeff: np.ndarray, static: dict, pad: int,
@@ -221,13 +348,6 @@ def _mount_planar(st: SourceStatic, ray):
     return crd
 
 
-def _no_paint(st: SourceStatic):
-    if st.kind == "paint":
-        raise NotImplementedError(
-            "paint (--mask_for) sources wait for the masking slice of "
-            "the PyTorch port")
-
-
 def _cubemap_pickup(st: SourceStatic, ray):
     """IR pixel coordinates of the rays (cubemap_view_t): dominant-axis
     face, in-face coordinates, biatan6 in-plane atan, section offset."""
@@ -256,7 +376,6 @@ def get_mask(src: FacetSource, ray):
     (mount_t::get_mask, environment.h:1156-1167; all-true for cubemaps
     and >=360-degree fisheyes, environment.h:1577,1751)."""
     st = src.static
-    _no_paint(st)
     if st.kind == "cubemap" or st.full_fisheye:
         return _all_true(ray)
     return _window_mask(st, _mount_planar(st, ray), ray)
@@ -277,7 +396,6 @@ def source_spline_coords(src: FacetSource, ray):
     lookup(). Cubemap sources give IR pixel coordinates and an
     all-true mask."""
     st = src.static
-    _no_paint(st)
     if st.kind == "cubemap":
         cx, cy = _cubemap_pickup(st, ray)
         return cx, cy, _all_true(ray)
@@ -293,6 +411,16 @@ def lookup(src: FacetSource, ray, nch_out: int, with_mask: bool = True):
     (associated alpha). This is the reference's environment::eval
     including channel adaptation and brighten."""
     st = src.static
+    if st.kind == "paint":
+        # masking_t: constant paint where the facet covers
+        mask = get_mask(src, ray)
+        val = torch.where(mask, float(st.masked), 0.0)
+        px = val[..., None].expand(val.shape + (nch_out,))
+        if nch_out in (2, 4):
+            px = torch.cat([px[..., :-1], mask[..., None].to(val.dtype)],
+                           dim=-1)
+        return px.contiguous(), mask
+
     sx, sy, mask = source_spline_coords(src, ray)
     if st.kind == "cubemap":
         # IR pickups stay inside their section's support frame: no gate

@@ -60,13 +60,16 @@ Every route takes a float32 or a bfloat16 table (``--coeff bf16``);
 the wrappers pass the table's type to the kernels, which evaluate in
 float32.
 
-A job whose spline degree exceeds the kernels' (``R.MAX_DEGREE``) takes
-``exact_frame``: the port's exact path on the card in row chunks, the
-counterpart of the JAX package's XLA graph for the jobs its Pallas
-kernels do not cover. The plan decides it, never a kernel's failure.
-
-Masking jobs raise ``NotImplementedError`` naming the slice that will
-cover them.
+The jobs the JAX package's ``eligible`` / ``_eligible_multi`` keep from
+its Pallas kernels take ``exact_frame`` (``exact_route``): the port's
+exact path on the card in row chunks, the counterpart of its XLA graph.
+They are a spline degree above the kernels' (``R.MAX_DEGREE``), a
+``--mask_for`` job (paint sources and alpha masking), and a
+``--twine_precise`` job in which some facet would take the planar twined
+kernel, whose taps deflect in source-coordinate space where
+``--twine_precise`` deflects the ray (the inline twined kernel deflects
+the ray, and keeps its precise jobs). The plan decides it, never a
+kernel's failure.
 """
 
 from __future__ import annotations
@@ -105,18 +108,14 @@ _INLINE_TARGETS = (Projection.RECTILINEAR, Projection.CUBEMAP,
 
 
 def uncovered(plan, sources):
-    """Why the port has no route on the card for the job yet (a message
-    naming the later slice), or None when ``fused_frame``,
-    ``planar_frame``, ``multi_frame`` for several sources or
-    ``exact_frame`` covers it."""
+    """Why the port has no route on the card for the job (a message), or
+    None when ``fused_frame``, ``planar_frame``, ``multi_frame`` for
+    several sources or ``exact_frame`` covers it."""
     if not sources:
         return "no source"
     for src in sources:
-        st = src.static
-        if st.kind not in ("mount", "cubemap"):
-            return f"{st.kind} sources wait for the masking slice"
-        if st.masked != -1:
-            return "masked (--mask_for) jobs wait for the masking slice"
+        if src.spl is None:
+            continue        # a paint source: exact_frame
         if src.spl.coeff.dtype not in S.COEFF_DTYPES.values():
             return f"{src.spl.coeff.dtype} tables are not covered"
         if not 1 <= src.spl.coeff.shape[-1] <= 4:
@@ -125,21 +124,45 @@ def uncovered(plan, sources):
     return None
 
 
-def exact_route(sources):
-    """Whether the job takes ``exact_frame``: some source's spline
-    degree exceeds the kernels' range 0..``R.MAX_DEGREE``."""
-    return any(src.spl.degree > R.MAX_DEGREE for src in sources)
+def _masked(sources):
+    """Whether the job is a ``--mask_for`` job: a paint source, or a
+    source whose alpha is masked (JAX ``eligible``)."""
+    return any(src.static.kind == "paint" or src.static.masked != -1
+               for src in sources)
 
 
-def exact_frame(plan, sources):
+def exact_route(plan, sources):
+    """Why the job takes ``exact_frame`` (a message), or None when a
+    kernel takes it: a ``--mask_for`` job, a spline degree beyond the
+    kernels' range 0..``R.MAX_DEGREE``, or a twined ``--twine_precise``
+    job in which some facet's launch (``route``) would be the planar
+    twined kernel, as the JAX package keeps every precise job from its
+    kernels."""
+    if _masked(sources):
+        return "a --mask_for job (paint sources, alpha masking)"
+    degree = max(src.spl.degree for src in sources)
+    if degree > R.MAX_DEGREE:
+        return f"degree {degree} exceeds the kernels' {R.MAX_DEGREE}"
+    if plan.spread is not None and plan.twine_precise:
+        score = len(sources) > 1 and SYN.pick_synopsis(
+            plan.synopsis, plan.nchannels) is not SYN.hdr_merge
+        plans = facet_plans(plan) if len(sources) > 1 else (plan,)
+        if any(route(p, src, score) != "inline"
+               for p, src in zip(plans, sources)):
+            return ("--twine_precise deflects the ray; the planar twined "
+                    "kernel deflects coordinates")
+    return None
+
+
+def exact_frame(plan, sources, device=None):
     """Render the frame through the port's exact path
     (``render.render_exact``: stepper rays, lookups, the synopsis, in
-    row chunks) on the sources' device: the route of the jobs no kernel
-    covers by its degree. Counted in ``exact_frame.launches``, once a
-    frame, as the kernels' wrappers count theirs. Returns the
-    (H, W, nchannels) image tensor."""
+    row chunks) on the sources' device (``device`` where no source has
+    a table): the route of the jobs no kernel takes (``exact_route``).
+    Counted in ``exact_frame.launches``, once a frame, as the kernels'
+    wrappers count theirs. Returns the (H, W, nchannels) image tensor."""
     from . import render as RD
-    img = RD.render_exact(plan, sources)
+    img = RD.render_exact(plan, sources, device=device)
     exact_frame.launches += 1
     return img
 
@@ -337,9 +360,7 @@ def frame_operands(plan, src):
 def _frame_buffer(plan, src, out, device):
     """Check the job and return the (H, W, C_source) output buffer:
     ``out`` itself or a fresh one on the source's device."""
-    reason = uncovered(plan, [src])
-    if reason is not None:
-        raise NotImplementedError(reason)
+    _check_kernel_job(plan, [src])
     coeff = src.spl.coeff
     if device is not None and torch.device(device) != coeff.device:
         raise ValueError(f"source lives on {coeff.device}, not {device}")
@@ -350,6 +371,17 @@ def _frame_buffer(plan, src, out, device):
     if tuple(out.shape) != shape or out.device != coeff.device:
         raise ValueError(f"out must be {shape} on {coeff.device}")
     return out
+
+
+def _check_kernel_job(plan, sources):
+    """Raise for a job no kernel route takes: ``NotImplementedError``
+    where the port has no route, ``ValueError`` where ``exact_frame``
+    is the route (a ``--mask_for`` job: no kernel paints or masks)."""
+    reason = uncovered(plan, sources)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    if _masked(sources):
+        raise ValueError("a --mask_for job takes exact_frame")
 
 
 def _finish(plan, src, out, slot=None):
@@ -601,20 +633,30 @@ def tap_plans(plan):
     return tuple(taps)
 
 
+def route(plan, src, score=False, inline=True):
+    """The one place where a facet's launch is chosen: "planes" for a
+    generic chain (a translated facet: ``planes_launch``), "inline"
+    where ``inline_mode`` allows it (unless ``inline`` is False or a
+    ``score`` is asked for: the inline kernel writes none), else "chain"
+    (``chain_launch``)."""
+    if plan.planar_to_ray[0] is not None:
+        return "planes"
+    if inline and not score and inline_mode(plan, src) is not None:
+        return "inline"
+    return "chain"
+
+
 def launch(plan, src, out, score=None, inline=True):
     """One kernel launch over the plan's window into ``out``
-    (H, W, C_source), the one place where a facet's route is chosen: a
-    generic chain (a translated facet) takes ``planes_launch``; any
-    other plan the inline kernel where ``inline_mode`` allows it (unless
-    ``inline`` is False or a ``score`` is asked for: the inline kernel
-    writes none), else ``chain_launch``. With ``score`` (H, W; untwined,
-    or twined with one tap) the facet's voronoi score is written there
-    too. Returns the kernel's name."""
+    (H, W, C_source), of the form ``route`` chooses. With ``score``
+    (H, W; untwined, or twined with one tap) the facet's voronoi score
+    is written there too. Returns the kernel's name."""
     form = "twined" if plan.spread is not None else "planar"
-    if plan.planar_to_ray[0] is not None:
+    how = route(plan, src, score is not None, inline)
+    if how == "planes":
         planes_launch(plan, src, out, score)
         return f"resample_{form} after the coordinate pass"
-    if inline and score is None and inline_mode(plan, src) is not None:
+    if how == "inline":
         inline_launch(plan, src, out)
         return "resample_inline" + ("_twined" if form == "twined" else "")
     chain_launch(plan, src, out, score)
@@ -652,9 +694,7 @@ def multi_frame(plan, sources, device=None, log=None):
     sums them on the exact path. Returns the (H, W, nchannels) image
     tensor on the sources' device; ``log``, a list, receives each
     launch's kernel name, tap by tap and facet by facet."""
-    reason = uncovered(plan, sources)
-    if reason is not None:
-        raise NotImplementedError(reason)
+    _check_kernel_job(plan, sources)
     dev = sources[0].spl.coeff.device
     if any(s.spl.coeff.device != dev for s in sources) or (
             device is not None and torch.device(device) != dev):
@@ -690,22 +730,25 @@ def multi_frame(plan, sources, device=None, log=None):
     return acc
 
 
-def render_fast(plan, sources, verbose: bool = False) -> np.ndarray:
+def render_fast(plan, sources, verbose: bool = False,
+                device=None) -> np.ndarray:
     """The CUDA render path of ``render.render_frame``: one frame
+    through ``exact_frame`` where ``exact_route`` names a reason, else
     through one ``launch`` (the route ``fused_frame`` or ``planar_frame``
-    takes), or for several sources ``multi_frame``, returned as a host (H, W, C) float32 array. Raises
-    ``NotImplementedError`` for jobs the port does not cover yet."""
+    takes), or for several sources ``multi_frame``; returned as a host
+    (H, W, C) float32 array. ``device`` is the render's (paint sources
+    have no table to take it from). Raises ``NotImplementedError`` for
+    jobs the port does not cover."""
     reason = uncovered(plan, sources)
     if reason is not None:
         raise NotImplementedError(
             f"no CUDA kernel for this job yet: {reason}")
-    if exact_route(sources):
-        img = exact_frame(plan, sources)
+    why = exact_route(plan, sources)
+    if why is not None:
+        img = exact_frame(plan, sources, device)
         if verbose:
             print(f"fastpath: the exact path over {img.shape[0]}x"
-                  f"{img.shape[1]} px on {img.device} (degree "
-                  f"{max(s.spl.degree for s in sources)} exceeds the "
-                  f"kernels' {R.MAX_DEGREE})")
+                  f"{img.shape[1]} px on {img.device} ({why})")
         return img.cpu().numpy()
     if len(sources) > 1:
         log = []

@@ -92,11 +92,12 @@ def _make_source_from(fct: Facet, args, spl) -> E.FacetSource:
 def load_source(fct: Facet, args, device=None) -> E.FacetSource:
     """Build (or fetch from the asset cache, then from the disk cache)
     the FacetSource for a facet, on ``device``, its table in the storage
-    dtype ``args.coeff_dtype``."""
+    dtype ``args.coeff_dtype``; a ``--mask_for`` job without alpha gets
+    a paint source, which has no table."""
+    # masking jobs without alpha need no image data (masking_t path,
+    # environment.h:1585-1588 / source_t:658)
     if fct.masked != -1 and args.nchannels in (1, 3):
-        raise NotImplementedError(
-            "--mask_for paint sources wait for the masking slice of the "
-            "PyTorch port")
+        return E.make_paint_source(fct)
     device = resolve_device(device)
     coeff_dtype = getattr(args, "coeff_dtype", "f32")
     # the JAX package's key (envutil_tpu/runtime/loader.py), so that the

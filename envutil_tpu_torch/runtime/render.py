@@ -9,9 +9,11 @@ holds the target geometry and one camera-to-facet basis per facet;
   planar kernel (runtime/fastpath.py), each with its twined form, and
   for a stitch one such launch per facet and the synopsis of their
   stacks (twined, once per tap of the spread, one-tap launches, the
-  taps' synopses summed); a job whose spline degree exceeds the kernels'
-  (``ops.resample.MAX_DEGREE``) takes the exact path below on the card,
-  as the JAX package sends it to its XLA graph. Jobs the port has no
+  taps' synopses summed); a job no kernel takes (a spline degree above
+  ``ops.resample.MAX_DEGREE``, a ``--mask_for`` job, a ``--twine_precise``
+  job that would take the planar twined kernel) takes the exact path
+  below on the card, as the JAX package sends it to its XLA graph.
+  Jobs the port has no
   route for yet raise ``NotImplementedError``: the plan picks the
   route, and the plain versions never stand in for a kernel on the
   card;
@@ -22,10 +24,11 @@ holds the target geometry and one camera-to-facet basis per facet;
   ninepack and ``synopsis.twined``, each tap masked by its own
   deflected validity.
 
-Translated facets use the 'generic' transform chain (generic_r3 /
-tf_ex_facet, envutil_payload.cc:1629-1883) instead of a plain
-rotation. ``--single`` re-creations of a lens-corrected facet (the
-inverse lens LUT) wait for a later slice.
+Translated facets, and every facet of a ``--single`` re-creation of a
+lens-corrected or translated facet, use the 'generic' transform chain
+(generic_r3 / tf_ex_facet, envutil_payload.cc:1629-1883, with the
+inverse lens LUT of models/lens for a lens-corrected target) instead of
+a plain rotation.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from ..core.facet import Facet
 from ..core.metrics import Extent
 from ..core.rotation import rotation_rpy
 from ..models import environment as E
+from ..models import lens as L
 from ..models import stepper as ST
 from ..models import synopsis as SYN
 from .platform import resolve_device
@@ -117,21 +121,19 @@ def generic_r3(ft: Facet, fs: Facet) -> Callable:
 
 
 def tf_ex_facet(ft: Facet, fs: Facet) -> Callable:
-    """planar (target model space) -> ray in the source facet's CS
-    (tf_ex_facet, envutil_payload.cc:1841-1883). Returns fn(px, py) ->
-    ray. A lens-corrected *target* (a --single re-creation) needs the
-    inverse lens LUT, which waits for the PTO slice."""
-    if ft.has_2d_tf:
-        raise NotImplementedError(
-            "a lens-corrected target (--single) needs the inverse lens "
-            "LUT, which waits for the PTO slice of the PyTorch "
-            "port")
+    """planar (target model space) -> ray in the source facet's CS,
+    including the inverse planar transform when the *target* is a
+    lens-corrected facet (--single re-creation; tf_ex_facet,
+    envutil_payload.cc:1841-1883). Returns fn(px, py) -> ray."""
     tf33 = generic_r3(ft, fs)
     tf23 = geo.to_ray(ft.projection,
                       section_md=(ft.extent.x1 - ft.extent.x0),
                       refc_md=(ft.extent.x1 - ft.extent.x0) / 2.0)
+    tf22 = L.pto_planar_inverse(ft) if ft.has_2d_tf else None
 
     def f(px, py):
+        if tf22 is not None:
+            px, py = tf22(px, py)
         return tf33(*tf23(px, py))
     return f
 
@@ -159,22 +161,19 @@ class RenderPlan:
 
 def build_plan(args, facets: Sequence[Facet]) -> RenderPlan:
     """The fuse() decision tree (envutil_payload.cc:2028-2283): per
-    facet, either a pre-rotated basis matrix or, for a translated
-    facet, a generic planar->ray chain."""
+    facet, either a pre-rotated basis matrix or a generic planar->ray
+    chain: for a translated facet, and for every facet when the target
+    is a ``--single`` re-creation of a lens-corrected or translated
+    facet."""
     cam = (args.roll, args.pitch, args.yaw)
-    if args.single >= 0:
-        fct = facets[args.single]
-        if fct.has_2d_tf or fct.has_translation:
-            raise NotImplementedError(
-                "--single with lens/translation transforms waits, with "
-                "--single/--split, for the PTO slice of the "
-                "PyTorch port")
+    generic_target = args.single >= 0 and (
+        facets[args.single].has_2d_tf or facets[args.single].has_translation)
 
     indices = [args.solo] if args.solo >= 0 else list(range(len(facets)))
     bases, p2r = [], []
     for i in indices:
         fct = facets[i]
-        if fct.has_translation:
+        if generic_target or fct.has_translation:
             bases.append(None)
             p2r.append(tf_ex_facet(args.as_facet(), fct))
         else:
@@ -208,16 +207,28 @@ def _solo(sources, rays, nch):
     return torch.where(mask[..., None], px, 0.0)
 
 
+def sources_device(sources: List[E.FacetSource], device=None):
+    """The device of the sources' tables, or ``device`` (the caller's)
+    where none has a table (paint sources of a ``--mask_for`` job)."""
+    for src in sources:
+        if src.spl is not None:
+            return src.spl.coeff.device
+    if device is None:
+        raise ValueError("no source has a table: name the render's device")
+    return torch.device(device)
+
+
 def _render_window(plan: RenderPlan, sources: List[E.FacetSource],
-                   window) -> torch.Tensor:
-    """Exact render of one output window on the sources' device: rays
-    per facet, then the synopsis (one facet: its lookup), under twining
-    through ``synopsis.twined``."""
+                   window, device=None) -> torch.Tensor:
+    """Exact render of one output window on the sources' device
+    (``sources_device``): rays per facet, then the synopsis (one facet:
+    its lookup), under twining through ``synopsis.twined``."""
+    device = sources_device(sources, device)
     syn = _solo if len(sources) == 1 else \
         SYN.pick_synopsis(plan.synopsis, plan.nchannels)
     geometry = [dict(basis=b, normalize=True, planar_to_ray=p, window=window,
-                     device=src.spl.coeff.device)
-                for b, p, src in zip(plan.bases, plan.planar_to_ray, sources)]
+                     device=device)
+                for b, p in zip(plan.bases, plan.planar_to_ray)]
     if plan.spread is None:
         rays = [ST.target_rays(plan.projection, plan.width, plan.height,
                                plan.extent, **g) for g in geometry]
@@ -229,12 +240,15 @@ def _render_window(plan: RenderPlan, sources: List[E.FacetSource],
 
 
 def render_exact(plan: RenderPlan, sources: List[E.FacetSource],
-                 amplify: Optional[float] = None) -> torch.Tensor:
-    """The exact path over the plan's window on the sources' device, in
-    row chunks that bound the working set to 512 MB of float32
-    intermediates over pixels * facets * taps; the (H, W, C) tensor."""
+                 amplify: Optional[float] = None,
+                 device=None) -> torch.Tensor:
+    """The exact path over the plan's window on the sources' device
+    (``sources_device``), in row chunks that bound the working set to
+    512 MB of float32 intermediates over pixels * facets * taps; the
+    (H, W, C) tensor."""
     from . import fastpath
 
+    device = sources_device(sources, device)
     y0, y1, x0, x1 = fastpath.frame_window(plan)
     taps = len(plan.spread) if plan.spread else 1
     budget = 512 * 1024 * 1024 // 4
@@ -244,7 +258,7 @@ def render_exact(plan: RenderPlan, sources: List[E.FacetSource],
     parts = []
     for yy in range(y0, y1, chunk_rows):
         out = _render_window(plan, sources,
-                             (yy, min(yy + chunk_rows, y1), x0, x1))
+                             (yy, min(yy + chunk_rows, y1), x0, x1), device)
         if amplify is not None:
             out = E.apply_brighten(out, amplify)
         parts.append(out)
@@ -271,11 +285,13 @@ def render_frame(plan: RenderPlan, sources: List[E.FacetSource],
 
     start = time.perf_counter()
     if device.type == "cuda":
-        img = fastpath.render_fast(plan, sources, verbose=verbose)
+        img = fastpath.render_fast(plan, sources, verbose=verbose,
+                                   device=device)
         if amplify is not None:
             img = E.apply_brighten(torch.from_numpy(img), amplify).numpy()
     else:
-        img = render_exact(plan, sources, amplify).numpy().astype(np.float32)
+        img = render_exact(plan, sources, amplify,
+                           device).numpy().astype(np.float32)
     msec = (time.perf_counter() - start) * 1000.0
     if verbose:
         print(f"frame rendering time: {msec:.1f} ms "

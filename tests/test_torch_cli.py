@@ -112,13 +112,39 @@ def test_cli_downscale_twines_automatically(tmp_path, monkeypatch):
 
 
 def test_cli_uncovered_modes_raise(tmp_path, monkeypatch):
+    """The modes still uncovered raise (streaming and serve, --mesh and
+    --shard_table, EXR); --single, --split and --mask_for render: a
+    facet re-created at its own geometry, one file per facet but the
+    solo one, and a one-channel mask of the facet's coverage."""
     monkeypatch.setenv("ENVUTIL_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="streaming"):
-        cli.main(["--input", "x.tif", "-"])
+    for tail in ("-", "+", "++"):
+        with pytest.raises(NotImplementedError, match="streaming"):
+            cli.main(["--input", "x.tif", tail])
     src_path = tmp_path / "env.tif"
     imgio.save_image(str(src_path), _equirect())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cli.main(["--facet", str(src_path), "spherical", "360", "0", "0",
-                  "0", "--output", str(tmp_path / "o.tif"), "--mesh", "2"])
+    for flag in (["--mesh", "2"], ["--shard_table"]):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            cli.main(["--facet", str(src_path), "spherical", "360", "0", "0",
+                      "0", "--output", str(tmp_path / "o.tif")] + flag)
+    view = tmp_path / "view.tif"
+    imgio.save_image(str(view), _equirect(48, 32))
+    job = ["--facet", str(src_path), "spherical", "360", "0", "0", "0",
+           "--facet", str(view), "rectilinear", "60", "20", "0", "0",
+           "--projection", "spherical", "--hfov", "360", "--width", "64",
+           "--twine", "0"]
+    assert cli.main(job + ["--solo", "0", "--single", "1", "--output",
+                           str(tmp_path / "s.tif")]) == 0
+    assert imgio.read_image(str(tmp_path / "s.tif")).shape == (32, 48, 3)
+    assert cli.main(job + ["--solo", "0", "--split",
+                           str(tmp_path / "split_%d.tif")]) == 0
+    assert not (tmp_path / "split_0.tif").exists()
+    np.testing.assert_array_equal(
+        imgio.read_image(str(tmp_path / "split_1.tif")),
+        imgio.read_image(str(tmp_path / "s.tif")))
+    assert cli.main(job + ["--mask_for", "1", "--nchannels", "1",
+                           "--output", str(tmp_path / "m.tif")]) == 0
+    mask = imgio.read_image(str(tmp_path / "m.tif"))
+    assert mask.shape == (32, 64, 1) and set(np.unique(mask)) <= {0.0, 1.0}
+    assert 0 < mask.mean() < 0.5
     with pytest.raises(NotImplementedError, match="EXR"):
         imgio.read_image(str(tmp_path / "x.exr"))

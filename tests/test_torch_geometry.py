@@ -18,10 +18,8 @@ import torch
 
 from envutil_tpu.core import geometry as JG
 from envutil_tpu.core.conventions import Projection as JP
-from envutil_tpu.models import stepper as JST
 from envutil_tpu_torch.core import geometry as TG
 from envutil_tpu_torch.core.conventions import Projection as TP
-from envutil_tpu_torch.models import stepper as TST
 
 torch.set_num_threads(1)
 
@@ -101,37 +99,3 @@ def test_vector_helpers():
     _close(TG.normalize(*map(_t, ray)), _np(JG.normalize(*ray)))
     _close(TG.apply_matrix(m, *map(_t, ray)),
            _np(JG.apply_matrix(m, *ray)))
-
-
-@pytest.mark.parametrize("key,proj", [
-    ("ll_to_ray", TP.SPHERICAL), ("rect_to_ray", TP.RECTILINEAR),
-    ("cyl_to_ray", TP.CYLINDRICAL), ("ster_to_ray", TP.STEREOGRAPHIC),
-    ("fish_to_ray", TP.FISHEYE), ("ir_to_ray", TP.CUBEMAP),
-    ("ba6_to_ray", TP.BIATAN6)])
-def test_planar_to_ray_truth(key, proj):
-    for case in TRUTH[key]:
-        px, py = case["p"]
-        got = TG.to_ray(proj)(_t([px]), _t([py]))
-        np.testing.assert_allclose(np.concatenate([g.numpy() for g in got]),
-                                   case["ray"], rtol=0, atol=1e-13)
-
-
-@pytest.mark.parametrize("key,proj", [
-    ("ray_to_ll", TP.SPHERICAL), ("ray_to_rect", TP.RECTILINEAR),
-    ("ray_to_ster", TP.STEREOGRAPHIC), ("ray_to_fish", TP.FISHEYE)])
-def test_ray_to_planar_truth(key, proj):
-    for case in TRUTH[key]:
-        got = TG.to_plane(proj)(*(_t([v]) for v in case["ray"]))
-        np.testing.assert_allclose(np.concatenate([g.numpy() for g in got]),
-                                   case["p"], rtol=0, atol=1e-13)
-
-
-def test_stepper_axis_truth():
-    for case in TRUTH["stepper_axis"]:
-        got = TST.planar_axis(case["n"], case["a0"], case["a1"],
-                              case["bias"], dtype=np.float64)
-        want = JST.planar_axis(case["n"], case["a0"], case["a1"],
-                               case["bias"], dtype=np.float64)
-        np.testing.assert_array_equal(got, want)
-        np.testing.assert_allclose(got[np.asarray(case["idx"], int)],
-                                   case["values"], rtol=0, atol=1e-13)

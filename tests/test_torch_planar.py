@@ -129,19 +129,6 @@ def test_k5_plain_matches_jax_kernel():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=KERNEL_TOL)
 
 
-@pytest.mark.parametrize("degree", range(8))
-def test_plain_matches_jax_eval_spline(degree):
-    """Every degree the kernel instantiates: the plain version against
-    the JAX ``eval_spline`` on the same table and coordinates."""
-    spl, px, py, _rng = _planes(degree, nch=4, h=24, w=40, src=(48, 80))
-    want = np.asarray(JS.eval_spline(spl, jnp.asarray(px - spl.pad),
-                                     jnp.asarray(py - spl.pad),
-                                     apply_gate=False))
-    got = R.resample_planar(torch.empty(want.shape), _t(spl.coeff), _t(px),
-                            _t(py), degree=degree)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=KERNEL_TOL)
-
-
 def _nonfinite_planes(rng, shape, mask):
     """Coordinate planes with NaN and +-inf where the mask is 0, as
     grazing and backward rays of a partial facet give them."""

@@ -132,9 +132,13 @@ def test_render_matches_jax_and_oracle(env, oracle_sources, name, proj, w,
 
 
 def test_uncovered_jobs_raise(env):
-    """No plain path stands in for a kernel: jobs the port has no kernel
-    for (--mask_for paint) raise NotImplementedError naming the later
-    slice; a bf16 table is covered and renders what the float32 table it
+    """No plain path stands in for a kernel: a job the port has no route
+    for (a 5-channel source) raises NotImplementedError; a --mask_for job
+    (alpha masking) renders on ``exact_frame``, which the kernel routes
+    name when they refuse it; a facet with a lens crop (alpha synthesis)
+    renders through the kernel route as on the exact path, and a
+    ``--single`` plan on a lens-corrected facet gets generic chains; a
+    bf16 table is covered and renders what the float32 table it
     upcasts to renders. A twined single-facet job is covered: a one-tap
     spread at the pixel centre renders what the untwined job renders, on
     the exact path and on the kernel route. So are an untwined and a
@@ -183,8 +187,33 @@ def test_uncovered_jobs_raise(env):
                                FP.planar_frame(plan, upcast), rtol=0, atol=0)
     painted = TE.FacetSource(
         static=dataclasses.replace(src.static, masked=1), spl=src.spl)
-    with pytest.raises(NotImplementedError, match="mask_for"):
-        FP.render_fast(plan, [painted])
+    assert "mask_for" in FP.exact_route(plan, [painted])
+    FP.exact_frame.launches = 0
+    np.testing.assert_array_equal(FP.render_fast(plan, [painted]),
+                                  render_frame(plan, [painted], device="cpu"))
+    assert FP.exact_frame.launches == 1
+    with pytest.raises(ValueError, match="exact_frame"):
+        FP.planar_frame(plan, painted)
+    five = TE.make_mount_source(tf, np.concatenate([env, env[..., :2]], -1),
+                                1, 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="5-channel"):
+        FP.render_fast(plan, [five])
+    lens = port_facet(TP.RECTILINEAR, 64, 48, math.radians(70))
+    lens.a, lens.b, lens.c = 0.01, -0.02, 0.005
+    lens.has_lens_crop = True
+    lens.crop_x0, lens.crop_x1, lens.crop_y0, lens.crop_y1 = 4, 60, 3, 45
+    lens.process_geometry()
+    cropped = TE.make_mount_source(lens, env[:48, :64], 3, 3, device="cpu")
+    assert cropped.spl.coeff.shape[-1] == 4 and lens.has_2d_tf
+    view = build_plan(port_args(TP.RECTILINEAR, 32, 32, 80.0, [lens], 3),
+                      [lens])
+    assert FP.exact_route(view, [cropped]) is None
+    np.testing.assert_allclose(
+        FP.planar_frame(view, cropped).numpy(),
+        render_frame(view, [cropped], device="cpu"), rtol=0, atol=JAX_TOL)
+    single = port_args(TP.RECTILINEAR, 32, 32, 80.0, [lens], 3)
+    single.single = 0
+    assert build_plan(single, [lens]).planar_to_ray[0] is not None
 
 
 def test_fisheye_and_partial_mount_render(env):

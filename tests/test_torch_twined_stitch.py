@@ -25,6 +25,12 @@ Tolerances, each with its reason:
   with the square of the offset: (3.75 / 3)^2 x 1e-2 = 1.6e-2. A wrong
   champion, tap, weight or a spread bias applied twice shows as
   O(0.1..1) on these noise facets.
+- ``--twine_precise`` jobs in which some facet would take the twined
+  chain or planes form: the card route is ``exact_frame``, the exact
+  path, as the JAX package keeps them from its kernels; 1e-5 against
+  JAX. The route they took before, the twined chain form, departs from
+  the exact path by more than the card's 5e-3 path bound at these
+  3.75-degree pixels (PRECISE_GAP, shown on the form's plain version).
 - at a tap of offset (0.25, 0), scaled by 1/DERIV_BIAS to 1, the tap's
   ray is the derivative grid's own ray and its coordinates that grid
   ray's pickup, so both deflections agree: ROUTE_TOL_AT_GRID, 5e-5, the
@@ -51,6 +57,7 @@ import torch
 from test_torch_synopsis import (CASES, EDGE, JAX_TOL, MAX_EXCLUDED_PX,
                                  SCORE_REL, SCORE_TOL, _stitch)
 
+from envutil_tpu.core.conventions import Projection as JP
 from envutil_tpu.runtime.render import render_frame as jrender_frame
 from envutil_tpu_torch.core.conventions import Projection as TP
 from envutil_tpu_torch.io import imgio
@@ -68,6 +75,7 @@ torch.set_num_threads(1)
 
 ROUTE_TOL = 2e-2
 ROUTE_TOL_AT_GRID = 5e-5
+PRECISE_GAP = 5e-3
 
 
 def _spread(twine):
@@ -128,8 +136,8 @@ STITCHES = {
         "hdr_merge, 3 full-spherical brackets", 2, False, JAX_TOL,
         "resample_inline_twined", True),
     "voronoi, lens and translated facets, twine_precise": (
-        "voronoi, 2 lens facets and a translated facet", 2, True, ROUTE_TOL,
-        None, True),
+        "voronoi, 2 lens facets and a translated facet", 2, True, JAX_TOL,
+        "exact_frame", True),
 }
 
 
@@ -141,7 +149,9 @@ def test_twined_stitch_route_matches_jax(name):
     the JAX ``render_frame``; the launches per tap and facet: F x K, each
     facet's kernel as ``launch`` chooses it (the twined chain form with
     its score for voronoi, the inline twined kernel for full-spherical
-    hdr_merge brackets, the planes form for a translated facet)."""
+    hdr_merge brackets, the planes form for a translated facet). A
+    ``--twine_precise`` stitch takes ``exact_frame`` instead
+    (``render_fast``: one exact launch, no kernel)."""
     case, twine, precise, tol, kernel, with_jax = STITCHES[name]
     spread = _spread(twine)
     jsrcs, tsrcs, jplan, tplan = _stitch(case, spread, precise, with_jax)
@@ -152,21 +162,84 @@ def test_twined_stitch_route_matches_jax(name):
     print(f"{name}: {n_skip} px excluded (near-tied scores, window edges)")
     assert n_skip <= MAX_EXCLUDED_PX * len(spread)
     log = []
-    fast = FP.multi_frame(tplan, tsrcs, device="cpu", log=log)
+    if kernel == "exact_frame":
+        assert FP.exact_route(tplan, tsrcs) is not None
+        FP.exact_frame.launches = 0
+        fast = FP.render_fast(tplan, tsrcs)
+        assert FP.exact_frame.launches == 1
+        np.testing.assert_array_equal(fast, exact)
+        log = ["exact_frame"] * (len(tsrcs) * twine ** 2)
+    else:
+        assert FP.exact_route(tplan, tsrcs) is None
+        fast = FP.multi_frame(tplan, tsrcs, device="cpu", log=log)
     err = _max_diff(fast, exact, ~skip)
-    print(f"{name}: multi_frame vs exact path {err:.3e} (bound {tol:g})")
+    print(f"{name}: card route vs exact path {err:.3e} (bound {tol:g})")
     assert err <= tol
     if with_jax:
         want = np.asarray(jrender_frame(jplan, jsrcs))
         assert _max_diff(exact, want, ~skip) <= JAX_TOL
         assert _max_diff(fast, want, ~skip) <= tol + JAX_TOL
     assert len(log) == len(tsrcs) * twine ** 2
-    if kernel is not None:
-        assert set(log) == {kernel}
-    else:
-        assert log[:3] == ["resample_twined_chain"] * 2 + [
-            "resample_twined after the coordinate pass"]
+    assert set(log) == {kernel}
     assert (np.asarray(fast) != 0).any(axis=-1).mean() > 0.1
+
+
+def _lens_facet(precise=True):
+    """(JAX source, port source, JAX plan, port plan) of one partial lens
+    facet of LENS's coefficients (64x48 seeded noise, degree 3) viewed in
+    a 96x48 equirect at 4 taps: the job the twined chain form took."""
+    case = dict(facets=[(JP.RECTILINEAR, 64, 48, 72.0,
+                         dict(a=0.01, b=-0.02, c=0.005, yaw=0.3))],
+                target=(TP.SPHERICAL, 96, 48, 360.0, (0.0, 0.0, 0.0)),
+                degree=3)
+    (js,), (ts,), jplan, tplan = _stitch(case, _spread(2), precise)
+    return js, ts, jplan, tplan
+
+
+def test_precise_single_facet_takes_the_exact_route():
+    """A single partial lens facet under ``--twine_precise``, which took
+    the twined chain form: ``render_fast`` renders it on ``exact_frame``
+    (counted once, no kernel wrapper counts a launch) as the port's
+    ``render_frame(device="cpu")`` does, and both within 1e-5 of the JAX
+    ``render_frame``."""
+    js, ts, jplan, tplan = _lens_facet(True)
+    assert FP.route(tplan, ts) == "chain"
+    assert FP.exact_route(tplan, [ts]) is not None
+    wrappers = [getattr(R, n) for n in (
+        "resample_inline", "resample_planar", "resample_planar_chain",
+        "resample_inline_twined", "resample_twined",
+        "resample_twined_chain")]
+    before = [w.launches for w in wrappers]
+    FP.exact_frame.launches = 0
+    fast = FP.render_fast(tplan, [ts])
+    assert FP.exact_frame.launches == 1
+    assert [w.launches for w in wrappers] == before
+    exact = render_frame(tplan, [ts], device="cpu")
+    np.testing.assert_array_equal(fast, exact)
+    want = np.asarray(jrender_frame(jplan, [js]))
+    np.testing.assert_allclose(exact, want, rtol=0, atol=JAX_TOL)
+    assert (exact != 0).any(axis=-1).mean() > 0.05
+    # without the flag the job keeps the twined chain form
+    assert FP.exact_route(dataclasses.replace(tplan, twine_precise=False),
+                          [ts]) is None
+
+
+def test_precise_gap_of_the_twined_chain_form():
+    """Why ``--twine_precise`` jobs left the twined chain form: on the
+    partial lens facet at 3.75-degree pixels, the form's plain version
+    (``chain_launch`` on CPU tensors) departs from the exact path's
+    precise frame by more than PRECISE_GAP, the card's path bound; it
+    deflects each tap in source coordinates, where ``--twine_precise``
+    projects the derivative rays onto the tangent plane and deflects
+    the ray. The gap stays under ROUTE_TOL, the bound of the
+    coordinate-space deflection itself."""
+    _js, ts, _jp, tplan = _lens_facet(True)
+    exact = render_frame(tplan, [ts], device="cpu")
+    out = torch.empty(exact.shape[:2] + (ts.spl.coeff.shape[-1],))
+    FP.chain_launch(tplan, ts, out)
+    gap = float(np.abs(out.numpy() - exact).max())
+    print(f"twined chain form vs the precise exact path: {gap:.3e}")
+    assert PRECISE_GAP < gap <= ROUTE_TOL
 
 
 def test_one_tap_stitch_applies_the_spread_bias_once():

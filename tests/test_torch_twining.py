@@ -61,11 +61,7 @@ from envutil_tpu.models import environment as JE
 from envutil_tpu.models import stepper as JST
 from envutil_tpu.ops import pallas_resample as PR
 from envutil_tpu.ops import spline as JS
-from envutil_tpu.runtime import fastpath as JFP
-from envutil_tpu.runtime import loader as JLD
 from envutil_tpu.runtime.render import build_plan as jbuild_plan
-from envutil_tpu.runtime.render import render_frame as jrender_frame
-from envutil_tpu_torch.core import geometry as geo
 from envutil_tpu_torch.core.conventions import Projection as TP
 from envutil_tpu_torch.core.metrics import get_extent
 from envutil_tpu_torch.core.rotation import rotation_rpy
@@ -73,11 +69,9 @@ from envutil_tpu_torch.io import imgio
 from envutil_tpu_torch.models import cubemap as TCBM
 from envutil_tpu_torch.models import environment as TE
 from envutil_tpu_torch.models import stepper as ST
-from envutil_tpu_torch.models import synopsis as SYN
 from envutil_tpu_torch.ops import resample as R
 from envutil_tpu_torch.runtime import cli
 from envutil_tpu_torch.runtime import fastpath as FP
-from envutil_tpu_torch.runtime import loader as LD
 from envutil_tpu_torch.runtime.render import build_plan, render_frame
 
 torch.set_num_threads(1)
@@ -250,36 +244,6 @@ def facet_job(request):
                 jsrc=jsrc, tplan=build_plan(targs, [tf]), tsrc=tsrc)
 
 
-def test_twined_facet_matches_jax_and_route(facet_job):
-    """The partial and the translated facet twined: the exact path
-    against the JAX package (each tap masked by its own deflected
-    validity), and ``planar_frame`` (the coordinate pass at three grids,
-    per-tap validity planes and the planar twined kernel's plain version)
-    against the exact path."""
-    want = np.asarray(jrender_frame(facet_job["jplan"], [facet_job["jsrc"]]))
-    plan, src = facet_job["tplan"], facet_job["tsrc"]
-    got = render_frame(plan, [src], device="cpu")
-    np.testing.assert_allclose(got, want, rtol=0, atol=JAX_TOL)
-    covered = (got != 0).any(axis=-1).mean()
-    assert 0.02 < covered < 0.98, "the facet covers part of the view"
-
-    ops = _twined_operands(plan, src)
-    count = ops["tap_weights"].sum(dim=0)
-    assert ops["tap_weights"].dtype == torch.uint8 and ops["wrap_x"] is None
-    assert int(((count > 0) & (count < 9)).sum()) > 0, \
-        "some pixels at the facet's edge have valid and invalid taps"
-    buf = torch.full(got.shape, float("nan"))
-    fast = FP.planar_frame(plan, src, out=buf, device="cpu")
-    assert fast is buf
-    np.testing.assert_allclose(fast.numpy(), got, rtol=0,
-                               atol=PLANAR_ROUTE_TOL[facet_job["kind"]])
-    # where no tap is valid both are exactly 0
-    none = (count == 0).numpy()
-    assert not got[none].any() and not fast.numpy()[none].any()
-    with pytest.raises(ValueError, match="planar_frame"):
-        FP.fused_frame(plan, src)
-
-
 # ------------------------------------ (c) the inline twined kernel's plain
 
 @pytest.fixture(scope="module")
@@ -309,54 +273,6 @@ def noise_mount():
                 tplan=build_plan(targs, [tf]))
 
 
-def test_inline_twined_plain_matches_jax_kernel(noise_mount):
-    """``resample_inline_twined`` on the CPU (its plain version) against
-    the JAX ``resample_inline_twined_into`` in interpret mode, one tile of
-    the JAX planner's first pass."""
-    jplan, jsrc = noise_mount["jplan"], noise_mount["jsrc"]
-    window = (0, 128, 0, 256)
-    spread = SYN.scaled_spread(jplan.spread)
-    passes, assigned = JFP.plan_passes(jplan, jsrc, window,
-                                       JFP.DEFAULT_CLASSES, spread=spread)
-    assert (assigned >= 0).all()
-    name, wc, _box, tiles, merge = passes[0]
-    assert JFP._inline_eligible(jplan, jsrc, 0, name, spread, merge) == "sph"
-    assert name == "orig", "the tile reads the source itself"
-    tiles = np.asarray(tiles)[:1]
-    spl = jsrc.spl
-    stt = jsrc.static
-    statics = (stt.total_extent.x0, stt.total_extent.x1, stt.total_extent.y0,
-               stt.total_extent.y1, stt.total_width, stt.total_height,
-               stt.window_x_offset, stt.window_y_offset)
-    tmode, xfeat, yfeat, P, consts = JFP._inline_setup(
-        JFP._geom_static(jplan), window, name, spl.core_shape, spl.pad,
-        tuple(spl.bcs), statics, twined=True)
-    bm = np.einsum("ij,fjk->fik", np.asarray(jplan.bases[0], np.float32),
-                   P).reshape(-1, 9)
-    coeffp = jnp.moveaxis(spl.coeff, -1, 0)
-    want = PR.resample_inline_twined_into(
-        jnp.zeros((3, 128, 256), jnp.float32), coeffp, jnp.asarray(tiles),
-        jnp.zeros(1, jnp.int32), jnp.asarray(xfeat), jnp.asarray(yfeat),
-        jnp.asarray(bm), jnp.asarray(np.asarray(spread, np.float32).ravel()),
-        jnp.float32(0), degree=1, n_taps=4, tmode=tmode, consts=consts,
-        wc=wc, interpret=True)
-    want = np.moveaxis(np.asarray(want), 0, -1)
-
-    tplan, tsrc = noise_mount["tplan"], noise_mount["tsrc"]
-    ops = FP.frame_operands(tplan, tsrc)
-    # both packages build the same doubled feature sets and constants
-    np.testing.assert_array_equal(ops["xfeat"].numpy(), xfeat[:, 0, :])
-    np.testing.assert_array_equal(ops["yfeat"].numpy(), yfeat[:, :, 0])
-    assert ops["consts"] == consts and ops["tmode"] == tmode
-    assert ops["n_taps"] == 4 and ops["precise"] is False
-    np.testing.assert_allclose(ops["spread"].numpy(), np.asarray(spread))
-    got = FP.fused_frame(tplan, tsrc, device="cpu").numpy()
-    r, c = int(tiles[0, 2]) * PR.TILE_H, int(tiles[0, 3]) * PR.TILE_W
-    sl = np.s_[r:r + PR.TILE_H, c:c + PR.TILE_W]
-    np.testing.assert_allclose(got[sl], want[sl], rtol=0,
-                               atol=INLINE_KERNEL_TOL)
-
-
 INLINE_ROUTES = [
     # a spherical target pitched onto the pole, the seam through it
     ("pole-and-seam", TP.SPHERICAL, 96, 48, 360.0, (170.0, 80.0, 0.0), False),
@@ -365,31 +281,6 @@ INLINE_ROUTES = [
     ("cubemap-target", TP.CUBEMAP, 24, 144, 90.0, (10.0, 0.0, 0.0), False),
     ("cylindrical", TP.CYLINDRICAL, 64, 32, 200.0, (175.0, 5.0, 0.0), False),
 ]
-
-
-@pytest.mark.parametrize("name,proj,w,h,hfov,ypr,precise", INLINE_ROUTES,
-                         ids=[c[0] for c in INLINE_ROUTES])
-def test_inline_twined_route_matches_exact_path(env, name, proj, w, h, hfov,
-                                                ypr, precise):
-    """``fused_frame`` twined (the inline twined kernel's plain version)
-    against the port's exact path, seam, pole and cube rows included:
-    both deflect the ray, so nothing is special there."""
-    tf = port_facet(TP.SPHERICAL, 256, 128, 2 * math.pi)
-    src = TE.make_mount_source(tf, env, 3, 3, device="cpu")
-    plan = build_plan(_twined_args(port_args, proj, w, h, hfov, [tf], 3,
-                                   *ypr, spread=BOX3, precise=precise), [tf])
-    want = render_frame(plan, [src], device="cpu")
-    if name.startswith("pole"):
-        ray = ST.target_rays(plan.projection, w, h, plan.extent,
-                             basis=plan.bases[0])
-        lon, lat = geo.ray_to_ll(*ray)
-        assert float(lat.abs().max()) > math.radians(87)
-        assert float(lon.abs().max()) > math.radians(179)
-    buf = torch.full((h, w, 3), float("nan"))
-    got = FP.fused_frame(plan, src, out=buf, device="cpu")
-    assert got is buf
-    np.testing.assert_allclose(got.numpy(), want, rtol=0,
-                               atol=INLINE_ROUTE_TOL)
 
 
 # ------------------------------------ (d) the planar twined kernel's plain
@@ -433,189 +324,10 @@ def _port_twined(f, out, **kw):
         _t(f["spread"]), degree=f["degree"], n_taps=len(f["spread"]), **kw)
 
 
-def test_twined_plain_matches_jax_merge_kernel():
-    """K3 with a merge mask against the JAX
-    ``resample_twined_into(..., merge_mask=...)``: kept pixels bit for
-    bit, the others to the kernel tolerance."""
-    f = _warp()
-    mask = (f["rng"].uniform(size=(128, 128)) < 0.6).astype(np.float32)
-    prior = f["rng"].uniform(2, 3, (3, 128, 128)).astype(np.float32)
-    want = PR.resample_twined_into(
-        jnp.asarray(prior), f["coeffp"], *_jax_planes(f),
-        jnp.asarray(f["tiles"]), jnp.asarray(f["spread"].ravel()),
-        degree=3, n_taps=4, wc=PR.ALIGNED, interpret=True,
-        merge_mask=jnp.asarray(mask))
-    want = np.moveaxis(np.asarray(want), 0, -1)
-    out = _t(np.moveaxis(prior, 0, -1))
-    got = _port_twined(f, out, merge_mask=_t(mask))
-    assert got is out
-    keep = mask <= 0.5
-    np.testing.assert_array_equal(got.numpy()[keep], want[keep])
-    np.testing.assert_allclose(got.numpy()[~keep], want[~keep], rtol=0,
-                               atol=PLANAR_KERNEL_TOL)
-
-
-def test_twined_plain_matches_jax_champion_kernel():
-    """K3 with per-pixel tap weights against the JAX kernel's
-    champion-routed form: ``tap_weights = (champ == fi)``, for both
-    facet ids of a seam-like champion field; 0 where no tap is the
-    facet's."""
-    f = _warp()
-    ii, jj = np.meshgrid(np.arange(128), np.arange(128), indexing="ij")
-    champ = np.zeros((4, 128, 128), np.int32)
-    for k in range(4):
-        champ[k] = np.where(jj < 50 + 0.4 * ii + 7 * k, 0, 1)
-        champ[k][(ii > 100 + 5 * k) & (jj > 100)] = -1
-    for fi in (0, 1):
-        flat = np.concatenate([f["spread"].ravel(),
-                               np.asarray([fi], np.float32)])
-        want = PR.resample_twined_into(
-            jnp.zeros((3, 128, 128), jnp.float32), f["coeffp"],
-            *_jax_planes(f), jnp.asarray(f["tiles"]), jnp.asarray(flat),
-            degree=3, n_taps=4, wc=PR.ALIGNED, interpret=True,
-            champ=jnp.asarray(champ))
-        want = np.moveaxis(np.asarray(want), 0, -1)
-        weights = torch.from_numpy(champ == fi)
-        for tw in (weights, weights.to(torch.uint8),
-                   weights.to(torch.float32)):
-            got = _port_twined(f, torch.full((128, 128, 3), float("nan")),
-                               tap_weights=tw).numpy()
-            np.testing.assert_allclose(got, want, rtol=0,
-                                       atol=PLANAR_KERNEL_TOL)
-        none = ~(champ == fi).any(axis=0)
-        assert none.any() and not got[none].any()
-
-
-def test_twined_plain_matches_jax_whole_frame_kernel():
-    """K6: the plain version without a mask against the JAX
-    ``resample_twined`` over the whole frame."""
-    f = _warp()
-    want = PR.resample_twined(
-        f["coeffp"], *_jax_planes(f), jnp.asarray(f["origins"]),
-        jnp.asarray(f["spread"].ravel()), degree=3, n_taps=4, cmax_x=0.5,
-        cmax_y=0.5, wc=PR.ALIGNED, interpret=True)
-    want = np.moveaxis(np.asarray(want), 0, -1)
-    got = _port_twined(f, torch.full((128, 128, 3), float("nan"))).numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=PLANAR_KERNEL_TOL)
-
-
-def test_twined_contract_nonfinite_wrap_and_checks():
-    """The wrapper's contract: NaN/inf planes stay harmless (clamped
-    without a mask, untouched under one, unread under zero weights); a
-    deflected x is wrapped by ``wrap_x``; bad operands raise; a bfloat16
-    table renders what the float32 table it upcasts to renders."""
-    rng = np.random.default_rng(12)
-    table = _t(rng.uniform(-1, 1, (40, 72, 2)))
-    h, w = 16, 24
-    mask = (rng.uniform(size=(h, w)) < 0.5).astype(np.float32)
-    planes = [rng.uniform(8, 60, (h, w)), rng.uniform(8, 30, (h, w))] + \
-        [rng.uniform(-0.5, 0.5, (h, w)) for _ in range(4)]
-    bad = np.array([np.nan, np.inf, -np.inf], np.float32)
-    dirty = []
-    for a in planes:
-        a = a.astype(np.float32)
-        a[mask <= 0.5] = bad[rng.integers(0, 3, int((mask <= 0.5).sum()))]
-        dirty.append(_t(a))
-    spread = _t(SYN.scaled_spread(BOX2))
-    kw = dict(degree=3, n_taps=4)
-    full = R.resample_twined(torch.empty(h, w, 2), table, *dirty, spread,
-                             **kw)
-    assert bool(torch.isfinite(full).all())
-    nan = torch.full((h, w, 2), float("nan"))
-    kept = R.resample_twined(nan.clone(), table, *dirty, spread,
-                             merge_mask=_t(mask), **kw)
-    on = torch.from_numpy(mask > 0.5)
-    assert bool(kept[~on].isnan().all())
-    torch.testing.assert_close(kept[on], full[on], rtol=0, atol=0)
-    live = torch.from_numpy(rng.uniform(size=(4, h, w)) < 0.6) & on
-    weighted = R.resample_twined(nan.clone(), table, *dirty, spread,
-                                 tap_weights=live, **kw)
-    assert bool(torch.isfinite(weighted).all())
-    assert not bool(weighted[~live.any(dim=0)].any())
-
-    # periodic wrap: shifting the centre by one period changes nothing
-    clean = [_t(a) for a in planes]
-    period = (4.5, 60.0)
-    a = R.resample_twined(torch.empty(h, w, 2), table, *clean, spread,
-                          wrap_x=period, **kw)
-    shifted = [clean[0] + 60.0] + clean[1:]
-    b = R.resample_twined(torch.empty(h, w, 2), table, *shifted, spread,
-                          wrap_x=period, **kw)
-    torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
-
-    with pytest.raises(ValueError, match="exclude each other"):
-        R.resample_twined(nan, table, *clean, spread, merge_mask=_t(mask),
-                          tap_weights=live, **kw)
-    with pytest.raises(ValueError, match="triplets"):
-        R.resample_twined(nan, table, *clean, spread[:3], **kw)
-    half = table.to(torch.bfloat16)
-    torch.testing.assert_close(
-        R.resample_twined(nan.clone(), half, *clean, spread, **kw),
-        R.resample_twined(nan.clone(), half.float(), *clean, spread, **kw),
-        rtol=0, atol=0)
-
-
 # ----------------------------------------------- (e) the planar twined route
-
-def test_planar_twined_cubemap_route_matches_exact_path(env):
-    """A biatan6 source seen stereographically across cube edges,
-    twined: ``planar_frame`` (whole-frame form, every pickup of a pixel
-    in its centre's face) against the exact path."""
-    _jc, _jsrc, tc, tsrc = _cubemap_sources(env, "biatan6", jax=False)
-    plan = build_plan(_twined_args(
-        port_args, TP.STEREOGRAPHIC, 96, 64, 150.0, [tc], 3, 25.0, -15.0,
-        10.0, spread=BOX2, precise=False), [tc])
-    want = render_frame(plan, [tsrc], device="cpu")
-    ops = _twined_operands(plan, tsrc)
-    assert ops["tap_weights"] is None and ops["wrap_x"] is None
-    # the derivative planes never jump by a section of the IR
-    for k in ("dux", "duy", "dvx", "dvy"):
-        assert float(ops[k].abs().max()) < 8.0
-    face = geo.ray_to_cubeface(*ST.target_rays(
-        plan.projection, 96, 64, plan.extent, basis=plan.bases[0]))[0]
-    assert len(torch.unique(face)) >= 3, "the view crosses cube edges"
-    got = FP.planar_frame(plan, tsrc, device="cpu").numpy()
-    np.testing.assert_allclose(got, want, rtol=0,
-                               atol=PLANAR_ROUTE_TOL["cubemap"])
-
-
-def test_planar_twined_full_sphere_route(env):
-    """A full sphere seen stereographically with the pole and the seam
-    in view: the planar twined route wraps derivatives and taps by the
-    period, so the seam is no special case; near the pole the
-    coordinate-space deflection differs from the exact path's and only
-    finiteness is held there."""
-    tf = port_facet(TP.SPHERICAL, 256, 128, 2 * math.pi)
-    src = TE.make_mount_source(tf, env, 3, 3, device="cpu")
-    plan = build_plan(_twined_args(
-        port_args, TP.STEREOGRAPHIC, 64, 48, 200.0, [tf], 3, 170.0, 60.0,
-        0.0, spread=BOX2, precise=False), [tf])
-    want = render_frame(plan, [src], device="cpu")
-    ops = _twined_operands(plan, src)
-    assert ops["tap_weights"] is None and ops["wrap_x"] == (src.spl.pad - 0.5,
-                                                           256.0)
-    assert float(ops["dux"].abs().max()) <= 128.0
-    got = FP.planar_frame(plan, src, device="cpu").numpy()
-    assert np.isfinite(got).all()
-    lon, lat = geo.ray_to_ll(*ST.target_rays(
-        plan.projection, 64, 48, plan.extent, basis=plan.bases[0]))
-    away = (lat.abs() < math.radians(80)).numpy()
-    seam = away & (lon.abs() > math.radians(175)).numpy()
-    assert seam.sum() > 20 and (~away).sum() > 0
-    np.testing.assert_allclose(got[away], want[away], rtol=0, atol=POLAR_TOL)
 
 
 # ------------------------------------------------------- (f) twine_pyramid
-
-def test_decimate_matches_jax():
-    rng = np.random.default_rng(13)
-    img = rng.uniform(0, 1, (64, 128, 3)).astype(np.float32)
-    for level in (1, 2, 3):
-        got = LD._decimate(img, level)
-        assert got.shape == (64 >> level, 128 >> level, 3)
-        np.testing.assert_array_equal(got, JLD._decimate(img, level))
-    with pytest.raises(ValueError, match="divide"):
-        LD._decimate(img[:63], 1)
 
 
 def _cli_pair(tmp_path, monkeypatch, extra, name):
@@ -649,112 +361,8 @@ CLI_JOBS = [
 ]
 
 
-@pytest.mark.parametrize("name,extra", CLI_JOBS, ids=[c[0] for c in CLI_JOBS])
-def test_cli_twined_job_matches_jax_cli(tmp_path, monkeypatch, name, extra):
-    """A downscale through the port's CLI without ``--twine 0`` (the
-    automatic twine), with ``--twine_pyramid`` (the facet decimated at
-    load) and with explicit twine options, against the JAX CLI."""
-    got, want = _cli_pair(tmp_path, monkeypatch, extra, name)
-    assert got.shape == want.shape == (48, 64, 3)
-    np.testing.assert_allclose(got, want, rtol=0, atol=JAX_TOL)
-
-
-def test_cli_pyramid_decimates_and_twf_file_is_read(tmp_path, monkeypatch):
-    """``--twine_pyramid`` really decimates (the facet's geometry and the
-    cached asset shrink, the twine drops to 2x2 or fewer taps), and a
-    ``--twf_file`` reaches ``twining.read_twf_file``."""
-    from envutil_tpu_torch.runtime.args import parse_args
-    src_path = tmp_path / "env.tif"
-    imgio.save_image(str(src_path), synthetic_equirect(512, 256))
-    base = ["--facet", str(src_path), "spherical", "360", "20", "0", "0",
-            "--projection", "rectilinear", "--hfov", "90", "--width", "64",
-            "--height", "48", "--degree", "1", "--output", "x.tif"]
-    plain = parse_args(base)
-    plain.twine_setup()
-    pyr = parse_args(base + ["--twine_pyramid"])
-    pyr.twine_setup()
-    assert pyr.facets[0].pyramid_level >= 1
-    assert pyr.facets[0].width == 512 >> pyr.facets[0].pyramid_level
-    assert len(pyr.twine_spread) <= 4 < len(plain.twine_spread)
-    src = LD.load_source(pyr.facets[0], pyr, "cpu")
-    assert tuple(src.spl.core_shape) == (pyr.facets[0].height,
-                                         pyr.facets[0].width)
-    full = LD.load_source(plain.facets[0], plain, "cpu")
-    assert tuple(full.spl.core_shape) == (256, 512), \
-        "the asset cache keys on the pyramid level"
-
-    twf = tmp_path / "k.twf"
-    twf.write_text("-0.25 0 0.25\n0 0 0.5\n0.25 0 0.25\n")
-    args = parse_args(base + ["--twf_file", str(twf), "--twine_width", "2"])
-    args.twine_setup()
-    assert args.twine_spread == [(-0.5, 0.0, 0.25), (0.0, 0.0, 0.5),
-                                 (0.5, 0.0, 0.25)]
-    monkeypatch.setenv("ENVUTIL_PLATFORM", "cpu")
-    out = tmp_path / "twf.tif"
-    assert cli.main(base[:-1] + [str(out), "--twf_file", str(twf),
-                                 "--twine_width", "2"]) == 0
-    lib = render_frame(build_plan(args, args.facets),
-                       [LD.load_source(args.facets[0], args, "cpu")],
-                       device="cpu")
-    np.testing.assert_array_equal(imgio.read_image(str(out)), lib)
-
-
 # ------------------------------------------------------------------ card
 
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this on one")
-
-
-@pytest.mark.cuda
-def test_inline_twined_kernel_matches_plain_on_card():
-    """The inline twined kernel against its plain version on the card
-    (needs a CUDA card and nvcc): a full sphere to a pitched spherical
-    target, degrees 1 and 3, with and without --twine_precise."""
-    _cuda_or_skip()
-    env = synthetic_equirect()
-    tf = port_facet(TP.SPHERICAL, 256, 128, 2 * math.pi)
-    for degree in (1, 3):
-        src = TE.make_mount_source(tf, env, degree, degree, device="cuda")
-        for precise in (False, True):
-            plan = build_plan(_twined_args(
-                port_args, TP.SPHERICAL, 96, 48, 360.0, [tf], degree, 170.0,
-                80.0, 0.0, spread=BOX3, precise=precise), [tf])
-            ops = FP.frame_operands(plan, src)
-            tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats",
-                                            "spread")]
-            before = R.resample_inline_twined.launches
-            k = R.resample_inline_twined(
-                torch.empty(48, 96, 3, device="cuda"), src.spl.coeff,
-                *tensors, **ops)
-            p = R.resample_inline_twined_plain(
-                torch.empty(48, 96, 3, device="cuda"), src.spl.coeff,
-                *tensors, **ops)
-            torch.cuda.synchronize()
-            assert R.resample_inline_twined.launches == before + 1
-            assert float((k - p).abs().max()) <= 1e-4
-
-
-@pytest.mark.cuda
-def test_twined_kernel_matches_plain_on_card():
-    """The planar twined kernel against its plain version on the card
-    (needs a CUDA card and nvcc): no mask, merge mask, tap weights."""
-    _cuda_or_skip()
-    f = _warp()
-    rng = np.random.default_rng(14)
-    mask = torch.from_numpy((rng.uniform(size=(128, 128)) < 0.5).astype(
-        np.float32)).cuda()
-    live = torch.from_numpy(rng.uniform(size=(4, 128, 128)) < 0.6).cuda()
-    args = [_t(f["spl"].coeff).cuda()] + [_t(a).cuda() for a in f["planes"]] \
-        + [_t(f["spread"]).cuda()]
-    for extra in ({}, dict(merge_mask=mask),
-                  dict(tap_weights=live.to(torch.uint8))):
-        nan = torch.full((128, 128, 3), float("nan"), device="cuda")
-        before = R.resample_twined.launches
-        k = R.resample_twined(nan.clone(), *args, degree=3, n_taps=4, **extra)
-        p = R.resample_twined_plain(nan.clone(), *args, degree=3, n_taps=4,
-                                    **extra)
-        torch.cuda.synchronize()
-        assert R.resample_twined.launches == before + 1
-        assert torch.equal(k.isnan(), p.isnan())
-        assert float((k - p).nan_to_num().abs().max()) <= 1e-5

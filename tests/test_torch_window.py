@@ -168,18 +168,6 @@ def test_window_covers_every_support_it_stages(inline_cases, name):
     assert bool((win["pitch"] >= win["span"]).all())
 
 
-@pytest.mark.parametrize("name", list(INLINE_CASES))
-def test_staged_evaluation_is_bit_equal_to_plain(inline_cases, name):
-    coeff, degree, sx, sy, plain = inline_cases[name]
-    kw = dict(degree=degree, table_shape=coeff.shape, tile=TILE)
-    win = R.window_model(sx, sy, window_bytes=BUDGET, **kw)
-    holds = R.window_holds(win, sx, sy, **kw)
-    staged = staged_eval(coeff, win, sx, sy, degree, TILE)
-    assert bool(torch.isfinite(staged[holds]).all())
-    assert torch.equal(staged[holds], plain[holds])
-    assert bool(staged[~holds].isnan().all())
-
-
 def test_hard_blocks_are_reported_as_not_fitting(inline_cases):
     coeff, degree, sx, sy, _plain = inline_cases["sphere, pole and seam"]
     kw = dict(degree=degree, table_shape=coeff.shape, tile=TILE)
