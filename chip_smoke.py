@@ -64,6 +64,20 @@ events. The paths:
   512x256 under ``--twine 2 --twine_precise`` (the exact route, beside
   the twined chain route it replaced, whose deviation is reported).
 
+Then the image I/O and serving surfaces on config 2's source, each
+through the entry point a user calls (``surface_phases``): the CLI's
+main-path job and the same job written in ACEScg, two lines streamed
+through '-', seven requests to ``serve.render_loop`` in a thread (four
+1920x1080 views, a refined 960x540 view through the inline twined
+kernel, a missing file answered with an error, one more view), four
+visor frames over shared memory with a full queue and a bad job, and
+``render_to_store`` of the cubemap in 512-row strips; every frame equal
+to ``render_frame`` of the same job on the card (serve and visor: its
+``to_screen``), bit for bit. The script needs no OpenEXR and no
+imageio: the EXR shim's C ABI is stood in for by ``MemoryExr``, and the
+source's table is built with the loader's ``_build`` into the asset
+cache.
+
 Both chain forms' score outputs are held against their plain versions
 over every small chain case (the twined one at one tap), with the
 pixels required bit-equal to the launch without it.
@@ -704,6 +718,23 @@ WRAPPERS = ("resample_inline", "resample_planar", "resample_planar_chain",
             "resample_twined_chain")
 
 
+def launch_counts(fn):
+    """Every wrapper's launch count and ``exact_frame``'s set to 0, ``fn()``
+    run and the card synchronised: (its result, {counter: launches} of
+    the counters that moved)."""
+    import torch
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    counters = {wrapper: getattr(R, wrapper) for wrapper in WRAPPERS}
+    counters["exact_frame"] = FP.exact_frame
+    torch.cuda.synchronize()
+    for counter in counters.values():
+        counter.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items() if c.launches}
+
+
 def render(plan, src, name, want_inline=0, want_planar=0, want=None,
            amplify=None):
     """render_frame of ``src`` (a source, or a list of them for a stitch;
@@ -714,23 +745,18 @@ def render(plan, src, name, want_inline=0, want_planar=0, want=None,
     wrappers to counts where it is given) and returns (frame, ms,
     launches)."""
     import torch
-    from envutil_tpu_torch.ops import resample as R
-    from envutil_tpu_torch.runtime import fastpath as FP
     from envutil_tpu_torch.runtime import render as RD
-    counters = {wrapper: getattr(R, wrapper) for wrapper in WRAPPERS}
-    counters["exact_frame"] = FP.exact_frame
-    expect = dict.fromkeys(counters, 0)
+    expect = dict.fromkeys(WRAPPERS + ("exact_frame",), 0)
     expect.update(want or {"resample_inline": want_inline,
                            "resample_planar": want_planar})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for counter in counters.values():
-        counter.launches = 0
     t0 = time.perf_counter()
-    frame = RD.render_frame(plan, src if isinstance(src, list) else [src],
-                            amplify=amplify, device="cuda")
+    frame, moved = launch_counts(lambda: RD.render_frame(
+        plan, src if isinstance(src, list) else [src], amplify=amplify,
+        device="cuda"))
     ms = (time.perf_counter() - t0) * 1000.0
-    n = {k: counter.launches for k, counter in counters.items()}
+    n = dict(dict.fromkeys(expect, 0), **moved)
     peak = torch.cuda.max_memory_allocated()
     print(f"{name}: render_frame {frame.shape} in {ms:.1f} ms (first call,"
           f" host copy included); launches {n}; peak device memory "
@@ -2585,6 +2611,433 @@ def precise_path(rng):
         excluded_px=n_other, exact_ms=exact_ms, old_route_ms=old_ms)
 
 
+# ------------------------------------------------ image I/O and serving
+
+# config 2 (benchmarks.py's main path): the source, the CLI's cubemap face
+# width, the serve and visor views, the refined (twined) view and the rows
+# of render_to_store's strips
+SURF_SOURCE = (8192, 4096)
+SURF_CUBE = 2048
+SURF_VIEW = (1920, 1080)
+SURF_REFINE = (960, 540)
+SURF_STRIP = 512
+
+
+class MemoryExr:
+    """A stand-in for the EXR shim's C ABI (``imgio._LIB``), so that the
+    script runs where OpenEXR's headers and libraries are missing (there
+    ``io/native/envio.cc`` cannot be built) and ``imageio`` too (there no
+    image file can be read or written). ``envio_write_exr`` keeps each
+    file's pixels and attributes in ``files``, as the shim would write
+    them after ``save_image``'s colour conversion; the header and
+    attribute probes answer from them, so ``parse_args`` gleans a facet's
+    size, Projection and Hfov as from a file; a pixel read raises: the
+    phases take their source from the asset cache, and EXR pixels are
+    read and written by the CPU tests (tests/test_torch_exr.py)."""
+
+    def __init__(self):
+        self.files = {}
+
+    def envio_write_exr(self, path, data, w, h, c, snames, svals, ns,
+                        fnames, fvals, nf):
+        px = np.ctypeslib.as_array(data, shape=(h * w * c,))
+        attrs = {snames[i].decode(): svals[i].decode() for i in range(ns)}
+        attrs.update({fnames[i].decode(): float(fvals[i])
+                      for i in range(nf)})
+        self.files[path.decode()] = (px.reshape(h, w, c).copy(), attrs)
+        return 0
+
+    def envio_read_exr_header(self, path, w, h, c):
+        if path.decode() not in self.files:
+            return -1
+        h._obj.value, w._obj.value, c._obj.value = \
+            self.files[path.decode()][0].shape
+        return 0
+
+    def _attr(self, path, name, kind):
+        attrs = self.files.get(path.decode(), (None, {}))[1]
+        v = attrs.get(name.decode())
+        return v if isinstance(v, kind) else None
+
+    def envio_read_exr_string_attr(self, path, name, out):
+        v = self._attr(path, name, str)
+        if v is None:
+            return -1
+        out._obj.value = v.encode()
+        return 0
+
+    def envio_read_exr_float_attr(self, path, name, out):
+        v = self._attr(path, name, float)
+        if v is None:
+            return -1
+        out._obj.value = v
+        return 0
+
+    def envio_read_exr(self, path, *_):
+        raise RuntimeError(f"chip_smoke: {path.decode()}: no EXR pixel "
+                           "read on the card; sources come from the asset "
+                           "cache")
+
+
+class WallTimes:
+    """Within a ``with`` block, each (module, name) of ``targets`` is
+    wrapped so that its calls add their wall seconds to ``self.s[name]``
+    (``functools.wraps`` keeps attributes such as ``render_frame.last_ms``
+    readable)."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.s = {name: 0.0 for _m, name in targets}
+
+    def _wrap(self, fn, name):
+        import functools
+
+        @functools.wraps(fn)
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.s[name] += time.perf_counter() - t0
+        return timed
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.targets]
+        for m, n, fn in self.saved:
+            setattr(m, n, self._wrap(fn, n))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def wait_for(cond, what, timeout=30.0):
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout, f"timed out: {what}")
+        time.sleep(0.01)
+
+
+def surface_launches(rec, wrapper):
+    """``wrapper``'s launches in each phase of ``surface_phases``' record."""
+    return {"cli_exr": sum(s["launches"].get(wrapper, 0)
+                           for s in rec["cli_exr"]["splits"]),
+            "stream": rec["stream"]["launches"].get(wrapper, 0),
+            "serve": sum(r["launches"].get(wrapper, 0) for r in rec["serve"]),
+            "visor": rec["visor"]["launches"].get(wrapper, 0),
+            "render_to_store": rec["render_to_store"]["launches"].get(
+                wrapper, 0)}
+
+
+def surface_phases():
+    """The image I/O and serving surfaces on config 2's source (an
+    8192x4096 RGB ramp equirect, degree 3), each through the entry point
+    a user calls, on the card, with the EXR stand-in ``MemoryExr`` and the
+    source's table built on the card by the loader's own ``_build`` into
+    the asset cache under ``load_source``'s key, as a first request
+    builds it:
+
+    - cli_exr: ``cli.main`` on the main path (-> 2048x12288 cubemap) and
+      the same job written in ACEScg; the frames equal ``render_frame``
+      of the same plan (and ``colour.convert`` of it) bit for bit; the
+      job's wall time split into parse (the header probe included),
+      source (the cache hit), render and save;
+    - stream: two argument lines through '-' (the cubemap and a
+      1920x1080 view);
+    - serve: ``serve.render_loop`` in a thread on a socket in a
+      temporary directory, six requests and one after the bad sixth,
+      each frame equal to ``to_screen(render_frame(...))``, with its
+      launches, cache hits and times;
+    - visor: ``VisorServer`` with ``visor.card_render_fn`` over shared
+      memory, four serve views (three rendered ahead of a consumer that
+      reads none: the full queue), a bad job, one more frame;
+    - render_to_store: the cubemap in 512-row strips into a TileStore,
+      bit-equal to the whole frame.
+
+    Returns the record."""
+    import io
+    import os
+    import shutil
+    import socket
+    import struct
+    import tempfile
+    import threading
+
+    import torch
+    from envutil_tpu_torch.io import colour as CL
+    from envutil_tpu_torch.io import imgio
+    from envutil_tpu_torch.io.tiles import TileStore, render_to_store
+    from envutil_tpu_torch.runtime import assets, cli, loader, serve, visor
+    from envutil_tpu_torch.runtime import render as RD
+    from envutil_tpu_torch.runtime.args import parse_args
+
+    exr = MemoryExr()
+    imgio._LIB = exr
+    tmp = tempfile.mkdtemp(prefix="eu")
+    w, h = SURF_SOURCE
+    fw = SURF_CUBE
+    vw, vh = SURF_VIEW
+    img = ramp_fixture(w, h)
+    imgio.save_image("env.exr", img, projection_name="spherical",
+                     hfov_deg=360.0)
+    base = ["--input", "env.exr", "--degree", "3"]
+    cube = base + ["--twine", "0", "--projection", "cubemap", "--width",
+                   str(fw), "--output", "cm.exr"]
+    rec = {}
+
+    def job(argv):
+        """(plan, sources) of an argument list; the sources are found in
+        the asset cache."""
+        a = parse_args(argv)
+        a.twine_setup()
+        plan = RD.build_plan(a, a.facets)
+        return plan, [loader.load_source(a.facets[i], a, "cuda")
+                      for i in plan.facet_indices]
+
+    # the table, built on the card and cached as a first request does
+    args = parse_args(cube)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src = loader._build(args.facets[0], args, img, "cuda")
+    torch.cuda.synchronize()
+    rec["source_build_ms"] = (time.perf_counter() - t0) * 1000.0
+    assets.cache.add(loader.cache_keys(args.facets[0], args, "cuda")[1],
+                     src.spl)
+    del img, src
+    # the header probe reads the shape: keep it without the pixels
+    exr.files["env.exr"] = (np.broadcast_to(np.float32(0), (h, w, 3)),
+                            exr.files["env.exr"][1])
+
+    # ---- cli_exr ----
+    plan, srcs = job(cube)
+    ref = RD.render_frame(plan, srcs, device="cuda")
+    splits = []
+    for argv, name in ((cube, "cm.exr"),
+                       (cube[:-1] + ["cm_aces.exr", "--output_colour_space",
+                                     "ACEScg"], "cm_aces.exr")):
+        with WallTimes((cli, "parse_args"), (loader, "load_source"),
+                       (cli, "render_frame"), (imgio, "save_image")) as wt:
+            t0 = time.perf_counter()
+            rc, n = launch_counts(lambda: cli.main(list(argv)))
+            job_s = time.perf_counter() - t0
+        split = dict(job_ms=job_s * 1000.0, **{
+            k: v * 1000.0 for k, v in wt.s.items()})
+        split["other_ms"] = split["job_ms"] - sum(
+            v for k, v in split.items() if k != "job_ms")
+        splits.append(dict(split, launches=n))
+        px, attrs = exr.files[name]
+        print(f"cli_exr {name}: rc {rc}, launches {n}; wall clock "
+              + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+              + f" ms; attributes {attrs}", flush=True)
+        check(rc == 0 and n == {"resample_inline": 1},
+              f"cli_exr {name}: rc {rc}, launches {n}")
+        check(attrs["Projection"] == "cubemap" and attrs["Hfov"] == 90.0,
+              f"cli_exr {name}: attributes {attrs}")
+        want = ref if name == "cm.exr" else \
+            CL.convert(ref, "scene_linear", "ACEScg")
+        check(px.shape == want.shape and np.array_equal(px, want),
+              f"cli_exr {name}: the frame differs from render_frame's "
+              f"(max abs {float(np.abs(px - want).max()):.3e})")
+    rec["cli_exr"] = dict(splits=splits, image_read="none on the card "
+                          "(no OpenEXR): the table comes from the cache")
+
+    # ---- stream ----
+    lines = (f"--projection cubemap --width {fw} --output st_cm.exr\n"
+             f"--width {vw} --height {vh} --hfov 65 --yaw 30 "
+             f"--output st_view.exr\n")
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(lines)
+    try:
+        t0 = time.perf_counter()
+        rc, n = launch_counts(lambda: cli.main(base + ["--twine", "0", "-"]))
+        stream_ms = (time.perf_counter() - t0) * 1000.0
+    finally:
+        sys.stdin = stdin
+    vplan, vsrcs = job(base + ["--twine", "0", "--width", str(vw),
+                               "--height", str(vh), "--hfov", "65",
+                               "--yaw", "30", "--output", "x.exr"])
+    view = RD.render_frame(vplan, vsrcs, device="cuda")
+    print(f"stream: rc {rc}, 2 lines in {stream_ms:.1f} ms, launches {n}",
+          flush=True)
+    check(rc == 0 and n == {"resample_inline": 2}, f"stream: launches {n}")
+    for name, want in (("st_cm.exr", ref), ("st_view.exr", view)):
+        check(np.array_equal(exr.files[name][0], want),
+              f"stream: {name} differs from render_frame's")
+    rec["stream"] = dict(ms=stream_ms, launches=n)
+
+    # ---- serve ----
+    cache_log = {"found": 0, "missed": 0, "built": 0}
+    find, build = assets.cache.find, loader._build
+
+    def counted_find(key):
+        hit = find(key)
+        cache_log["found" if hit is not None else "missed"] += 1
+        return hit
+
+    def counted_build(*a, **kw):
+        cache_log["built"] += 1
+        return build(*a, **kw)
+    assets.cache.find, loader._build = counted_find, counted_build
+
+    view_spec = dict(args=base, width=vw, height=vh, hfov=65.0)
+    specs = [dict(view_spec, yaw=0.0), dict(view_spec, yaw=90.0),
+             dict(view_spec, yaw=180.0), dict(view_spec, pitch=80.0),
+             dict(view_spec, refine=True, width=SURF_REFINE[0],
+                  height=SURF_REFINE[1], hfov=120.0),
+             dict(view_spec, args=["--input", "missing.exr", "--degree",
+                                   "3"]),
+             dict(view_spec, yaw=0.0)]
+    wants = [{"resample_inline": 1}] * 4 + [{"resample_inline_twined": 1},
+                                            {}, {"resample_inline": 1}]
+    sock_path = os.path.join(tmp, "s")
+    server = threading.Thread(target=serve.render_loop,
+                              args=(sock_path, "cuda"), daemon=True)
+    server.start()
+    wait_for(lambda: os.path.exists(sock_path), "serve socket")
+    conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    conn.settimeout(120.0)
+    conn.connect(sock_path)
+
+    def ask(spec):
+        data = json.dumps(spec).encode()
+        conn.sendall(struct.pack("<I", len(data)) + data)
+        (size,) = struct.unpack("<I", serve.recv_exact(conn, 4))
+        hdr = json.loads(serve.recv_exact(conn, size).decode())
+        if "width" not in hdr or "error" in hdr:
+            return hdr, None
+        payload = serve.recv_exact(conn, hdr["width"] * hdr["height"] * 4)
+        return hdr, np.frombuffer(payload, np.uint32).reshape(
+            hdr["height"], hdr["width"])
+
+    serve_rec, frames = [], []
+    try:
+        for i, (spec, want) in enumerate(zip(specs, wants), 1):
+            for k in cache_log:
+                cache_log[k] = 0
+            t0 = time.perf_counter()
+            (hdr, frame), n = launch_counts(
+                lambda: ask(dict(spec, serial_no=i)))
+            rtt_ms = (time.perf_counter() - t0) * 1000.0
+            cache = dict(cache_log)
+            entry = dict(request=i, launches=n, round_trip_ms=rtt_ms,
+                         cache=cache)
+            if frame is None:
+                entry["error"] = hdr.get("error")
+                check(i == 6 and "error" in hdr,
+                      f"serve request {i}: {hdr}")
+            else:
+                plan_i, srcs_i = job(serve.job_argv(spec))
+                img_i = RD.render_frame(plan_i, srcs_i, device="cuda")
+                t0 = time.perf_counter()
+                screen = serve.to_screen(img_i)
+                entry.update(t_render_ms=hdr["t_render"],
+                             to_screen_ms=(time.perf_counter() - t0) * 1e3,
+                             taps=len(plan_i.spread or ((0, 0, 1),)))
+                check(hdr["serial_no"] == i and np.array_equal(frame, screen),
+                      f"serve request {i}: the frame differs from "
+                      "to_screen(render_frame(...))")
+                check(cache == {"found": 1, "missed": 0, "built": 0},
+                      f"serve request {i}: cache {cache}")
+            frames.append(frame)
+            print(f"serve request {i} ({json.dumps(spec)}): "
+                  f"{json.dumps(entry)}", flush=True)
+            check(n == want, f"serve request {i}: launches {n}, want {want}")
+            serve_rec.append(entry)
+        check(np.array_equal(frames[6], frames[0]),
+              "serve: the request after the bad job differs from request 1")
+        check(ask({"serial_no": 0})[0] == {"serial_no": 0},
+              "serve: no shutdown answer")
+    finally:
+        conn.close()
+    server.join(timeout=30)
+    check(not server.is_alive(), "serve: the loop did not end")
+    rec["serve"] = serve_rec
+
+    # ---- visor ----
+    rendered = []
+
+    def render_fn(spec):
+        rendered.append(spec["serial_no"])
+        return visor.card_render_fn(spec, "cuda")
+    vsock = os.path.join(tmp, "v")
+    srv = visor.VisorServer(render_fn, vsock, width=vw, height=vh,
+                            shm_prefix=f"eutorch_smoke_{os.getpid()}")
+    vthread = threading.Thread(target=srv.serve_forever, daemon=True)
+    vthread.start()
+    wait_for(lambda: os.path.exists(vsock), "visor socket")
+    client = visor.VisorClient(vsock, timeout=120.0)
+    try:
+        def visor_frames():
+            for spec in specs[:4]:
+                client.submit(spec)
+            wait_for(lambda: len(rendered) >= visor.FRAME_QUEUE_DEPTH,
+                     "visor: frames rendered ahead", 120.0)
+            time.sleep(0.5)
+            ahead = len(rendered)
+            got = [client.next_frame() for _ in specs[:4]]
+            return ahead, got
+        (ahead, got), n = launch_counts(visor_frames)
+        print(f"visor: {ahead} of 4 frames rendered before the client read "
+              f"one (queue depth {visor.FRAME_QUEUE_DEPTH}); launches {n}; "
+              + "; ".join(visor.print_timing(hdr) for hdr, _px in got),
+              flush=True)
+        check(ahead == visor.FRAME_QUEUE_DEPTH, f"visor: {ahead} ahead")
+        check(n == {"resample_inline": 4}, f"visor: launches {n}")
+        for i, (hdr, px) in enumerate(got):
+            check(np.array_equal(px, frames[i]),
+                  f"visor: frame {i + 1} differs from the serve frame")
+        client.submit(specs[5])
+        try:
+            client.next_frame()
+            check(False, "visor: the bad job was not refused")
+        except RuntimeError as e:
+            bad = str(e)
+        client.submit(specs[1])
+        hdr, px = client.next_frame()
+        check(np.array_equal(px, frames[1]),
+              "visor: the frame after the bad job differs")
+        print(f"visor: bad job answered ({bad}); the next frame served",
+              flush=True)
+        client.shutdown()
+    finally:
+        client.close()
+    vthread.join(timeout=30)
+    check(not vthread.is_alive(), "visor: the server did not end")
+    rec["visor"] = dict(ahead=ahead, launches=n, timing=[
+        {k: v for k, v in hdr.items() if k.startswith("t_")}
+        for hdr, _px in got])
+    assets.cache.find, loader._build = find, build
+
+    # ---- render_to_store ----
+    store_dir = os.path.join(tmp, "rts")
+    store = TileStore(store_dir, "w", shape=ref.shape,
+                      tile_shape=(SURF_STRIP, fw), max_resident=4)
+    t0 = time.perf_counter()
+    _, n = launch_counts(lambda: render_to_store(
+        plan, srcs, store, strip_rows=SURF_STRIP, device="cuda"))
+    store.close()
+    rts_ms = (time.perf_counter() - t0) * 1000.0
+    back = TileStore(store_dir, "r").read_window(0, ref.shape[0], 0, fw)
+    n_strips = -(-ref.shape[0] // SURF_STRIP)
+    diff = float(np.abs(back - ref).max())
+    print(f"render_to_store: {n_strips} strips of {SURF_STRIP} rows in "
+          f"{rts_ms:.1f} ms (tile files written and flushed), launches {n};"
+          f" vs the whole frame max abs diff {diff:.3e} (bit-equal "
+          f"required)", flush=True)
+    check(n == {"resample_inline": n_strips},
+          f"render_to_store: launches {n}")
+    check(np.array_equal(back, ref), "render_to_store differs from the "
+          "whole frame")
+    rec["render_to_store"] = dict(strips=n_strips, ms=rts_ms, launches=n,
+                                  max_abs_diff=diff)
+
+    shutil.rmtree(tmp)
+    imgio._LIB = None
+    assets.cache.clear()
+    return rec
+
+
 def smooth_environment(ray):
     """A smooth, seamless RGB function of the unit ray: low and medium
     frequencies with gradients of a few per radian."""
@@ -3146,6 +3599,11 @@ def main():
     t_precise = precise_path(np.random.default_rng(5))
     torch.cuda.empty_cache()
 
+    # ---- 6i. image I/O and serving surfaces on config 2's source: the
+    # CLI with EXR output, streaming, serve, visor, render_to_store -------
+    t_surfaces = surface_phases()
+    torch.cuda.empty_cache()
+
     # ---- 7. the record ------------------------------------------------
     t3 = t_planar["config 3"]
     t4, t3t = t_twined["config 4"], t_twined["config 3"]
@@ -3157,6 +3615,7 @@ def main():
     print(f"twined stitches: {json.dumps(t_twined_stitch)}", flush=True)
     print(f"mask_for: {json.dumps(t_mask)}", flush=True)
     print(f"precise: {json.dumps(t_precise)}", flush=True)
+    print(f"surfaces: {json.dumps(t_surfaces)}", flush=True)
     print(f"command time: {time.perf_counter() - T_START:.1f} s, the "
           f"kernel build included", flush=True)
 
@@ -3177,7 +3636,9 @@ def main():
                            max_abs_err=err2r_k),
          "bf16": t_bf16["resample_inline"],
          "stitches": {k: t for k, t in t_stitch.items()
-                      if t["synopsis"] == "hdr_merge"}},
+                      if t["synopsis"] == "hdr_merge"},
+         # launches on the image I/O and serving surfaces
+         "surfaces": surface_launches(t_surfaces, "resample_inline")},
         # the planes form: launched and measured on the translated
         # facet's operands; config 3's coordinates beside them
         dict(t_translated["translated facet"],
@@ -3224,7 +3685,9 @@ def main():
              paths={k: t_twined[k] for k in ("config 4", "pole and seam",
                                              "16K")},
              stitches={k: t for k, t in t_twined_stitch.items()
-                       if t["synopsis"] == "hdr_merge"}),
+                       if t["synopsis"] == "hdr_merge"},
+             surfaces=surface_launches(t_surfaces,
+                                       "resample_inline_twined")),
         # the planes form: launched and measured on the translated facet
         # twined's operands; config 3 twined's planes beside them
         dict(t_translated["translated facet twined"],

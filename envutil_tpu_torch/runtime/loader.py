@@ -15,6 +15,7 @@ source variants are not needed on the card at all.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.conventions import FACE_NAMES, Projection
 from ..core.facet import Facet
@@ -89,6 +90,17 @@ def _make_source_from(fct: Facet, args, spl) -> E.FacetSource:
     return E.FacetSource(static=E.mount_static(fct, nch), spl=spl)
 
 
+def cache_keys(fct: Facet, args, device) -> tuple:
+    """(disk key, RAM key) of a facet's table: the JAX package's key
+    (envutil_tpu/runtime/loader.py), so that the two packages' disk
+    entries are one; the RAM cache (``assets.cache``) adds the
+    device."""
+    key = (fct.asset_key, args.spline_degree, args.prefilter_degree,
+           fct.projection, args.nchannels if fct.masked != -1 else -1,
+           getattr(args, "coeff_dtype", "f32"), fct.pyramid_level)
+    return key, key + (str(torch.device(device)),)
+
+
 def load_source(fct: Facet, args, device=None) -> E.FacetSource:
     """Build (or fetch from the asset cache, then from the disk cache)
     the FacetSource for a facet, on ``device``, its table in the storage
@@ -100,12 +112,7 @@ def load_source(fct: Facet, args, device=None) -> E.FacetSource:
         return E.make_paint_source(fct)
     device = resolve_device(device)
     coeff_dtype = getattr(args, "coeff_dtype", "f32")
-    # the JAX package's key (envutil_tpu/runtime/loader.py), so that the
-    # two packages' disk entries are one; the RAM cache adds the device
-    key = (fct.asset_key, args.spline_degree, args.prefilter_degree,
-           fct.projection, args.nchannels if fct.masked != -1 else -1,
-           coeff_dtype, fct.pyramid_level)
-    ram_key = key + (str(device),)
+    key, ram_key = cache_keys(fct, args, device)
     cached = assets.cache.find(ram_key)
     if cached is not None:
         if args.verbose:

@@ -1,7 +1,9 @@
 """The port's CLI (``envutil-torch``) on a small float TIFF writes the
 image its library call renders."""
 
+import io
 import math
+import sys
 
 import numpy as np
 import pytest
@@ -9,7 +11,7 @@ import torch
 
 from envutil_tpu_torch.core.conventions import FACE_NAMES, Projection
 from envutil_tpu_torch.io import imgio
-from envutil_tpu_torch.runtime import cli
+from envutil_tpu_torch.runtime import cli, serve, visor
 from envutil_tpu_torch.runtime.args import parse_args
 from envutil_tpu_torch.runtime.loader import load_source
 from envutil_tpu_torch.runtime.render import build_plan, render_frame
@@ -112,14 +114,19 @@ def test_cli_downscale_twines_automatically(tmp_path, monkeypatch):
 
 
 def test_cli_uncovered_modes_raise(tmp_path, monkeypatch):
-    """The modes still uncovered raise (streaming and serve, --mesh and
-    --shard_table, EXR); --single, --split and --mask_for render: a
-    facet re-created at its own geometry, one file per facet but the
-    solo one, and a one-channel mask of the facet's coverage."""
+    """The modes still uncovered raise (--mesh and --shard_table);
+    streaming and serve no longer do (they run their loops, stubbed out
+    here; tests/test_torch_cli_stream.py renders through them), nor does
+    EXR;
+    --single, --split and --mask_for render: a facet re-created at its
+    own geometry, one file per facet but the solo one, and a one-channel
+    mask of the facet's coverage."""
     monkeypatch.setenv("ENVUTIL_PLATFORM", "cpu")
+    monkeypatch.setattr(sys, "stdin", io.StringIO(""))
+    monkeypatch.setattr(serve, "render_loop", lambda **kw: None)
+    monkeypatch.setattr(visor, "render_loop", lambda **kw: None)
     for tail in ("-", "+", "++"):
-        with pytest.raises(NotImplementedError, match="streaming"):
-            cli.main(["--input", "x.tif", tail])
+        assert cli.main(["--input", "x.tif", tail]) == 0
     src_path = tmp_path / "env.tif"
     imgio.save_image(str(src_path), _equirect())
     for flag in (["--mesh", "2"], ["--shard_table"]):
@@ -146,5 +153,7 @@ def test_cli_uncovered_modes_raise(tmp_path, monkeypatch):
     mask = imgio.read_image(str(tmp_path / "m.tif"))
     assert mask.shape == (32, 64, 1) and set(np.unique(mask)) <= {0.0, 1.0}
     assert 0 < mask.mean() < 0.5
-    with pytest.raises(NotImplementedError, match="EXR"):
-        imgio.read_image(str(tmp_path / "x.exr"))
+    # EXR no longer raises: the mask round-trips through the native shim
+    imgio.save_image(str(tmp_path / "m.exr"), mask)
+    np.testing.assert_array_equal(imgio.read_image(str(tmp_path / "m.exr")),
+                                  mask)

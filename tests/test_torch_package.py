@@ -27,27 +27,34 @@ PKG = ROOT / "envutil_tpu_torch"
 
 def test_port_imports_no_jax():
     """Import every module of the port in a fresh interpreter (the test
-    process has JAX loaded by conftest.py) and check sys.modules."""
+    process has JAX loaded by conftest.py) and check sys.modules: no JAX,
+    and the modules that load ``yaml``, ``scipy`` or PyOpenColorIO when
+    they need them (io/ocio.py, imgio's colour routing) load none of them
+    on import."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import envutil_tpu_torch as P\n"
         "for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'envutil_tpu'))\n"
+        "('jax', 'jaxlib', 'envutil_tpu', 'yaml', 'scipy', "
+        "'PyOpenColorIO'))\n"
+        "new = ['io.ocio', 'io.colour', 'io.aces', 'io.tiles', "
+        "'runtime.serve', 'runtime.visor']\n"
+        "assert all('envutil_tpu_torch.' + m in sys.modules for m in new)\n"
         "print(len([m for m in sys.modules if m.startswith('envutil_tpu_torch')]))\n"
         "sys.exit('imported: ' + ' '.join(bad) if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 25  # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 37  # every module was imported
 
 
 def test_port_sources_name_no_jax():
     pattern = re.compile(r"\bjax\b|\bjnp\b|envutil_tpu\.")
     files = sorted(p for p in PKG.rglob("*")
-                   if p.suffix in (".py", ".cu", ".cuh", ".h"))
+                   if p.suffix in (".py", ".cu", ".cuh", ".h", ".cc"))
     assert len(files) >= 25
     hits = [f"{p.relative_to(ROOT)}:{i}"
             for p in files
@@ -105,3 +112,23 @@ def test_entry_point_argtypes_match_c_signatures():
             assert declared[name][1] == want, name
             found.add(name)
     assert found == set(declared)
+
+
+def test_exr_and_job_modes_no_longer_raise(monkeypatch):
+    """The EXR stub is gone from ``imgio``, and ``cli.main`` runs the
+    streaming ('-') and tethered ('+', '++') modes instead of raising
+    (the loops stubbed out; stdin empty)."""
+    import io
+
+    from envutil_tpu_torch.io import imgio
+    from envutil_tpu_torch.runtime import cli, serve, visor
+    assert not hasattr(imgio, "_no_exr")
+    assert "_no_exr" not in (PKG / "io" / "imgio.py").read_text()
+    ran = []
+    monkeypatch.setattr(serve, "render_loop", lambda **kw: ran.append("+"))
+    monkeypatch.setattr(visor, "render_loop", lambda **kw: ran.append("++"))
+    monkeypatch.setattr(sys, "stdin", io.StringIO(""))
+    monkeypatch.setenv("ENVUTIL_PLATFORM", "cpu")
+    for mode in ("-", "+", "++"):
+        assert cli.main([mode]) == 0
+    assert ran == ["+", "++"]
