@@ -78,6 +78,18 @@ imageio: the EXR shim's C ABI is stood in for by ``MemoryExr``, and the
 source's table is built with the loader's ``_build`` into the asset
 cache.
 
+Then --mesh and --shard_table through ``render_frame(mesh_n=4,
+devices=[cuda:0] * 4)`` (``mesh_phases``: four bands on this card, so
+that every band decomposition, band launch and ring hand-over runs on a
+one-card machine; over all cards as well where there are two or more):
+the main path, configs 3, 4 twined, 5, 5d twined at 2x2 taps and the
+degree-9 view, each frame bit-equal to the one-device frame with its
+launches counted and no kernel operands built by its second and third
+frames, its time beside the one-device frame's; --shard_table on the
+main path and config 5 against ``fastpath.exact_frame`` (rtol = atol =
+4e-7); and ``mesh_n=7`` on the 12288-row stripe, which falls back to
+one device with its message.
+
 Both chain forms' score outputs are held against their plain versions
 over every small chain case (the twined one at one tap), with the
 pixels required bit-equal to the launch without it.
@@ -107,7 +119,8 @@ window_model), not as a reading of the kernel.
 Every phase runs; any failure raises and the script exits non-zero. It
 exits non-zero without a result when no CUDA card is available. It
 prints its own command time (the build included) before the record. The
-second-to-last line is the kernels' JSON record; the last line is
+second-to-last line is the kernels' JSON record (each kernel with its
+launches on the --mesh cases under ``mesh``); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -3038,6 +3051,285 @@ def surface_phases():
     return rec
 
 
+MESH_N = 4
+# --shard_table frame vs the exact path on the same card and tables,
+# rtol = atol: the JAX package's own bound for its ring
+# (tests/test_parallel.py; MULTICHIP_r05.json read 2.4e-7 and 1.8e-7).
+# The ring sums the same taps in the same order as eval_spline, each an
+# eager PyTorch operation on the card in both
+RING_BOUND = 4e-7
+
+
+def host_ms(fn, reps=3):
+    """Median host-clock milliseconds of ``fn`` (a call of
+    ``render_frame``, which ends in the frame's copy to the host) over
+    ``reps`` calls."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    return float(np.median(times))
+
+
+def mesh_frames(name, plan, sources, want, devices):
+    """One job through ``render_frame(mesh_n=MESH_N, devices=devices)``
+    (the --mesh path) beside the same job on one device: the mesh
+    frame's launches (counts set to 0 just before, read just after;
+    ``want`` maps counters to launches), the frame bit-equal to the
+    one-device frame, the kernel operands built by its second and third
+    frames (0 required), the frame times (host clock, the copy to the
+    host included, median of 3) and the peak device memory of each.
+    Returns the record."""
+    import torch
+    from envutil_tpu_torch.runtime import fastpath as FP
+    from envutil_tpu_torch.runtime import render as RD
+
+    def one():
+        return RD.render_frame(plan, sources, device="cuda")
+
+    def meshed():
+        return RD.render_frame(plan, sources, device="cuda", mesh_n=MESH_N,
+                               devices=devices)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    single = one()
+    single_peak = torch.cuda.max_memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    frame, moved = launch_counts(meshed)
+    first_ms = (time.perf_counter() - t0) * 1000.0
+    mesh_peak = torch.cuda.max_memory_allocated() / 2**20
+    expect = dict.fromkeys(WRAPPERS + ("exact_frame",), 0)
+    n = dict(expect, **moved)
+    expect.update(want)
+    check(n == expect, f"mesh {name}: launches {n}, expected {expect}")
+    check(bool(np.isfinite(frame).all()), f"mesh {name}: frame not finite")
+    check(np.array_equal(frame, single), f"mesh {name}: the --mesh "
+          f"{MESH_N} frame differs from the one-device frame (max abs diff "
+          f"{float(np.abs(frame - single).max()):.3e})")
+    builds = []
+    for _ in range(2):
+        before = FP._operands.builds
+        again = meshed()
+        builds.append(FP._operands.builds - before)
+        check(np.array_equal(again, single),
+              f"mesh {name}: a later --mesh frame differs")
+    check(builds == [0, 0], f"mesh {name}: steady-state frames built "
+          f"{builds} operand sets")
+    rec = dict(launches={k: v for k, v in n.items() if v},
+               devices=[str(d) for d in devices[:MESH_N]],
+               bit_equal=True, operand_builds_frames_2_3=builds,
+               first_ms=first_ms, ms=host_ms(meshed), single_ms=host_ms(one),
+               peak_mib=mesh_peak, single_peak_mib=single_peak,
+               split=mesh_split(plan, sources, devices),
+               single_split=mesh_split(plan, sources, devices[:1]))
+    print(f"mesh: {name}, --mesh {MESH_N} on {rec['devices']}: launches "
+          f"{rec['launches']}; bit-equal to the one-device frame; operand "
+          f"builds of frames 2 and 3: {builds}; frame {rec['ms']:.3f} ms vs "
+          f"one device {rec['single_ms']:.3f} ms (host clock, copy to the "
+          f"host included, median of 3; first {first_ms:.1f} ms); split "
+          f"(enqueue, device, copy to the host) {rec['split']} vs one device "
+          f"{rec['single_split']} ms; peak device memory {mesh_peak:.1f} vs "
+          f"{single_peak:.1f} MiB", flush=True)
+    return rec
+
+
+def mesh_split(plan, sources, devices, reps=3):
+    """Where a kernel-route frame of ``plan`` over ``len(devices)`` bands
+    spends its time, timed inside the band loop the --mesh path runs
+    (``fastpath.render_fast_mesh``'s ``split``; one band is the
+    one-device frame): host-clock ms to enqueue every band, then until
+    the card has finished, then to copy the bands into the host frame;
+    medians of ``reps``."""
+    import torch
+    from envutil_tpu_torch.parallel import mesh as PM
+    from envutil_tpu_torch.runtime import fastpath as FP
+    mesh = PM.make_mesh(devices)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        split = []
+        FP.render_fast_mesh(plan, sources, mesh, split=split)
+        times.append(split)
+    return [round(float(v), 3) for v in np.median(times, axis=0)]
+
+
+def ring_frames(name, plan, sources, devices):
+    """The same job through ``render_frame(mesh_n=MESH_N,
+    shard_table=True)``: the tables in row bands over the devices, the
+    frame from the ring, held to ``fastpath.exact_frame`` on the same
+    card and tables (RING_BOUND, rtol = atol); no kernel and no exact
+    route launched; its time (host clock, median of 3) beside the
+    replicated --mesh frame's, and its peak device memory. Returns the
+    record."""
+    import torch
+    from envutil_tpu_torch.runtime import fastpath as FP
+    from envutil_tpu_torch.runtime import render as RD
+
+    def ringed():
+        return RD.render_frame(plan, sources, device="cuda", mesh_n=MESH_N,
+                               shard_table=True, devices=devices)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    frame, moved = launch_counts(ringed)
+    first_ms = (time.perf_counter() - t0) * 1000.0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check(not moved, f"ring {name}: launches {moved}, expected none")
+    ref = FP.exact_frame(plan, sources).cpu().numpy()
+    diff = np.abs(frame - ref)
+    err = float(diff.max())
+    check(bool((diff <= RING_BOUND + RING_BOUND * np.abs(ref)).all()),
+          f"ring {name}: {err:.3e} from exact_frame (rtol = atol = "
+          f"{RING_BOUND:g})")
+    rec = dict(max_abs_err_vs_exact=err, bound=RING_BOUND,
+               bit_equal=bool(err == 0.0), first_ms=first_ms,
+               ms=host_ms(ringed), replicated_ms=host_ms(
+                   lambda: RD.render_frame(plan, sources, device="cuda",
+                                           mesh_n=MESH_N, devices=devices)),
+               peak_mib=peak)
+    print(f"mesh: {name}, --mesh {MESH_N} --shard_table: vs exact_frame max "
+          f"abs diff {err:.3e} (rtol = atol = {RING_BOUND:g}); frame "
+          f"{rec['ms']:.3f} ms vs replicated {rec['replicated_ms']:.3f} ms "
+          f"(host clock, median of 3; first {first_ms:.1f} ms); peak device "
+          f"memory {peak:.1f} MiB", flush=True)
+    return rec
+
+
+def mesh_phases():
+    """--mesh and --shard_table through ``render_frame``, the entry point
+    the CLI calls, with ``devices=[cuda:0] * MESH_N``: every band of a
+    frame on this card, so that each band decomposition, each band's
+    launches and the ring's hand-overs of table bands run here (a
+    one-card machine cannot show cross-card overlap or peer copies).
+    With two cards or more, the main path also runs over all of them.
+    Cases:
+
+    - main path (8192x4096 ramps -> 2048x12288 cubemap): 4 launches of
+      resample_inline, then --shard_table, and ``mesh_n=7`` (12288 rows
+      do not divide by 7: the message, one device, the same frame);
+    - config 3 (biatan6 noise -> 1920x1152 stereographic): 4 launches of
+      resample_planar_chain;
+    - config 4 twined (the 8K ramps at degree 1 -> 2048x1280, 4 taps):
+      4 launches of resample_inline_twined;
+    - config 5 (voronoi of three facets -> 4096x2048): 12 launches of
+      resample_planar_chain with the score, then --shard_table;
+    - config 5d twined at 2x2 taps: 96 one-tap launches of
+      resample_twined_chain;
+    - the degree-9 view: 4 bands of the exact route (``exact_frame``).
+
+    Each --mesh frame is bit-equal to the one-device frame and its
+    second and third frames build no kernel operands. Returns the
+    record."""
+    import contextlib
+    import io
+    import torch
+    from envutil_tpu_torch.core.conventions import Projection as P
+    from envutil_tpu_torch.models import cubemap as CBM
+    from envutil_tpu_torch.models import environment as E
+    from envutil_tpu_torch.runtime import render as RD
+
+    devices = [torch.device("cuda", 0)] * MESH_N
+    rec = {}
+    # ---- the main path, --shard_table, the fallback, all cards ---------
+    w, h = 8192, 4096
+    img = ramp_fixture(w, h)
+    fct = make_facet(P.SPHERICAL, w, h, 2 * math.pi)
+    src = E.make_mount_source(fct, img, 3, 3, device="cuda")
+    plan = plan_for(fct, P.CUBEMAP, 2048, 6 * 2048, 90, 3)
+    rec["main path"] = mesh_frames("main path", plan, [src],
+                                   {"resample_inline": MESH_N}, devices)
+    rec["main path, --shard_table"] = ring_frames("main path", plan, [src],
+                                                  devices)
+    said = io.StringIO()
+    single = RD.render_frame(plan, [src], device="cuda")
+    with contextlib.redirect_stdout(said):
+        fallback, moved = launch_counts(lambda: RD.render_frame(
+            plan, [src], device="cuda", mesh_n=7, devices=[devices[0]] * 7))
+    message = said.getvalue().strip()
+    check(message == "--mesh 7: output height 12288 not divisible by 7; "
+          "rendering on one", f"mesh fallback said {message!r}")
+    check(moved == {"resample_inline": 1}, f"mesh fallback launches {moved}")
+    check(np.array_equal(fallback, single),
+          "the --mesh 7 fallback differs from the one-device frame")
+    rec["main path, --mesh 7"] = dict(message=message, launches=moved,
+                                      bit_equal=True)
+    print(f"mesh: main path, --mesh 7: {message!r}; launches {moved}; "
+          f"bit-equal to the one-device frame", flush=True)
+    del single, fallback
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        frame, moved = launch_counts(lambda: RD.render_frame(
+            plan, [src], device="cuda", mesh_n=cards))
+        check(moved == {"resample_inline": cards}
+              and np.array_equal(frame, RD.render_frame(plan, [src],
+                                                        device="cuda")),
+              f"--mesh {cards} over the cards: launches {moved}")
+        rec[f"main path over {cards} cards"] = dict(launches=moved,
+                                                    bit_equal=True)
+        print(f"mesh: main path over {cards} cards: launches {moved}; "
+              f"bit-equal", flush=True)
+    del src
+    torch.cuda.empty_cache()
+    src1 = E.make_mount_source(fct, img, 1, 1, device="cuda")
+    del img
+    plan4 = plan_for(fct, P.RECTILINEAR, 2048, 1280, 100, 1, twine=-1)
+    rec["config 4 twined"] = mesh_frames(
+        "config 4 twined", plan4, [src1], {"resample_inline_twined": MESH_N},
+        devices)
+    del src1
+    torch.cuda.empty_cache()
+    # ---- config 3 -------------------------------------------------------
+    rng = np.random.default_rng(3)
+    bfct = make_facet(P.BIATAN6, 1024, 6144, math.radians(100))
+    faces = rng.uniform(0, 1, (6, 1024, 1024, 3)).astype(np.float32)
+    bsrc = CBM.make_cubemap_source(bfct, faces, 3, 3, 128, 64, device="cuda")
+    p3 = plan_for(bfct, P.STEREOGRAPHIC, 1920, 1152, 150, 3, (35, 20, 0))
+    rec["config 3"] = mesh_frames("config 3", p3, [bsrc],
+                                  {"resample_planar_chain": MESH_N}, devices)
+    del bsrc
+    torch.cuda.empty_cache()
+    # ---- config 5 and config 5d twined ----------------------------------
+    facets, sources, synopsis, nch = stitch_config(
+        "config 5", np.random.default_rng(5))
+    p5 = stitch_plan(facets, synopsis, nch)
+    rec["config 5"] = mesh_frames("config 5", p5, sources,
+                                  {"resample_planar_chain": 3 * MESH_N},
+                                  devices)
+    rec["config 5, --shard_table"] = ring_frames("config 5", p5, sources,
+                                                 devices)
+    del sources
+    torch.cuda.empty_cache()
+    facets, sources, synopsis, nch = stitch_config(
+        "config 5d", np.random.default_rng(5))
+    p5d = stitch_plan(facets, synopsis, nch, twine=2)
+    check(len(p5d.spread) == 4, f"config 5d spread {p5d.spread}")
+    rec["config 5d twined"] = mesh_frames(
+        "config 5d twined (2x2 taps)", p5d, sources,
+        {"resample_twined_chain": 6 * 4 * MESH_N}, devices)
+    del sources
+    torch.cuda.empty_cache()
+    # ---- degree 9 on the exact route ------------------------------------
+    dfct = make_facet(P.BIATAN6, 256, 1536, math.radians(100))
+    dfaces = np.random.default_rng(9).uniform(
+        0, 1, (6, 256, 256, 3)).astype(np.float32)
+    dsrc = CBM.make_cubemap_source(dfct, dfaces, 9, 9, 32, 64, device="cuda")
+    p9 = plan_for(dfct, P.STEREOGRAPHIC, 480, 288, 150, 9, (35, 20, 0))
+    rec["degree 9"] = mesh_frames("degree 9 (exact route)", p9, [dsrc],
+                                  {"exact_frame": MESH_N}, devices)
+    del dsrc
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_launches(rec, counter):
+    """{case: launches of ``counter``} over the --mesh cases that launch
+    it."""
+    return {case: r["launches"][counter] for case, r in rec.items()
+            if counter in r.get("launches", {})}
+
+
 def smooth_environment(ray):
     """A smooth, seamless RGB function of the unit ray: low and medium
     frequencies with gradients of a few per radian."""
@@ -3604,6 +3896,10 @@ def main():
     t_surfaces = surface_phases()
     torch.cuda.empty_cache()
 
+    # ---- 6j. --mesh and --shard_table over four bands on this card ----
+    t_mesh = mesh_phases()
+    torch.cuda.empty_cache()
+
     # ---- 7. the record ------------------------------------------------
     t3 = t_planar["config 3"]
     t4, t3t = t_twined["config 4"], t_twined["config 3"]
@@ -3616,6 +3912,7 @@ def main():
     print(f"mask_for: {json.dumps(t_mask)}", flush=True)
     print(f"precise: {json.dumps(t_precise)}", flush=True)
     print(f"surfaces: {json.dumps(t_surfaces)}", flush=True)
+    print(f"mesh: {json.dumps(t_mesh)}", flush=True)
     print(f"command time: {time.perf_counter() - T_START:.1f} s, the "
           f"kernel build included", flush=True)
 
@@ -3638,7 +3935,9 @@ def main():
          "stitches": {k: t for k, t in t_stitch.items()
                       if t["synopsis"] == "hdr_merge"},
          # launches on the image I/O and serving surfaces
-         "surfaces": surface_launches(t_surfaces, "resample_inline")},
+         "surfaces": surface_launches(t_surfaces, "resample_inline"),
+         # launches of the --mesh frames (MESH_N bands on this card)
+         "mesh": mesh_launches(t_mesh, "resample_inline")},
         # the planes form: launched and measured on the translated
         # facet's operands; config 3's coordinates beside them
         dict(t_translated["translated facet"],
@@ -3653,7 +3952,8 @@ def main():
              degree1=dict(deg1, library="grid_sample bilinear"),
              small_case_max_abs_err=worst_planar,
              bf16=t_bf16["resample_planar"],
-             build=build.get("resample_planar_kernel")),
+             build=build.get("resample_planar_kernel"),
+             mesh=mesh_launches(t_mesh, "resample_planar")),
         {"name": "resample_planar_chain", "route": "cuda",
          "source": "envutil_tpu_torch/csrc/resample_planar.cu",
          "replaces": "envutil_tpu/ops/pallas_resample.py:1070 (K2), "
@@ -3671,7 +3971,8 @@ def main():
          "bf16": t_bf16["resample_planar_chain"],
          "stitches": {k: t for k, t in t_stitch.items()
                       if t["synopsis"] != "hdr_merge"},
-         "pto_alpha": t_alpha},
+         "pto_alpha": t_alpha,
+         "mesh": mesh_launches(t_mesh, "resample_planar_chain")},
         dict({k: t4[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
              name="resample_inline_twined", route="cuda",
@@ -3687,7 +3988,8 @@ def main():
              stitches={k: t for k, t in t_twined_stitch.items()
                        if t["synopsis"] == "hdr_merge"},
              surfaces=surface_launches(t_surfaces,
-                                       "resample_inline_twined")),
+                                       "resample_inline_twined"),
+             mesh=mesh_launches(t_mesh, "resample_inline_twined")),
         # the planes form: launched and measured on the translated facet
         # twined's operands; config 3 twined's planes beside them
         dict(t_translated["translated facet twined"],
@@ -3700,7 +4002,8 @@ def main():
              small_case_max_abs_err=worst_twined,
              build=build.get("resample_twined_kernel"),
              bf16=t_bf16["resample_twined"],
-             lens_and_translated_stitch_twined=t_lens_translated_twined),
+             lens_and_translated_stitch_twined=t_lens_translated_twined,
+             mesh=mesh_launches(t_mesh, "resample_twined")),
         dict({k: t3t[k] for k in ("launches", "max_abs_err", "ms",
                                   "plain_ms", "bound_ms", "bound_by")},
              name="resample_twined_chain", route="cuda",
@@ -3721,7 +4024,8 @@ def main():
              one_tap_stitch=t_one_tap, pole_view=t_pole,
              # --twine_precise jobs left this form for the exact route:
              # the form's deviation on a precise job, and its time
-             precise_job=t_precise),
+             precise_job=t_precise,
+             mesh=mesh_launches(t_mesh, "resample_twined_chain")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

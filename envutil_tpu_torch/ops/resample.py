@@ -37,7 +37,11 @@ pixel in the kernel, then the same sum.
 Each wrapper launches its hand-written kernel (csrc/resample_*.cu,
 built with nvcc at first use by ops/kernels.py) for CUDA tensors,
 raises if it cannot, and takes its plain version only for CPU tensors;
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches. A launch enters the card
+``out`` lives on (``torch.cuda.device``), so that the launch, the
+kernel's shared-memory attribute and the stream belong to that card
+whichever card is current (a band of a ``--mesh`` frame on its own
+card).
 The kernel source notes say what bounds each and what its design
 leaves for later.
 
@@ -251,14 +255,15 @@ def resample_inline(out, coeff, xfeat, yfeat, bmats, *, degree: int,
     section_px = consts[11] if smode != "sph" else 0.0
     h, w, nch = out.shape
     hp, wp, _ = coeff.shape
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = fn(
-        out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
-        yfeat.data_ptr(), bmats.data_ptr(), _wmat(degree), h, w, hp, wp,
-        int(row0), int(face_rows), int(degree), int(nch), _TMODES[tmode],
-        _SMODES[smode], _GATES[gate_x], glx, gux, _GATES[gate_y], gly, guy,
-        kx, cx, ky, cy, pad, section_px, int(window_bytes), _bf16(coeff),
-        stream)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(
+            out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
+            yfeat.data_ptr(), bmats.data_ptr(), _wmat(degree), h, w, hp, wp,
+            int(row0), int(face_rows), int(degree), int(nch), _TMODES[tmode],
+            _SMODES[smode], _GATES[gate_x], glx, gux, _GATES[gate_y], gly, guy,
+            kx, cx, ky, cy, pad, section_px, int(window_bytes), _bf16(coeff),
+            stream)
     if err != 0:
         raise RuntimeError(f"resample_inline kernel launch failed: CUDA "
                            f"error {err}")
@@ -485,14 +490,16 @@ def resample_inline_twined(out, coeff, xfeat, yfeat, bmats, spread, *,
     section_px = consts[11] if smode != "sph" else 0.0
     h, w, nch = out.shape
     hp, wp, _ = coeff.shape
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = fn(
-        out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
-        yfeat.data_ptr(), bmats.data_ptr(), spread.data_ptr(),
-        _wmat(degree), h, w, hp, wp, int(row0), int(face_rows), int(degree),
-        int(nch), _TMODES[tmode], _SMODES[smode], int(n_taps), int(precise),
-        _GATES[gate_x], glx, gux, _GATES[gate_y], gly, guy,
-        kx, cx, ky, cy, pad, section_px, _bf16(coeff), stream)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(
+            out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
+            yfeat.data_ptr(), bmats.data_ptr(), spread.data_ptr(),
+            _wmat(degree), h, w, hp, wp, int(row0), int(face_rows),
+            int(degree), int(nch), _TMODES[tmode], _SMODES[smode],
+            int(n_taps), int(precise), _GATES[gate_x], glx, gux,
+            _GATES[gate_y], gly, guy, kx, cx, ky, cy, pad, section_px,
+            _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_inline_twined kernel launch failed: "
                            f"CUDA error {err}")
@@ -602,12 +609,13 @@ def resample_planar(out, coeff, sx, sy, *, degree: int, merge_mask=None):
     fn = _PLANAR.get("envutil_resample_planar")
     h, w, nch = out.shape
     hp, wp, _ = coeff.shape
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = fn(out.data_ptr(), coeff.data_ptr(), sx.data_ptr(),
-             sy.data_ptr(),
-             None if merge_mask is None else merge_mask.data_ptr(),
-             _wmat(degree), h, w, hp, wp, int(degree), int(nch),
-             _bf16(coeff), stream)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(out.data_ptr(), coeff.data_ptr(), sx.data_ptr(),
+                 sy.data_ptr(),
+                 None if merge_mask is None else merge_mask.data_ptr(),
+                 _wmat(degree), h, w, hp, wp, int(degree), int(nch),
+                 _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_planar kernel launch failed: CUDA "
                            f"error {err}")
@@ -699,15 +707,16 @@ def resample_twined(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, *,
     h, w, nch = out.shape
     hp, wp, _ = coeff.shape
     lower, period = (0.0, 0.0) if wrap_x is None else wrap_x
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = fn(out.data_ptr(), coeff.data_ptr(),
-             *(t.data_ptr() for t in planes), spread.data_ptr(),
-             None if merge_mask is None else merge_mask.data_ptr(),
-             None if tap_weights is None else tap_weights.data_ptr(),
-             _wmat(degree), h, w, hp, wp, int(degree), int(nch), int(n_taps),
-             int(tap_weights is not None
-                 and tap_weights.dtype != torch.float32),
-             float(lower), float(period), _bf16(coeff), stream)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(out.data_ptr(), coeff.data_ptr(),
+                 *(t.data_ptr() for t in planes), spread.data_ptr(),
+                 None if merge_mask is None else merge_mask.data_ptr(),
+                 None if tap_weights is None else tap_weights.data_ptr(),
+                 _wmat(degree), h, w, hp, wp, int(degree), int(nch),
+                 int(n_taps), int(tap_weights is not None
+                     and tap_weights.dtype != torch.float32),
+                 float(lower), float(period), _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_twined kernel launch failed: CUDA "
                            f"error {err}")
@@ -916,12 +925,13 @@ def resample_planar_chain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
     h, w, nch = out.shape
     hp, wp, _ = coeff.shape
     ints, floats = _pickup_arrays(pick)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = fn(out.data_ptr(), None if score is None else score.data_ptr(),
-             coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
-             bmats.data_ptr(), _wmat(degree), ints, floats, h, w, hp, wp,
-             int(row0), int(face_rows), int(degree), int(nch),
-             _CHAIN_TMODES[tmode], float(recip_step), _bf16(coeff), stream)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(out.data_ptr(), None if score is None else score.data_ptr(),
+                 coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
+                 bmats.data_ptr(), _wmat(degree), ints, floats, h, w, hp, wp,
+                 int(row0), int(face_rows), int(degree), int(nch),
+                 _CHAIN_TMODES[tmode], float(recip_step), _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_planar_chain kernel launch failed: "
                            f"CUDA error {err}")
@@ -1093,13 +1103,14 @@ def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
     h, w, nch = out.shape
     hp, wp, _ = coeff.shape
     ints, floats = _pickup_arrays(pick)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = fn(out.data_ptr(), None if score is None else score.data_ptr(),
-             coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
-             bmats.data_ptr(), spread.data_ptr(), _wmat(degree), ints,
-             floats, h, w, hp, wp, int(row0), int(face_rows), int(degree),
-             int(nch), _CHAIN_TMODES[tmode], int(n_taps), int(precise),
-             int(tap_valid), float(recip_step), _bf16(coeff), stream)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(out.data_ptr(), None if score is None else score.data_ptr(),
+                 coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
+                 bmats.data_ptr(), spread.data_ptr(), _wmat(degree), ints,
+                 floats, h, w, hp, wp, int(row0), int(face_rows), int(degree),
+                 int(nch), _CHAIN_TMODES[tmode], int(n_taps), int(precise),
+                 int(tap_valid), float(recip_step), _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_twined_chain kernel launch failed: "
                            f"CUDA error {err}")

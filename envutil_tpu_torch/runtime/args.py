@@ -280,14 +280,17 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pto_line", action="append", default=[],
                     metavar="LINE")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="shard the render over N devices (output rows "
-                         "split over a device mesh, sources "
-                         "replicated); 0 = single device")
+                    help="split the render over N devices (output rows "
+                         "in N bands, one a device: the first N CUDA "
+                         "cards, or N CPU slots with "
+                         "ENVUTIL_PLATFORM=cpu; sources replicated); "
+                         "0 = single device")
     ap.add_argument("--shard_table", action="store_true",
-                    help="with --mesh: row-band-shard the facet "
-                         "coefficient tables over the mesh and "
-                         "evaluate through a ppermute ring (for "
-                         "sources too large for one chip's HBM)")
+                    help="with --mesh: split the facet coefficient "
+                         "tables into row bands over the devices and "
+                         "evaluate them by passing the bands round a "
+                         "ring (for sources too large for one card's "
+                         "memory)")
     ap.add_argument("--solo", type=int, default=-1)
     ap.add_argument("--mask_for", type=int, default=-1)
     ap.add_argument("--nchannels", type=int, default=0)

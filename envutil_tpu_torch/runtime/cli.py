@@ -13,7 +13,9 @@ Job modes match the reference:
     visor pipeline semantics, runtime/visor.py)
 Every mode renders on CUDA unless the environment sets
 ``ENVUTIL_PLATFORM=cpu``, the override the JAX CLI honours too.
---mesh waits for the multi-device slice of the port and raises.
+--mesh N splits a job's output rows over N devices of that type (every
+CUDA card, or N CPU slots) and --shard_table, with it, the facets'
+tables (runtime/render.render_frame, parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -96,7 +98,8 @@ def _run_job(args, device) -> None:
             amplify = 1.0 / b
 
     img = render_frame(plan, sources, verbose=args.verbose, amplify=amplify,
-                       device=device)
+                       device=device, mesh_n=args.mesh,
+                       shard_table=args.shard_table)
     rt_cumulated += render_frame.last_ms
 
     if args.mask_for != -1 and img.shape[-1] == 2:
@@ -130,10 +133,6 @@ def _split_argv(argv: List[str], i: int, out_name: str) -> List[str]:
 def core(argv: List[str], device=None) -> int:
     args = parse_args(argv)
     args.twine_setup()
-    if args.mesh > 1 or args.shard_table:
-        raise NotImplementedError(
-            "--mesh/--shard_table wait for the multi-device slice of the "
-            "PyTorch port")
     device = resolve_device(device)
     if args.split:
         # re-create each facet from the synopsis (--split,

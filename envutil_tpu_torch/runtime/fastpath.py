@@ -51,6 +51,9 @@ kernel, and sums the taps' combines with their weights: the exact
 path's ``synopsis.twined``, where every facet's ray deflects and the
 champion is chosen anew for each tap.
 
+``render_fast_mesh`` renders a frame's output rows in bands, each on
+its device through the route the whole frame takes (--mesh).
+
 The kernel routes adapt channels and brighten after the taps are
 summed, where the exact path does so per tap; the two agree unless the
 channel adaptation divides by alpha (2 -> 1, 2 -> 3, 4 -> 1, 4 -> 3
@@ -311,10 +314,34 @@ def _source_mode(static):
                    static.window_y_offset)
 
 
-@functools.lru_cache(maxsize=16)
+# per plan (a RenderPlan hashes by identity), what is derived from it
+# and kept as long as the plan lives: its kernel operands, its facet
+# plans, its tap plans. A cache of a fixed size would be outgrown by a
+# --mesh frame's band, facet and tap plans (4 bands x 6 facets of a
+# stitch) and rebuild them every frame.
+_OPERANDS = weakref.WeakKeyDictionary()
+_FACET_PLANS = weakref.WeakKeyDictionary()
+_TAP_PLANS = weakref.WeakKeyDictionary()
+
+
 def _operands(plan, static, core_shape, pad, bcs, device):
-    """Device-resident kernel operands of one plan (a RenderPlan hashes
-    by identity), built once so a steady-state frame is one launch."""
+    """Device-resident kernel operands of one plan, built once (counted
+    in ``_operands.builds``) so a steady-state frame is one launch."""
+    per_plan = _OPERANDS.setdefault(plan, {})
+    key = (static, core_shape, pad, bcs, device)
+    if key not in per_plan:
+        per_plan[key] = _build_operands(plan, static, core_shape, pad, bcs,
+                                        device)
+        _operands.builds += 1
+    return per_plan[key]
+
+
+_operands.builds = 0
+
+
+def _build_operands(plan, static, core_shape, pad, bcs, device):
+    """``_operands``' build: the features, matrices and constants of
+    ``inline_setup`` over the plan's window, uploaded to ``device``."""
     window = frame_window(plan)
     smode, statics = _source_mode(static)
     tmode, xfeat, yfeat, P, consts = inline_setup(
@@ -599,15 +626,17 @@ def planes_launch(plan, src, out, score=None):
                           merge_mask=mask.to(torch.float32))
 
 
-@functools.lru_cache(maxsize=16)
 def facet_plans(plan):
     """One single-facet plan per facet of a stitch, each with that
-    facet's basis or generic chain (cached per plan, so that each keeps
-    its cached kernel operands from frame to frame)."""
-    return tuple(dataclasses.replace(plan, facet_indices=(i,), bases=(b,),
-                                     planar_to_ray=(p,))
-                 for i, b, p in zip(plan.facet_indices, plan.bases,
-                                    plan.planar_to_ray))
+    facet's basis or generic chain (kept per plan, so that each keeps
+    its kernel operands from frame to frame)."""
+    if plan not in _FACET_PLANS:
+        _FACET_PLANS[plan] = tuple(
+            dataclasses.replace(plan, facet_indices=(i,), bases=(b,),
+                                planar_to_ray=(p,))
+            for i, b, p in zip(plan.facet_indices, plan.bases,
+                               plan.planar_to_ray))
+    return _FACET_PLANS[plan]
 
 
 # a one-tap plan of ``tap_plans`` -> its facet's twined plan, whose kernel
@@ -616,21 +645,22 @@ def facet_plans(plan):
 _TAP_OF = weakref.WeakKeyDictionary()
 
 
-@functools.lru_cache(maxsize=16)
 def tap_plans(plan):
     """Per tap (cx, cy, w) of a twined stitch's spread, (w, the facets'
     one-tap plans): each facet's entry of ``facet_plans`` with the spread
     ((cx, cy, 1.0),), so that one launch renders that tap alone, masked
-    by its own deflected validity. The offsets stay as the plan has them:
-    the kernels' operands fold 1/DERIV_BIAS in once
+    by its own deflected validity (kept per plan). The offsets stay as
+    the plan has them: the kernels' operands fold 1/DERIV_BIAS in once
     (``synopsis.scaled_spread``)."""
-    taps = []
-    for cx, cy, w in plan.spread:
-        one = tuple(dataclasses.replace(fp, spread=((cx, cy, 1.0),))
-                    for fp in facet_plans(plan))
-        _TAP_OF.update(zip(one, facet_plans(plan)))
-        taps.append((float(w), one))
-    return tuple(taps)
+    if plan not in _TAP_PLANS:
+        taps = []
+        for cx, cy, w in plan.spread:
+            one = tuple(dataclasses.replace(fp, spread=((cx, cy, 1.0),))
+                        for fp in facet_plans(plan))
+            _TAP_OF.update(zip(one, facet_plans(plan)))
+            taps.append((float(w), one))
+        _TAP_PLANS[plan] = tuple(taps)
+    return _TAP_PLANS[plan]
 
 
 def route(plan, src, score=False, inline=True):
@@ -730,15 +760,16 @@ def multi_frame(plan, sources, device=None, log=None):
     return acc
 
 
-def render_fast(plan, sources, verbose: bool = False,
-                device=None) -> np.ndarray:
-    """The CUDA render path of ``render.render_frame``: one frame
-    through ``exact_frame`` where ``exact_route`` names a reason, else
-    through one ``launch`` (the route ``fused_frame`` or ``planar_frame``
-    takes), or for several sources ``multi_frame``; returned as a host
-    (H, W, C) float32 array. ``device`` is the render's (paint sources
-    have no table to take it from). Raises ``NotImplementedError`` for
-    jobs the port does not cover."""
+def frame_tensor(plan, sources, verbose: bool = False,
+                 device=None) -> torch.Tensor:
+    """The CUDA render path of ``render.render_frame``, up to the frame
+    on the card: one frame through ``exact_frame`` where ``exact_route``
+    names a reason, else through one ``launch`` (the route
+    ``fused_frame`` or ``planar_frame`` takes), or for several sources
+    ``multi_frame``; returned as the (H, W, C) float32 tensor on the
+    sources' device, enqueued and not waited for. ``device`` is the
+    render's (paint sources have no table to take it from). Raises
+    ``NotImplementedError`` for jobs the port does not cover."""
     reason = uncovered(plan, sources)
     if reason is not None:
         raise NotImplementedError(
@@ -749,7 +780,7 @@ def render_fast(plan, sources, verbose: bool = False,
         if verbose:
             print(f"fastpath: the exact path over {img.shape[0]}x"
                   f"{img.shape[1]} px on {img.device} ({why})")
-        return img.cpu().numpy()
+        return img
     if len(sources) > 1:
         log = []
         img = multi_frame(plan, sources, log=log)
@@ -766,7 +797,7 @@ def render_fast(plan, sources, verbose: bool = False,
                      f" per tap, {len(taps)} taps")
                   + f", {len(log)} launches over "
                   f"{img.shape[0]}x{img.shape[1]} px")
-        return img.cpu().numpy()
+        return img
     src = sources[0]
     out = _frame_buffer(plan, src, None, None)
     what = launch(plan, src, out)
@@ -776,4 +807,32 @@ def render_fast(plan, sources, verbose: bool = False,
             else ""
         print(f"fastpath: 1 launch of {what} over "
               f"{img.shape[0]}x{img.shape[1]} px{taps}")
-    return img.cpu().numpy()
+    return img
+
+
+def render_fast(plan, sources, verbose: bool = False,
+                device=None) -> np.ndarray:
+    """``frame_tensor``'s frame as a host (H, W, C) float32 array."""
+    return frame_tensor(plan, sources, verbose, device).cpu().numpy()
+
+
+def render_fast_mesh(plan, sources, mesh, verbose: bool = False,
+                     split=None) -> np.ndarray:
+    """``--mesh N`` through the kernels: ``parallel.mesh.sharded_render``
+    (the frame's output rows in N bands, the same band plans from frame
+    to frame so that each keeps its kernel operands, every band
+    enqueued before any is copied back) with ``frame_tensor`` as each
+    band's route on its device: the band's ``launch``, ``multi_frame``
+    (per tap when twined) or ``exact_frame``, the route the whole frame
+    takes. Each pixel is computed from its absolute coordinates, so the
+    host (H, W, C) float32 frame is bit-equal to the one-device frame.
+    The counterpart of the JAX package's ``render_fast_mesh``
+    (``_mesh_solo``, ``_mesh_solo_twined``, ``_mesh_solo_twined_partial``,
+    ``_mesh_multi``, ``_mesh_multi_pertap``), without its tile planner:
+    only the height must divide into the bands. ``split`` as
+    ``sharded_render``'s."""
+    from ..parallel import mesh as PM
+    return PM.sharded_render(
+        plan, sources, mesh,
+        lambda bplan, srcs, dev: frame_tensor(bplan, srcs, verbose, dev),
+        verbose, split).numpy()

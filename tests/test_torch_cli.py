@@ -114,10 +114,12 @@ def test_cli_downscale_twines_automatically(tmp_path, monkeypatch):
 
 
 def test_cli_uncovered_modes_raise(tmp_path, monkeypatch):
-    """The modes still uncovered raise (--mesh and --shard_table);
-    streaming and serve no longer do (they run their loops, stubbed out
-    here; tests/test_torch_cli_stream.py renders through them), nor does
-    EXR;
+    """No mode raises any more: streaming and serve run their loops
+    (stubbed out here; tests/test_torch_cli_stream.py renders through
+    them); --mesh 4 writes the image the job without it writes, bit for
+    bit, and with --shard_table to the ring's 4e-7
+    (tests/test_torch_mesh_ring.py); --shard_table without --mesh is
+    ignored, as in the JAX CLI; EXR works;
     --single, --split and --mask_for render: a facet re-created at its
     own geometry, one file per facet but the solo one, and a one-channel
     mask of the facet's coverage."""
@@ -129,10 +131,17 @@ def test_cli_uncovered_modes_raise(tmp_path, monkeypatch):
         assert cli.main(["--input", "x.tif", tail]) == 0
     src_path = tmp_path / "env.tif"
     imgio.save_image(str(src_path), _equirect())
-    for flag in (["--mesh", "2"], ["--shard_table"]):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            cli.main(["--facet", str(src_path), "spherical", "360", "0", "0",
-                      "0", "--output", str(tmp_path / "o.tif")] + flag)
+    one = ["--facet", str(src_path), "spherical", "360", "0", "0", "0",
+           "--twine", "0", "--output"]
+    assert cli.main(one + [str(tmp_path / "o.tif")]) == 0
+    plain = imgio.read_image(str(tmp_path / "o.tif"))
+    for i, (flag, tol) in enumerate(((["--mesh", "4"], 0.0),
+                                     (["--mesh", "4", "--shard_table"], 4e-7),
+                                     (["--shard_table"], 0.0))):
+        out = str(tmp_path / f"o{i}.tif")
+        assert cli.main(one + [out] + flag) == 0
+        np.testing.assert_allclose(imgio.read_image(out), plain, rtol=tol,
+                                   atol=tol)
     view = tmp_path / "view.tif"
     imgio.save_image(str(view), _equirect(48, 32))
     job = ["--facet", str(src_path), "spherical", "360", "0", "0", "0",

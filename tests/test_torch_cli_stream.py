@@ -1,7 +1,8 @@
 """The port CLI's job modes beside the single job: streaming (``-``)
 against the JAX CLI's streaming output files, the dispatch of ``+``
 (serve) and ``++`` (visor) to their loops on the device
-``ENVUTIL_PLATFORM`` names, and ``--mesh``, which still raises."""
+``ENVUTIL_PLATFORM`` names, and ``--mesh`` with and without
+``--shard_table`` on an EXR job."""
 
 import io
 import sys
@@ -74,13 +75,28 @@ def test_serve_modes_dispatch_to_their_loops(monkeypatch):
             pcli.main([mode])
 
 
-def test_mesh_still_raises(tmp_path, monkeypatch):
+def test_mesh_still_raises(tmp_path, monkeypatch, capsys):
+    """``--mesh`` no longer raises: ``--mesh 4`` writes the EXR the job
+    without it writes, bit for bit, and says so under ``-v``; with
+    ``--shard_table`` to the ring's 4e-7 (tests/test_torch_mesh_ring.py);
+    ``--mesh 3`` on 16 rows falls back to one device with the JAX
+    package's message."""
     monkeypatch.setenv("ENVUTIL_PLATFORM", "cpu")
     env = _env_exr(tmp_path / "env.exr", 32, 16)
-    for extra in (["--mesh", "2"], ["--shard_table"]):
-        with pytest.raises(NotImplementedError,
-                           match=r"^--mesh/--shard_table wait for the "
-                                 r"multi-device slice of the PyTorch port$"):
-            pcli.main(["--input", env, "--output",
-                       str(tmp_path / "o.exr")] + extra)
-    assert not (tmp_path / "o.exr").exists()
+    job = ["--input", env, "--twine", "0", "--width", "32", "--height",
+           "16", "--output"]
+    assert pcli.main(job + [str(tmp_path / "o.exr")]) == 0
+    plain = pio.read_image(str(tmp_path / "o.exr"))
+    assert plain.shape[0] == 16
+    capsys.readouterr()
+    for i, (extra, tol, said) in enumerate((
+            (["--mesh", "4", "-v"], 0.0, "4 devices)"),
+            (["--mesh", "4", "--shard_table", "-v"], 4e-7,
+             "4 devices, ring-sharded tables)"),
+            (["--mesh", "3"], 0.0, "--mesh 3: output height 16 not "
+                                   "divisible by 3; rendering on one"))):
+        out = str(tmp_path / f"o{i}.exr")
+        assert pcli.main(job + [out] + extra) == 0
+        assert said in capsys.readouterr().out
+        np.testing.assert_allclose(pio.read_image(out), plain, rtol=tol,
+                                   atol=tol)

@@ -40,7 +40,7 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'envutil_tpu', 'yaml', 'scipy', "
         "'PyOpenColorIO'))\n"
         "new = ['io.ocio', 'io.colour', 'io.aces', 'io.tiles', "
-        "'runtime.serve', 'runtime.visor']\n"
+        "'runtime.serve', 'runtime.visor', 'parallel.mesh']\n"
         "assert all('envutil_tpu_torch.' + m in sys.modules for m in new)\n"
         "print(len([m for m in sys.modules if m.startswith('envutil_tpu_torch')]))\n"
         "sys.exit('imported: ' + ' '.join(bad) if bad else 0)\n")
