@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [PARENT_ROOT]
 
 Builds the port's kernels from the sources in this checkout (one nvcc
 per source, started together), holds each kernel against its plain
@@ -115,6 +115,18 @@ full-size paths time the default budget beside the direct branch in the
 same run. What share of blocks and pixels stage is printed on a line of
 its own as the plain window model's reckoning (ops/resample.
 window_model), not as a reading of the kernel.
+
+The inline twined kernel takes a spherical source's taps as increments
+from the centre ray's pickup where two or more taps are summed: each of
+its paths prints the share of pixel-taps that take the increment (as
+its plain version counts them), its operations counted for the
+increment beside the count with the full pickup for every tap (the
+bound takes the cheaper), and the kernel's registers and spills. Given
+a parent checkout (``PARENT_ROOT``, e.g. an unpacked ``git archive`` of
+the parent commit), its K4 is built from that checkout's source beside
+this one's and each K4 path (config 4, pole and seam, 16K, 4b, and the
+one-tap launches of config 5c twined) times the two in turns on the
+same operands (``k4_turns``); without one those lines say so.
 
 Every phase runs; any failure raises and the script exits non-zero. It
 exits non-zero without a result when no CUDA card is available. It
@@ -302,6 +314,97 @@ def dtype_turns(name, launch, burst=20):
           f"{out['bf16']['burst_ms'] / out['f32']['burst_ms']:.3f}; "
           f"clocks/power/temp after: {smi_now()}", flush=True)
     return out
+
+
+# The parent checkout's inline twined kernel (``python3 chip_smoke.py
+# PARENT_ROOT``): built from that checkout's own source and headers into
+# this checkout's build directory, launched through this checkout's
+# wrapper (the C entry point is the same), so that K4's times before and
+# after a change are taken in turns on the same operands in one run.
+PARENT = {}
+
+
+def parent_k4_library(root):
+    """K4's library as the checkout at ``root`` builds it."""
+    import pathlib
+    from envutil_tpu_torch.ops import kernels as K
+    from envutil_tpu_torch.ops import resample as R
+    lib = K.Library(R._INLINE_TWINED.source.name, R._INLINE_TWINED.symbols)
+    lib.source = (pathlib.Path(root).resolve() / "envutil_tpu_torch" / "csrc"
+                  / lib.source.name)
+    if not lib.source.exists():
+        raise SystemExit(f"chip_smoke: no {lib.source}")
+    return lib
+
+
+def with_k4_library(lib, fn):
+    """``fn()`` with the inline twined wrapper launching ``lib``."""
+    from envutil_tpu_torch.ops import resample as R
+    saved, R._INLINE_TWINED = R._INLINE_TWINED, lib
+    try:
+        return fn()
+    finally:
+        R._INLINE_TWINED = saved
+
+
+def k4_turns(name, launch, out, burst=20):
+    """K4 of the parent checkout (before) and of this one (after) on the
+    same operands, in turns (before, after, after, before): bursts of
+    ``burst`` launches between two events (median of 5, per launch),
+    after single launches (median of 20) of each; ``launch()`` launches
+    K4 once into ``out``. Also the two outputs' largest difference.
+    Returns a record, or None without a parent checkout."""
+    import torch
+    lib = PARENT.get("k4")
+    if lib is None:
+        print(f"{name}: K4 before/after: not measured (no parent checkout "
+              f"given: python3 chip_smoke.py PARENT_ROOT)", flush=True)
+        return None
+    libs = {"before": lib, "after": None}
+
+    def run(which, fn):
+        return fn() if libs[which] is None \
+            else with_k4_library(libs[which], fn)
+    run("before", launch)
+    torch.cuda.synchronize()
+    old = out.clone()
+    launch()
+    torch.cuda.synchronize()
+    diff = float((out - old).abs().max())
+    del old
+    for _ in range(3):
+        run("before", launch)
+        launch()
+    single = {k: [] for k in libs}
+    bursts = {k: [] for k in libs}
+
+    def many():
+        for _ in range(burst):
+            launch()
+    for which in ("before", "after", "after", "before"):
+        single[which].append(run(which, lambda: events_ms(launch, 20)))
+        bursts[which].append(run(which, lambda: events_ms(many, 5)) / burst)
+    rec = {k: dict(ms=float(np.mean(single[k])),
+                   burst_ms=float(np.mean(bursts[k]))) for k in libs}
+    rec["after_vs_before_max_abs"] = diff
+    print(f"{name}: K4 before (parent checkout) and after, in turns (before,"
+          f" after, after, before): single launches "
+          f"{single['before'][0]:.4f}, {single['after'][0]:.4f}, "
+          f"{single['after'][1]:.4f}, {single['before'][1]:.4f} ms; bursts "
+          f"of {burst}, per launch {bursts['before'][0]:.4f}, "
+          f"{bursts['after'][0]:.4f}, {bursts['after'][1]:.4f}, "
+          f"{bursts['before'][1]:.4f} ms; after / before: single "
+          f"{rec['after']['ms'] / rec['before']['ms']:.3f}, burst "
+          f"{rec['after']['burst_ms'] / rec['before']['burst_ms']:.3f}; "
+          f"outputs differ by {diff:.3e}; clocks/power/temp after: "
+          f"{smi_now()}", flush=True)
+    return rec
+
+
+def share_text(share):
+    return ("every tap through the full pickup" if share is None else
+            f"{100 * share:.3f}% of pixel-taps through the increment (the "
+            f"plain version's count)")
 
 
 def make_facet(projection, w, h, hfov, **kw):
@@ -1010,12 +1113,14 @@ def twined_kernel_vs_plain(plan, src):
     return float(diff.max()), int(edge.sum()), out_p
 
 
-def phase_small_inline_twined(coeff_dtype="f32"):
+def phase_small_inline_twined(coeff_dtype="f32", build=None):
     """Inline twined kernel against its plain version at small shapes,
     on tables of ``coeff_dtype``: {sph, cubemap, biatan6 sources} x {affine, sph, cyl targets} x
     degrees {0, 1, 3} x channels {1, 3, 4} x taps {1, 4, 9} x precise
     {off, on}. The spherical target is pitched so that it holds a pole
-    and the seam of the sph source."""
+    and the seam of the sph source. Prints the share of the sph
+    source's pixel-taps that took the increment pickup and, from
+    ``build`` (``build_report``), the kernel's registers and spills."""
     import dataclasses
     from envutil_tpu_torch.core.conventions import Projection as P
     from envutil_tpu_torch.models import cubemap as CBM
@@ -1029,7 +1134,7 @@ def phase_small_inline_twined(coeff_dtype="f32"):
     for kind, fov in ((P.CUBEMAP, 90), (P.BIATAN6, 100)):
         sources.append((kind.name.lower(), make_facet(
             kind, 32, 192, math.radians(fov)), kind))
-    worst, n_cases, n_edge = 0.0, 0, 0
+    worst, n_cases, n_edge, shares = 0.0, 0, 0, {}
     for sname, fct, kind in sources:
         for degree in (0, 1, 3):
             for nch in (1, 3, 4):
@@ -1061,6 +1166,10 @@ def phase_small_inline_twined(coeff_dtype="f32"):
                             worst = max(worst, err)
                             n_cases += 1
                             n_edge += edge
+                            if kind is None and taps > 1 and degree == 1 \
+                                    and nch == 3:
+                                shares[proj.name.lower()] = \
+                                    inline_twined_bound(plan, src)[7]
         print(f"inline twined vs plain ({coeff_dtype}): {sname} source, "
               f"degrees 0/1/3 x C "
               f"1/3/4 x 3 target modes x taps 1/4/9 x precise off/on: worst "
@@ -1069,6 +1178,18 @@ def phase_small_inline_twined(coeff_dtype="f32"):
           f"{n_edge} pixels with a"
           f" tap within {FACE_EDGE_REL:g} of a face edge excluded; worst "
           f"{worst:.3e}", flush=True)
+    print(f"inline twined ({coeff_dtype}), sph source, degree 1, 3 channels,"
+          f" last of 4 and 9 taps: pixel-taps through the increment (the "
+          f"plain version's count) by target " + ", ".join(f"{k} {100 * v:.2f}%"
+                                 for k, v in shares.items()), flush=True)
+    for kernel, e in (build or {}).items():
+        if kernel.startswith("resample_inline_twined_kernel"):
+            print(f"inline twined ({coeff_dtype}): {kernel} registers "
+                  f"{e['registers']} (bf16 {e['registers_bf16']}), "
+                  f"{e['spilling']} of {e['instantiations']} "
+                  f"instantiations spill (most {e['worst_spill_bytes']} "
+                  f"bytes), stack frame up to {e['stack_bytes']} bytes",
+                  flush=True)
     return worst
 
 
@@ -1553,21 +1674,30 @@ def twined_inline_path(name, plan, src, reference=None):
         buf, coeff, *tensors, **kw), 3)
     frame_ms = events_ms(lambda: FP.fused_frame(plan, src, out=buf), 20)
     n_px = plan.height * plan.width
-    _b, by, bytes_ms, ops_ms, table = inline_twined_bound(plan, src)
+    bound, by, bytes_ms, ops_ms, table, inc_ms, full_ms, share = \
+        inline_twined_bound(plan, src)
     print(f"{name}: steady-state frame (fused_frame into one reused buffer,"
           f" median of 20) {frame_ms:.4f} ms = {n_px / 1e3 / frame_ms:.1f} "
           f"Mpix/s; kernel alone {kernel_ms:.4f} ms; plain version "
-          f"{plain_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.4f} ms by {by} "
+          f"{plain_ms:.3f} ms; bound {bound:.4f} ms by {by} "
           f"(table bytes under all taps {table / 1e6:.1f} MB of "
           f"{coeff.numel() * coeff.element_size() / 1e6:.1f} MB; bytes "
-          f"{bytes_ms:.4f} ms, "
-          f"operations {ops_ms:.4f} ms); peak device memory of the first "
+          f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms, the cheaper of "
+          f"{full_ms:.4f} ms with the full pickup for every tap and "
+          + ("no increment" if inc_ms is None else
+             f"{inc_ms:.4f} ms as the kernel takes the pickup") + "); "
+          f"{share_text(share)}; peak device memory of the first "
           f"frame {peak / 2**20:.1f} MiB; clocks/power/temp after: "
           f"{smi_now()}", flush=True)
+    turns = k4_turns(name, lambda: R.resample_inline_twined(
+        buf, coeff, *tensors, **kw), buf)
     rec = dict(taps=taps, launches=n["resample_inline_twined"],
                max_abs_err=err_k, ms=kernel_ms, plain_ms=plain_ms,
-               frame_ms=frame_ms, bound_ms=max(bytes_ms, ops_ms),
-               bound_by=by, peak_mib=peak / 2**20,
+               frame_ms=frame_ms, bound_ms=bound, bound_by=by,
+               ops_ms=ops_ms, increment_ops_ms=inc_ms,
+               full_pickup_ops_ms=full_ms,
+               increment_share=share, before_after=turns,
+               peak_mib=peak / 2**20,
                vs_exact={k: v[0] for k, v in errs.items()},
                region_px={k: v[1] for k, v in errs.items()})
     if db is not None:
@@ -1575,32 +1705,73 @@ def twined_inline_path(name, plan, src, reference=None):
     return rec
 
 
+# Rough float operations of the twined inline kernel's increment pickup
+# (ops/resample.increment_coords), counted as inline_bound counts (an
+# atan2 20, a square root or a reciprocal 1): per pixel the centre's
+# pickup (rho0^2 3, its root, two atan2); per tap up to the tests the
+# deflection 3, the longitude's dot and cross products 7 and its
+# reciprocal and product 2, rho 4, drho 8, the latitude's dot and cross
+# products 6 and its reciprocal and product 2 (32); then two small
+# atans (8 each), the sums with lon0 and lat0 2, two gate affines 4, two
+# unwrapped gates 4 and the pad 2 (60 in all). A tap that falls back
+# pays the 32 and the full pickup.
+CENTRE_FLOPS = 44
+INCREMENT_TEST_FLOPS = 32
+INCREMENT_FLOPS = 60
+
+
 def inline_twined_bound(plan, src):
-    """(bound ms, 'bytes'/'operations', bytes ms, ops ms, touched bytes)
-    of one inline twined launch over the plan's frame: the table entries
-    under all taps, counted once, the output and the features; per
-    pixel three rays, their normalisation and differencing, per tap the
-    deflection, the pickup, the spline and the weighted sum."""
+    """(bound ms, 'bytes'/'operations', bytes ms, ops ms, touched bytes,
+    the increment's ops ms, the full pickup's ops ms, the share of
+    pixel-taps through the increment) of one inline twined launch over
+    the plan's frame: the table entries under all taps, counted once,
+    the output and the features; per pixel three rays, their
+    normalisation and differencing, per tap the deflection, the pickup,
+    the spline and the weighted sum. The pickup is counted two ways, as
+    the kernel takes it (the increment where the plain version's taps
+    take it, with the centre's pickup per pixel, the full pickup where
+    they fall back; None for one tap or a cube source) and with the full
+    pickup for every tap; the bound takes the cheaper, as both compute
+    the same function. The share is the plain version's
+    (``inline_tap_coords``), None where every tap takes the full
+    pickup."""
     from envutil_tpu_torch.ops import resample as R
     tensors, kw = twined_inline_operands(plan, src)
     coeff, n_deg, nch = src.spl.coeff, src.spl.degree, src.spl.coeff.shape[-1]
     n_px = plan.height * plan.width
-    coords = [(sx, sy) for sx, sy, _w in R.inline_tap_coords(
-        *tensors, tmode=kw["tmode"], consts=kw["consts"], row0=kw["row0"],
-        face_rows=kw["face_rows"], smode=kw["smode"], precise=kw["precise"])]
+    coords, taken = [], []
+    for sx, sy, _w, plane in R.inline_tap_coords(
+            *tensors, tmode=kw["tmode"], consts=kw["consts"],
+            row0=kw["row0"], face_rows=kw["face_rows"], smode=kw["smode"],
+            precise=kw["precise"]):
+        coords.append((sx, sy))
+        taken.append(None if plane is None else int(plane.sum()))
     table = touched_bytes(coeff, *coords[0], n_deg, coords[1:])
     del coords
     feat = sum(t.numel() * 4 for t in tensors)
     bytes_ms = (table + n_px * nch * 4 + feat) / HBM_BYTES_PER_S * 1e3
     # per pixel: three rays (15 flops each), their normalisation (12
     # each) and differencing (6); per tap: the deflection (12), the
-    # pickup as for the inline kernel, the spline and the weighted sum
+    # pickup, the spline and the weighted sum
     src_flops = {"sph": 53, "cubemap": 20, "biatan6": 60}[kw["smode"]]
-    ops_ms = n_px * (3 * 27 + 6 + kw["n_taps"] * (
-        12 + src_flops + spline_flops(n_deg, nch) + 2 * nch)) \
+    n_taps = kw["n_taps"]
+    per_px = 3 * 27 + 6
+    per_tap = 12 + spline_flops(n_deg, nch) + 2 * nch
+    full_ms = n_px * (per_px + n_taps * (per_tap + src_flops)) \
         / F32_FLOPS * 1e3
+    inc_ms, share = None, None
+    if taken[0] is not None:
+        n_taken = sum(taken)
+        n_fall = n_px * n_taps - n_taken
+        share = n_taken / (n_px * n_taps)
+        inc_ms = (n_px * (per_px + CENTRE_FLOPS + n_taps * per_tap)
+                  + n_taken * INCREMENT_FLOPS
+                  + n_fall * (INCREMENT_TEST_FLOPS + src_flops)) \
+            / F32_FLOPS * 1e3
+    ops_ms = full_ms if inc_ms is None else min(full_ms, inc_ms)
     by = "bytes" if bytes_ms >= ops_ms else "operations"
-    return max(bytes_ms, ops_ms), by, bytes_ms, ops_ms, table
+    return (max(bytes_ms, ops_ms), by, bytes_ms, ops_ms, table, inc_ms,
+            full_ms, share)
 
 
 def live_tap_table(coeff, n, ops, spread):
@@ -2226,6 +2397,11 @@ def stitch_path(name, rng, coeff_dtype="f32", twine=0):
         FP.multi_frame(plan, sources)
     for f in [k for k, _b in kernels] + into + [combine, whole]:
         f()
+    turns = None
+    if kernel == "resample_inline_twined":
+        # the first facet's one-tap K4 launch, before and after
+        turns = k4_turns(f"{name}, facet 0's one-tap launch",
+                         kernels[0][0], stack[0])
     kernel_ms = [events_ms(k, 10) for k, _b in kernels]
     into_ms = [events_ms(f, 10) for f in into]
     combine_ms = events_ms(combine, 10)
@@ -2268,7 +2444,8 @@ def stitch_path(name, rng, coeff_dtype="f32", twine=0):
                 combine_ms=combine_ms, combine_bound_ms=combine_bound,
                 frame_ms=frame_ms, frame_bound_ms=frame_bound,
                 combine_share=share, peak_mib=peak,
-                stack_mib=stack_bytes / 2**20, builds=builds)
+                stack_mib=stack_bytes / 2**20, builds=builds,
+                k4_before_after=turns)
 
 
 def one_tap_stitch(rng):
@@ -2947,6 +3124,9 @@ def surface_phases():
                 entry.update(t_render_ms=hdr["t_render"],
                              to_screen_ms=(time.perf_counter() - t0) * 1e3,
                              taps=len(plan_i.spread or ((0, 0, 1),)))
+                if plan_i.spread is not None:
+                    entry["increment_share"] = inline_twined_bound(
+                        plan_i, srcs_i[0])[7]
                 check(hdr["serial_no"] == i and np.array_equal(frame, screen),
                       f"serve request {i}: the frame differs from "
                       "to_screen(render_frame(...))")
@@ -3347,7 +3527,9 @@ def build_report():
     {kernel: {...}}."""
     from envutil_tpu_torch.ops import resample as R
     report = {}
-    for lib in R.LIBRARIES:
+    libs = [(lib, "") for lib in R.LIBRARIES] + \
+        [(lib, " (parent)") for lib in PARENT.values()]
+    for lib, suffix in libs:
         entry = None
         for line in lib.build_log.splitlines():
             if "Compiling entry function" in line:
@@ -3356,9 +3538,9 @@ def build_report():
                 # (f, or 13__nv_bfloat16)
                 args = re.search(r"kernelI((?:Li\d+E)+)(\w+?)E", line)
                 entry = report.setdefault(
-                    name.group(1) if name else line,
+                    (name.group(1) if name else line) + suffix,
                     dict(source=lib.source.name, regs=[], spills=[],
-                         regs_bf16=[]))
+                         regs_bf16=[], stack=[0]))
                 bf16 = bool(args) and "bfloat16" in args.group(2)
                 targs = "<" + ", ".join(re.findall(
                     r"Li(\d+)E", args.group(1) if args else "")
@@ -3369,11 +3551,14 @@ def build_report():
                 entry["regs"].append(regs)
                 if targs.endswith("bf16>"):
                     entry["regs_bf16"].append(regs)
-            elif entry is not None and "bytes spill stores" in line and \
-                    "0 bytes spill stores, 0 bytes spill loads" not in line:
-                entry["spills"].append((int(line.split(
-                    "bytes stack frame, ")[1].split(" bytes spill stores")[0]),
-                    targs))
+            elif entry is not None and "bytes stack frame" in line:
+                entry["stack"].append(int(
+                    line.split(" bytes stack frame")[0].split()[-1]))
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+            if entry is not None and spill and spill.group(0) != \
+                    "0 bytes spill stores, 0 bytes spill loads":
+                entry["spills"].append((int(spill.group(1)), targs))
     for kernel, e in report.items():
         worst = max(e["spills"], default=(0, "-"))
         n_bf16 = sum(t.endswith("bf16>") for _b, t in e["spills"])
@@ -3393,6 +3578,7 @@ def build_report():
                     spilling=len(e["spills"]),
                     spilling_bf16=sum(t.endswith("bf16>")
                                       for _b, t in e["spills"]),
+                    stack_bytes=max(e["stack"]),
                     worst_spill_bytes=max(e["spills"], default=(0, ""))[0])
             for k, e in report.items()}
 
@@ -3419,7 +3605,13 @@ def main():
                           capture_output=True, text=True, check=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}", flush=True)
+    if len(sys.argv) > 1:
+        # K4 of a parent checkout, built beside this checkout's kernels
+        PARENT["k4"] = parent_k4_library(sys.argv[1])
+        PARENT["k4"].start()
     build_s = R.build()
+    for lib in PARENT.values():
+        lib.load()
     build = build_report()
     print(f"kernel build, {len(R.LIBRARIES)} sources in parallel: "
           f"{build_s:.1f} s wall", flush=True)
@@ -3428,7 +3620,7 @@ def main():
     # ---- 2. kernels against plain versions at small shapes ------------
     worst_inline = phase_small_inline()
     worst_planar = phase_small_planar()
-    worst_inline_twined = phase_small_inline_twined()
+    worst_inline_twined = phase_small_inline_twined(build=build)
     worst_twined = phase_small_twined()
     worst_chain, chain_edge_px = phase_small_chain()
     phase_small_combine()

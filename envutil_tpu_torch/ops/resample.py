@@ -535,16 +535,116 @@ def inline_tap_rays(xfeat, yfeat, bmats, spread, *, tmode: str,
         yield SYN.deflect(p0, du, dv, cx, cy), w
 
 
+# The twined kernel's increment pickup (a spherical source, two or more
+# taps): a tap's longitude and latitude are the centre ray's plus the
+# angle of the tap's deflection, the atan of a ratio of cross and dot
+# products, by an odd polynomial where the ratio's size is at most
+# INCREMENT_TAU (float32-exact there: the first term left out, t^9/9,
+# is below 3e-11 of t); every other tap takes the full pickup.
+INCREMENT_TAU = 1.0 / 16.0
+_ATAN_C3, _ATAN_C5, _ATAN_C7 = (float(torch.tensor(c, dtype=torch.float32))
+                                for c in (-1.0 / 3.0, 1.0 / 5.0, -1.0 / 7.0))
+_PI_F = float(torch.tensor(math.pi, dtype=torch.float32))
+
+
+def atan_small(t):
+    """atan(t) for |t| <= INCREMENT_TAU: t + t (s (c3 + s (c5 + s c7))),
+    s = t^2, rounded step by step as the kernel rounds it."""
+    s = t * t
+    q = _ATAN_C3 + s * (_ATAN_C5 + s * _ATAN_C7)
+    return t + t * (s * q)
+
+
+def gate_in_range(v, mode: str, lower: float, upper: float):
+    """(inside, value): where the twined kernel's gate takes its branch
+    without a division (a periodic or mirror gate whose u = v - lower
+    lies in [0, period): nothing wraps) and what it returns there,
+    lower + u (mirror: lower + min(u, period - u)), ``_gate``'s value
+    bit for bit. ``inside`` is all False for the other gates."""
+    if mode not in ("periodic", "mirror"):
+        return torch.zeros_like(v, dtype=torch.bool), v
+    period = float(torch.tensor(upper, dtype=torch.float32)
+                   - torch.tensor(lower, dtype=torch.float32))
+    if mode == "mirror":
+        period *= 2.0
+    u = v - lower
+    inside = (u >= 0) & (u < period)
+    if mode == "mirror":
+        u = torch.minimum(u, period - u)
+    return inside, lower + u
+
+
+def _gate_unwrapped(v, mode: str, lower: float, upper: float):
+    inside, value = gate_in_range(v, mode, lower, upper)
+    return torch.where(inside, value, _gate(v, mode, lower, upper))
+
+
+def increment_coords(p0, d, *, consts: tuple):
+    """The twined kernel's increment pickup of a tap's ray p0 + d, ``d``
+    its deflection cx du + cy dv from the normalised centre ray ``p0``,
+    for a spherical source, in float32 rounded step by step (the kernel
+    fuses multiply-adds and takes approximate reciprocals: the two agree
+    to a few ulp of the increments): (sx, sy, taken), the padded spline
+    coordinates and the (H, W) plane of the pixels whose tap took the
+    increment; the others hold ``ray_coords`` of the ray.
+
+    Longitude: tan(lon - lon0) = (z0 dx - x0 dz) / (rho0^2 + x0 dx +
+    z0 dz). Latitude, in the (rho, y) plane: drho = (2 (x0 dx + z0 dz) +
+    dx^2 + dz^2) / (rho + rho0) and tan(lat - lat0) = (rho0 dy - y0 drho)
+    / (rho0 rho + y0 y). No numerator subtracts two products of full
+    rays, so none cancels. A tap whose dot product is <= 0 or whose
+    tangent exceeds INCREMENT_TAU takes the full pickup: at or next to a
+    pole, and for coarse output pixels."""
+    (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts[:11]
+    x0, y0, z0 = p0
+    dx, dy, dz = d
+    xk, yk, zk = x0 + dx, y0 + dy, z0 + dz
+    rho2 = x0 * x0 + z0 * z0
+    rho0 = torch.sqrt(rho2)
+    lon0 = torch.atan2(x0, z0)
+    lat0 = torch.atan2(y0, rho0)
+    s = x0 * dx + z0 * dz
+    dot = rho2 + s
+    t = (z0 * dx - x0 * dz) * torch.reciprocal(dot)
+    rho = torch.sqrt(xk * xk + zk * zk)
+    drho = (2.0 * s + dx * dx + dz * dz) * torch.reciprocal(rho + rho0)
+    dot_l = rho0 * rho + y0 * yk
+    t_l = (rho0 * dy - y0 * drho) * torch.reciprocal(dot_l)
+    taken = (dot > 0) & (dot_l > 0) & (t.abs() <= INCREMENT_TAU) \
+        & (t_l.abs() <= INCREMENT_TAU)
+    # lon0 + dlon may pass +-pi, where atan2 would have wrapped
+    lon = lon0 + atan_small(t)
+    lon = torch.where(lon > _PI_F, lon - 2.0 * _PI_F,
+                      torch.where(lon < -_PI_F, lon + 2.0 * _PI_F, lon))
+    lat = lat0 + atan_small(t_l)
+    sx = _gate_unwrapped(lon * kx + cx, gate_x, glx, gux) + pad
+    sy = _gate_unwrapped(lat * ky + cy, gate_y, gly, guy) + pad
+    fx, fy = ray_coords(xk, yk, zk, consts=consts)
+    return torch.where(taken, sx, fx), torch.where(taken, sy, fy), taken
+
+
 def inline_tap_coords(xfeat, yfeat, bmats, spread, *, tmode: str,
                       consts: tuple, row0: int = 0, face_rows: int = 0,
                       smode: str = "sph", precise: bool = False):
-    """Per tap of the spread, (sx, sy, w): the padded spline coordinates
-    of every pixel's deflected ray and the tap's weight."""
-    for ray, w in inline_tap_rays(xfeat, yfeat, bmats, spread, tmode=tmode,
-                                  row0=row0, face_rows=face_rows,
-                                  precise=precise):
-        sx, sy = ray_coords(*ray, consts=consts, smode=smode)
-        yield sx, sy, w
+    """Per tap of the spread, (sx, sy, w, taken): the padded spline
+    coordinates of every pixel's deflected ray and the tap's weight, as
+    the twined kernel computes them, and the (H, W) plane of the pixels
+    whose tap took the increment pickup (``increment_coords``: a
+    spherical source and two or more taps, the ray p0 + (cx du + cy dv)),
+    None where the launch takes the full pickup of ``inline_tap_rays``'
+    ray for every tap."""
+    p0, p10, p01 = inline_ninepack(xfeat, yfeat, bmats, tmode=tmode,
+                                   row0=row0, face_rows=face_rows)
+    du, dv = SYN.derivative_rays(p0, p10, p01, precise)
+    incremental = smode == "sph" and spread.numel() >= 6
+    for cx, cy, w in spread.reshape(-1, 3).tolist():
+        if incremental:
+            d = tuple(cx * u + cy * v for u, v in zip(du, dv))
+            sx, sy, taken = increment_coords(p0, d, consts=consts)
+        else:
+            (sx, sy), taken = ray_coords(*SYN.deflect(p0, du, dv, cx, cy),
+                                         consts=consts, smode=smode), None
+        yield sx, sy, w, taken
 
 
 def resample_inline_twined_plain(out, coeff, xfeat, yfeat, bmats, spread, *,
@@ -554,9 +654,10 @@ def resample_inline_twined_plain(out, coeff, xfeat, yfeat, bmats, spread, *,
                                  precise: bool = False):
     """The twined kernel's computation in plain PyTorch, with its
     signature: the three ``inline_rays`` grids normalised, the derivative
-    rays, and per tap the deflected ray's pickup and ``eval_spline``
-    (ungated, each tap of a bf16 table upcast) on the padded table. Runs
-    on any device."""
+    rays, and per tap the deflected ray's pickup (``inline_tap_coords``:
+    the increment from the centre ray's for a spherical source with two
+    or more taps) and ``eval_spline`` (ungated, each tap of a bf16 table
+    upcast) on the padded table. Runs on any device."""
     _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
            row0, face_rows, smode, sets=2)
     _spread_taps(spread, n_taps, out.device)
@@ -564,7 +665,7 @@ def resample_inline_twined_plain(out, coeff, xfeat, yfeat, bmats, spread, *,
                        bcs=(S.CONSTANT, S.CONSTANT),
                        core_shape=tuple(coeff.shape[:2]))
     acc = None
-    for sx, sy, w in inline_tap_coords(
+    for sx, sy, w, _taken in inline_tap_coords(
             xfeat, yfeat, bmats, spread, tmode=tmode, consts=consts,
             row0=row0, face_rows=face_rows, smode=smode, precise=precise):
         term = w * S.eval_spline(table, sx, sy, apply_gate=False)
