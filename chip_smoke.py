@@ -94,6 +94,25 @@ Both chain forms' score outputs are held against their plain versions
 over every small chain case (the twined one at one tap), with the
 pixels required bit-equal to the launch without it.
 
+The compact grid: the chain forms launch over a block list, the 32x8
+blocks their rays can reach, which a coverage pass (chain_blocks,
+csrc/chain_blocks.cu) builds once per plan. Every small chain case whose
+source does not cover every ray holds the coverage kernel's list
+against its plain version (the blocks that differ counted) and its
+launch on that list against the full-window launch. At full size
+(``compact_path``: configs 5, 5b, 5 with alpha, 5d, the lens facet
+untwined and twined, the lens and translated stitch untwined and
+twined, 5d at 2x2, 2x1 and one tap, 5 with alpha twined and 5b with
+crops) every launch of the frame on its list is held bit for bit
+against the same kernel over the whole window, pixels and score, and
+the frame against the frame with every launch over the whole window
+(``full_window``); the two are timed in turns, launches and frames,
+single and in bursts, beside the share of blocks listed per facet, the
+coverage pass's time against its plain version and bound, and the
+first ``render_frame``. The --mesh frames of configs 5 and 5d twined
+are held to their full-window frames as well, and launch nothing in
+the bands their facets do not reach.
+
 bf16 tables (--coeff bf16): every small phase runs its cases again on
 bfloat16 tables (each kernel against its plain version on the same
 table, the inline kernel's two branches bit-equal), and the main path,
@@ -136,6 +155,7 @@ launches on the --mesh cases under ``mesh``); the last line is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import math
 import re
@@ -360,32 +380,20 @@ def k4_turns(name, launch, out, burst=20):
         print(f"{name}: K4 before/after: not measured (no parent checkout "
               f"given: python3 chip_smoke.py PARENT_ROOT)", flush=True)
         return None
-    libs = {"before": lib, "after": None}
 
-    def run(which, fn):
-        return fn() if libs[which] is None \
-            else with_k4_library(libs[which], fn)
-    run("before", launch)
+    def before():
+        with_k4_library(lib, launch)
+    before()
     torch.cuda.synchronize()
     old = out.clone()
     launch()
     torch.cuda.synchronize()
     diff = float((out - old).abs().max())
     del old
-    for _ in range(3):
-        run("before", launch)
-        launch()
-    single = {k: [] for k in libs}
-    bursts = {k: [] for k in libs}
-
-    def many():
-        for _ in range(burst):
-            launch()
-    for which in ("before", "after", "after", "before"):
-        single[which].append(run(which, lambda: events_ms(launch, 20)))
-        bursts[which].append(run(which, lambda: events_ms(many, 5)) / burst)
-    rec = {k: dict(ms=float(np.mean(single[k])),
-                   burst_ms=float(np.mean(bursts[k]))) for k in libs}
+    rec = dict(zip(("before", "after"),
+                   ab_turns(before, launch, burst=burst)))
+    single = {k: rec[k].pop("turns") for k in rec}
+    bursts = {k: rec[k].pop("burst_turns") for k in rec}
     rec["after_vs_before_max_abs"] = diff
     print(f"{name}: K4 before (parent checkout) and after, in turns (before,"
           f" after, after, before): single launches "
@@ -831,7 +839,7 @@ def band_errors(plan, src, frame, bands, ir_edges):
 
 WRAPPERS = ("resample_inline", "resample_planar", "resample_planar_chain",
             "resample_inline_twined", "resample_twined",
-            "resample_twined_chain")
+            "resample_twined_chain", "chain_blocks")
 
 
 def launch_counts(fn):
@@ -1540,9 +1548,13 @@ def phase_small_chain(coeff_dtype="f32"):
     spreads = list(small_spreads().values())
     one_taps = [[(0.25, 0.0, 1.0)], [(-0.125, 0.375, 1.0)],
                 [(0.5, -0.25, 1.0)]]
+    from envutil_tpu_torch.runtime import fastpath as FP
     worst = {"planar": 0.0, "twined": 0.0, "score": 0.0,
              "twined score": 0.0}
     edges = {"planar": [0, 0], "twined": [0, 0]}
+    # the coverage pass: cases, blocks differing from the plain version's,
+    # blocks listed, blocks of the windows
+    cover = [0, 0, 0, 0]
     i = 0
     for sname, kind, sw, sh, shfov, kw in CHAIN_SOURCES:
         for tname, w, h, hfov, ypr in CHAIN_TARGETS:
@@ -1564,6 +1576,11 @@ def phase_small_chain(coeff_dtype="f32"):
                 worst[form] = max(worst[form], err)
                 edges[form][0] += n_edge
                 edges[form][1] += n_flip
+                if not FP._covers_every_ray(src):
+                    cover = [a + b for a, b in zip(
+                        cover, (1,) + cover_case(
+                            p, src, f"{form} {sname} -> {tname}, "
+                            f"{coeff_dtype}"))]
             err = chain_score_vs_plain(plan, src)[0]
             check(err <= SCORE_BOUND, f"planar chain kernel's score "
                   f"({sname} -> {tname}) disagrees: {err}")
@@ -1589,6 +1606,12 @@ def phase_small_chain(coeff_dtype="f32"):
               f"(bound {KERNEL_BOUND:g}); {edges[form][0]} px at a window "
               f"or face edge excluded, {edges[form][1]} of them with the "
               f"coverage flipped", flush=True)
+    print(f"coverage pass vs plain ({coeff_dtype}): {cover[0]} cases "
+          f"(untwined and twined, partial sources), {cover[1]} blocks in one "
+          f"list and not the other (none allowed), {cover[2]} of {cover[3]} "
+          f"blocks listed; every launch on the kernel's list bit-equal to the full-window "
+          f"launch, nothing written outside it", flush=True)
+    worst["cover cases"], worst["cover differing blocks"] = cover[:2]
     return worst, edges
 
 
@@ -1833,7 +1856,10 @@ def twined_planar_path(name, plan, src):
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.runtime import fastpath as FP
     taps = len(plan.spread)
-    frame, _ms, n = render(plan, src, name, want={"resample_twined_chain": 1})
+    listed = not FP._covers_every_ray(src)
+    frame, first_ms, n = render(plan, src, name,
+                                want={"resample_twined_chain": 1,
+                                      "chain_blocks": int(listed)})
     peak = torch.cuda.max_memory_allocated()
     ops = FP.chain_operands(plan, src)
     ctens = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats", "spread")]
@@ -1890,7 +1916,11 @@ def twined_planar_path(name, plan, src):
           f"pixel-taps, output; bytes {bound[2]:.4f} ms, operations "
           f"{bound[3]:.4f} ms): kernel {100 * bound[0] / kernel_ms:.0f}%, "
           f"frame {100 * bound[0] / frame_ms:.0f}%", flush=True)
+    compact = None
+    if listed and "bf16" not in name:
+        compact = compact_path(name, plan, [src], first_ms)
     return dict(taps=taps, launches=n["resample_twined_chain"],
+                compact=compact,
                 max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                 frame_ms=frame_ms, bound_ms=bound[0], bound_by=bound[1],
                 edge_px=n_edge, peak_mib=peak / 2**20, covered=covered,
@@ -2022,6 +2052,311 @@ def pto_cuts(i, w, h):
             i, 0, [0.10 * w, 0.35 * w, 0.30 * w, 0.08 * w],
             [0.12 * h, 0.10 * h, 0.40 * h, 0.45 * h])])
     return kw
+
+
+# ------------------------------------------------ the compact grid
+
+# the compact-grid records by job (``compact_path``)
+COMPACT = {}
+
+
+@contextlib.contextmanager
+def full_window():
+    """Every chain launch over its whole window while the block is
+    active: ``fastpath.block_list`` answers None, as it does for a source
+    that covers every ray. The comparison and timing of the compact grid
+    against full-window launches use it; the program has no such
+    switch."""
+    from envutil_tpu_torch.runtime import fastpath as FP
+    listed = FP.block_list
+    FP.block_list = lambda plan, src: None
+    try:
+        yield
+    finally:
+        FP.block_list = listed
+
+
+def ab_turns(fa, fb, single=20, bursts=5, burst=20):
+    """``fa`` and ``fb`` timed in turns (a, b, b, a): single calls between
+    two events (median of ``single``) and bursts of ``burst`` calls
+    between two events (median of ``bursts``, per call). Returns
+    ({"ms", "burst_ms", "turns", "burst_turns"} of a, of b): the mean of
+    its two turns, and the two turns in order."""
+    for _ in range(2):
+        fa()
+        fb()
+    got = {"a": ([], []), "b": ([], [])}
+    for k, f in (("a", fa), ("b", fb), ("b", fb), ("a", fa)):
+        got[k][0].append(events_ms(f, single))
+
+        def many(f=f):
+            for _ in range(burst):
+                f()
+        got[k][1].append(events_ms(many, bursts) / burst)
+    return tuple(dict(ms=float(np.mean(got[k][0])),
+                      burst_ms=float(np.mean(got[k][1])), turns=got[k][0],
+                      burst_turns=got[k][1]) for k in "ab")
+
+
+def cover_lists(fplan, src, what):
+    """The coverage pass of a facet plan's chain launches on the card
+    (``fastpath.cover_operands``, as ``fastpath.block_list`` takes them)
+    against its plain version: the two lists must hold the same blocks
+    (every measured case has; a wider list would pass the launch check
+    unseen). Returns (features, keywords, the kernel's list, the plain
+    version's, the blocks in one list and not the other)."""
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    feats, kw = FP.cover_operands(fplan, src)
+    got = R.chain_blocks(*feats, **kw)
+    want = R.chain_blocks_plain(*feats, **kw)
+    differ = len(set(got.tolist()) ^ set(want.tolist()))
+    check(differ == 0, f"{what}: the coverage kernel's block list differs "
+          f"from its plain version's in {differ} blocks ({got.numel()} "
+          f"against {want.numel()} listed)")
+    return feats, kw, got, want, differ
+
+
+def cover_bound(feats, kw):
+    """(bound ms, 'bytes'/'operations') of one coverage pass, counted
+    from this run's data: per pixel the chain the kernel runs (untwined:
+    one ray, its normalisation and the pickup with its window test;
+    twined: three rays, the derivative rays, and the deflection and
+    window test of each tap up to the first that passes, the plain
+    version's taps); bytes: the features read and the flags and the
+    list written once."""
+    import torch
+    from envutil_tpu_torch.ops import resample as R
+    h, w = feats[1].shape[1], feats[0].shape[1]
+    nby, nbx = R.block_grid(h, w)
+    chain = TARGET_FLOPS[kw["tmode"]] + 12
+    test = pickup_flops(kw["pick"])
+    if "spread" not in kw:
+        ops = h * w * (chain + test)
+    else:
+        tw = R.twined_chain_operands(*feats, kw["spread"], **{
+            k: kw[k] for k in ("tmode", "pick", "row0", "face_rows",
+                               "precise")}, tap_valid=True)["tap_weights"]
+        hit = tw.bool()
+        first = torch.where(hit.any(0), hit.to(torch.uint8).argmax(0) + 1,
+                            kw["n_taps"])
+        ops = h * w * (3 * chain + (21 if kw["precise"] else 6)) \
+            + int(first.sum()) * (12 + test)
+    moved = sum(t.numel() * 4 for t in feats) + nby * nbx * (1 + 4)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
+        else "operations"
+
+
+def cover_device_ms(feats, kw, burst=20):
+    """The coverage pass's three kernels without the wrapper: its C
+    entry point called ``burst`` times between two events, the count
+    never read back (median of 5, per pass), which leaves the card's
+    own time."""
+    import torch
+    from envutil_tpu_torch.ops import resample as R
+    fn = R._BLOCKS.get("envutil_chain_blocks")
+    h, w = feats[1].shape[1], feats[0].shape[1]
+    nby, nbx = R.block_grid(h, w)
+    n = nby * nbx
+    flags = torch.empty(2 * n, dtype=torch.uint8, device="cuda")
+    listed = torch.empty(n + 1, dtype=torch.int32, device="cuda")
+    ints, floats = R._pickup_arrays(kw["pick"])
+    spread = kw.get("spread")
+    args = (flags.data_ptr(), listed.data_ptr(), listed[n:].data_ptr(),
+            *(f.data_ptr() for f in feats),
+            None if spread is None else spread.data_ptr(), ints, floats, h,
+            w, int(kw["row0"]), int(kw["face_rows"]),
+            R._CHAIN_TMODES[kw["tmode"]], int(kw.get("n_taps", 0)),
+            int(kw.get("precise", False)),
+            torch.cuda.current_stream().cuda_stream)
+
+    def passes():
+        for _ in range(burst):
+            check(fn(*args) == 0, "the coverage pass failed to launch")
+    passes()
+    return events_ms(passes, 5) / burst
+
+
+def cover_vs_plain(fplan, src, what):
+    """The coverage pass of one facet's chain launches on the card: the
+    kernel's list against its plain version (``cover_lists``), its time
+    as a plan builds it (median of 10, the wrapper and the count's read
+    back included), its kernels' time in bursts (``cover_device_ms``),
+    the plain version's time (median of 3), and its bound. Returns the
+    record."""
+    from envutil_tpu_torch.ops import resample as R
+    feats, kw, got, want, differ = cover_lists(fplan, src, what)
+    ms = events_ms(lambda: R.chain_blocks(*feats, **kw), 10)
+    plain_ms = events_ms(lambda: R.chain_blocks_plain(*feats, **kw), 3)
+    bound, by = cover_bound(feats, kw)
+    return dict(blocks=got.numel(), plain_blocks=want.numel(),
+                differing_blocks=differ, max_abs_err=float(differ > 0),
+                ms=ms, device_ms=cover_device_ms(feats, kw),
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                twined="spread" in kw)
+
+
+def listed_vs_full(fplan, src, scored, h, w, blocks=None):
+    """One chain launch of a facet plan on its block list (``blocks``,
+    by default ``fastpath.block_list``'s), after the fill with 0 (and
+    LOWEST), against the same kernel over the whole window on a NaN
+    canvas: pixels and score required bit-equal, and no pixel outside
+    the list written as other than 0 by the full-window launch. Returns
+    (listed launch, full-window launch) as callables on their own
+    buffers, for timing."""
+    import torch
+    from envutil_tpu_torch.models import synopsis as SYN
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    coeff = src.spl.coeff
+    twined = fplan.spread is not None
+    kernel = R.resample_twined_chain if twined else R.resample_planar_chain
+    ops = FP.chain_operands(fplan, src)
+    tens = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")
+            + (("spread",) if twined else ())]
+    if blocks is None:
+        blocks = FP.block_list(fplan, src)
+    shape = (h, w, coeff.shape[-1])
+    full = torch.full(shape, float("nan"), device="cuda")
+    fsc = torch.full(shape[:2], float("nan"), device="cuda") \
+        if scored else None
+    lst = torch.zeros(shape, device="cuda")
+    lsc = torch.full(shape[:2], SYN.LOWEST, device="cuda") \
+        if scored else None
+    rs = src.static.recip_step
+
+    def listed():
+        kernel(lst, coeff, *tens, score=lsc, recip_step=rs, blocks=blocks,
+               **ops)
+
+    def whole():
+        kernel(full, coeff, *tens, score=fsc, recip_step=rs, **ops)
+    listed()
+    whole()
+    torch.cuda.synchronize()
+    if blocks is not None:
+        outside = ~R.block_pixels(blocks, h, w)
+        check(not bool((full[outside] != 0).any()), f"{kernel.__name__} "
+              f"writes a pixel outside its block list")
+    check(torch.equal(lst, full), f"{kernel.__name__} on its block list "
+          f"differs from the full-window launch")
+    check(not scored or torch.equal(lsc, fsc), f"{kernel.__name__}'s score "
+          f"on its block list differs from the full-window launch's")
+    return listed, whole
+
+
+def cover_case(plan, src, what):
+    """A small chain job's coverage pass on the card against its plain
+    version (``cover_lists``) and its launch on the kernel's list against
+    the full-window launch (``listed_vs_full``): returns (the blocks in
+    one list and not the other, the kernel's listed blocks, the window's
+    blocks)."""
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    got, differ = cover_lists(plan, src, what)[2::2]
+    y0, y1, x0, x1 = FP.frame_window(plan)
+    h, w = y1 - y0, x1 - x0
+    listed_vs_full(plan, src, False, h, w, blocks=got)
+    nby, nbx = R.block_grid(h, w)
+    return differ, got.numel(), nby * nbx
+
+
+def compact_path(name, plan, sources, first_ms=None):
+    """The compact grid of one job whose block lists its first
+    render_frame built: per facet with a list, the share of blocks
+    listed, the coverage kernel against its plain version
+    (``cover_vs_plain``), every launch of the frame (every tap's, for a
+    twined stitch) on its list against the full-window launch of the
+    same kernel, bit for bit (``listed_vs_full``), and the first tap's
+    launch timed listed against full-window in turns (single and bursts
+    of 20); then the frame (``multi_frame``, or ``planar_frame`` into one
+    reused buffer) on the lists against the full-window frame
+    (``full_window``), bit for bit, and the two timed in turns (single,
+    median of 10; bursts of 5 frames, median of 3). Records and returns
+    them in COMPACT[name]."""
+    import torch
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    stitch = len(sources) > 1
+    if not stitch:
+        taps = [[plan]]
+    elif plan.spread is None:
+        taps = [FP.facet_plans(plan)]
+    else:
+        taps = [one for _w, one in FP.tap_plans(plan)]
+    scored = stitch and plan.synopsis != "hdr_merge"
+    y0, y1, x0, x1 = FP.frame_window(plan)
+    h, w = y1 - y0, x1 - x0
+    nby, nbx = R.block_grid(h, w)
+    facets = []
+    for fi, src in enumerate(sources):
+        fplan = taps[0][fi]
+        if FP.route(fplan, src, scored) != "chain" \
+                or FP.block_list(fplan, src) is None:
+            facets.append(None)
+            continue
+        cover = cover_vs_plain(fplan, src, f"{name}, facet {fi}")
+        timed = None
+        for fplans in taps:
+            pair = listed_vs_full(fplans[fi], src, scored, h, w)
+            timed = timed or pair
+        listed, whole = ab_turns(*timed)
+        rec = dict(blocks=cover["blocks"], total=nby * nbx,
+                   share=cover["blocks"] / (nby * nbx), cover=cover,
+                   launch_ms=listed["ms"], launch_burst_ms=listed["burst_ms"],
+                   full_ms=whole["ms"], full_burst_ms=whole["burst_ms"],
+                   burst_ratio=listed["burst_ms"] / whole["burst_ms"],
+                   launches_bit_equal=len(taps))
+        facets.append(rec)
+        print(f"{name}: compact grid, facet {fi}: {rec['blocks']} of "
+              f"{rec['total']} blocks listed ({100 * rec['share']:.2f}%); "
+              f"coverage pass {cover['ms']:.4f} ms with its read back, its "
+              f"kernels in bursts {cover['device_ms']:.4f} ms (plain "
+              f"{cover['plain_ms']:.3f} ms; bound {cover['bound_ms']:.4f} ms "
+              f"by {cover['bound_by']}), {cover['differing_blocks']} blocks "
+              f"differ from the plain version's ({cover['plain_blocks']}; "
+              f"none allowed); "
+              f"the first tap's launch listed / full window: single "
+              f"{listed['ms']:.4f} / {whole['ms']:.4f} ms, bursts of 20 "
+              f"{listed['burst_ms']:.4f} / {whole['burst_ms']:.4f} ms (x"
+              f"{rec['burst_ratio']:.3f}); {len(taps)} launch"
+              f"{'es' if len(taps) > 1 else ''} on the list bit-equal to "
+              f"the full-window launch", flush=True)
+    check(any(f is not None for f in facets), f"{name}: no block list")
+    if stitch:
+        def frame():
+            return FP.multi_frame(plan, sources)
+    else:
+        buf = torch.empty((h, w, sources[0].spl.coeff.shape[-1]),
+                          device="cuda")
+
+        def frame():
+            return FP.planar_frame(plan, sources[0], out=buf)
+
+    def whole_frame():
+        with full_window():
+            return frame()
+    got = frame().clone()
+    want = whole_frame().clone()
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{name}: the frame on the block lists "
+          f"differs from the full-window frame")
+    fl, ff = ab_turns(frame, whole_frame, single=10, bursts=3, burst=5)
+    out = dict(facets=facets, first_ms=first_ms, frame_ms=fl["ms"],
+               frame_burst_ms=fl["burst_ms"], full_frame_ms=ff["ms"],
+               full_frame_burst_ms=ff["burst_ms"],
+               frame_burst_ratio=fl["burst_ms"] / ff["burst_ms"],
+               frame_bit_equal=True)
+    print(f"{name}: compact grid, frame on the lists / full window (bit-"
+          f"equal): single {fl['ms']:.4f} / {ff['ms']:.4f} ms, bursts of 5 "
+          f"{fl['burst_ms']:.4f} / {ff['burst_ms']:.4f} ms (x"
+          f"{out['frame_burst_ratio']:.3f}); first render_frame "
+          + ("-" if first_ms is None else f"{first_ms:.1f}")
+          + f" ms; clocks/power/temp after: {smi_now()}", flush=True)
+    COMPACT[name] = out
+    return out
 
 
 def stitch_config(name, rng, builds=None):
@@ -2220,7 +2555,9 @@ def facet_kernel(fplan, src, out, score):
     """A callable that launches one facet's kernel of a stitch (of one
     tap, for a twined stitch's one-tap plan), alone, as
     ``fastpath.facet_into`` launches it (``out`` holds the source's
-    channels); and the launch's bound (bound ms, by, bytes, ops ms)."""
+    channels; a chain form on the plan's block list, the compact grid);
+    and the launch's bound (bound ms, by, bytes, ops ms), that of the
+    same function with every pixel of the slot written."""
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.runtime import fastpath as FP
     coeff = src.spl.coeff
@@ -2246,11 +2583,13 @@ def facet_kernel(fplan, src, out, score):
     tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")
                + (("spread",) if twined else ())]
     kernel = R.resample_twined_chain if twined else R.resample_planar_chain
+    blocks = FP.block_list(fplan, src)
     moved = b[4] + n_px * coeff.shape[-1] * 4 + (0 if score is None
                                                   else n_px * 4)
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     return (lambda: kernel(out, coeff, *tensors, score=score,
-                           recip_step=src.static.recip_step, **ops),
+                           recip_step=src.static.recip_step, blocks=blocks,
+                           **ops),
             (max(bytes_ms, b[3]), "bytes" if bytes_ms >= b[3]
              else "operations", moved, b[3]))
 
@@ -2339,8 +2678,11 @@ def stitch_path(name, rng, coeff_dtype="f32", twine=0):
     kernel = ("resample_inline" if hdr else "resample_planar_chain") \
         if plan.spread is None else \
         ("resample_inline_twined" if hdr else "resample_twined_chain")
+    # a facet on the chain forms (every facet of these voronoi stitches)
+    # gets its block list from one coverage pass at the first frame
     frame, first_ms, n = render(plan, sources, name,
-                                want={kernel: n_f * n_t})
+                                want={kernel: n_f * n_t,
+                                      "chain_blocks": 0 if hdr else n_f})
     peak = torch.cuda.max_memory_allocated() / 2**20
     covered = float((frame != 0).any(axis=-1).mean())
     stack = torch.empty((n_f, plan.height, plan.width, nch), device="cuda")
@@ -2434,7 +2776,11 @@ def stitch_path(name, rng, coeff_dtype="f32", twine=0):
           f"frame; peak device memory of the first frame {peak:.1f} MiB "
           f"(stacks {stack_bytes / 2**20:.1f} MiB); clocks/power/temp "
           f"after: {smi_now()}", flush=True)
+    compact = None
+    if not hdr and coeff_dtype == "f32":
+        compact = compact_path(name, plan, sources, first_ms)
     return dict(facets=n_f, taps=n_t, synopsis=synopsis, channels=nch,
+                compact=compact,
                 launches=n, first_ms=first_ms, max_abs_err=err,
                 slot_max_abs_err=err_slot, edge_px=n_edge,
                 excluded_px=n_other, covered=covered, vs_plain=vs_plain,
@@ -2463,8 +2809,9 @@ def one_tap_stitch(rng):
     plan = dataclasses.replace(stitch_plan(facets, synopsis, nch),
                                spread=((0.25, 0.0, 1.0),))
     name = "config 5d, one tap at (0.25, 0)"
-    frame, _ms, n = render(plan, sources, name,
-                           want={"resample_twined_chain": len(sources)})
+    frame, first_ms, n = render(plan, sources, name,
+                                want={"resample_twined_chain": len(sources),
+                                      "chain_blocks": len(sources)})
     stack = torch.empty((len(sources), plan.height, plan.width, nch),
                         device="cuda")
     score = torch.empty(stack.shape[:3], device="cuda")
@@ -2482,7 +2829,8 @@ def one_tap_stitch(rng):
     check(moved > 0.1, f"{name}: the tap did not move")
     return dict(launches=n, max_abs_err=err, slot_max_abs_err=err_slot,
                 edge_px=n_edge, excluded_px=n_other,
-                max_abs_diff_vs_untwined=moved)
+                max_abs_diff_vs_untwined=moved,
+                compact=compact_path(name, plan, sources, first_ms))
 
 
 def pole_view_path(fct, src):
@@ -3288,25 +3636,39 @@ def mesh_frames(name, plan, sources, want, devices):
     check(np.array_equal(frame, single), f"mesh {name}: the --mesh "
           f"{MESH_N} frame differs from the one-device frame (max abs diff "
           f"{float(np.abs(frame - single).max()):.3e})")
-    builds = []
+    builds, lists = [], []
     for _ in range(2):
         before = FP._operands.builds
+        listed = FP.block_list.builds
         again = meshed()
         builds.append(FP._operands.builds - before)
+        lists.append(FP.block_list.builds - listed)
         check(np.array_equal(again, single),
               f"mesh {name}: a later --mesh frame differs")
-    check(builds == [0, 0], f"mesh {name}: steady-state frames built "
-          f"{builds} operand sets")
+    check(builds == [0, 0] and lists == [0, 0], f"mesh {name}: steady-state "
+          f"frames built {builds} operand sets and {lists} block lists")
+    compact = bool(n.get("chain_blocks"))
+    if compact:
+        # the compact grid: the same frames with every chain launch over
+        # its band's whole window
+        with full_window():
+            check(np.array_equal(meshed(), frame) and np.array_equal(
+                one(), single), f"mesh {name}: the frames on the block "
+                f"lists differ from the full-window frames")
     rec = dict(launches={k: v for k, v in n.items() if v},
                devices=[str(d) for d in devices[:MESH_N]],
                bit_equal=True, operand_builds_frames_2_3=builds,
+               list_builds_frames_2_3=lists,
+               bit_equal_to_full_window=compact or None,
                first_ms=first_ms, ms=host_ms(meshed), single_ms=host_ms(one),
                peak_mib=mesh_peak, single_peak_mib=single_peak,
                split=mesh_split(plan, sources, devices),
                single_split=mesh_split(plan, sources, devices[:1]))
     print(f"mesh: {name}, --mesh {MESH_N} on {rec['devices']}: launches "
-          f"{rec['launches']}; bit-equal to the one-device frame; operand "
-          f"builds of frames 2 and 3: {builds}; frame {rec['ms']:.3f} ms vs "
+          f"{rec['launches']}; bit-equal to the one-device frame"
+          + ("" if not compact else " and, both, to their full-window "
+             "frames") + f"; operand and block-list builds of frames 2 and "
+          f"3: {builds}, {lists}; frame {rec['ms']:.3f} ms vs "
           f"one device {rec['single_ms']:.3f} ms (host clock, copy to the "
           f"host included, median of 3; first {first_ms:.1f} ms); split "
           f"(enqueue, device, copy to the host) {rec['split']} vs one device "
@@ -3393,15 +3755,18 @@ def mesh_phases():
       resample_planar_chain;
     - config 4 twined (the 8K ramps at degree 1 -> 2048x1280, 4 taps):
       4 launches of resample_inline_twined;
-    - config 5 (voronoi of three facets -> 4096x2048): 12 launches of
-      resample_planar_chain with the score, then --shard_table;
-    - config 5d twined at 2x2 taps: 96 one-tap launches of
-      resample_twined_chain;
+    - config 5 (voronoi of three facets -> 4096x2048): a block list per
+      band and facet (12 coverage passes) and 6 launches of
+      resample_planar_chain with the score (the facets reach the middle
+      two bands only), then --shard_table;
+    - config 5d twined at 2x2 taps: 24 coverage passes and 48 one-tap
+      launches of resample_twined_chain (the middle two bands);
     - the degree-9 view: 4 bands of the exact route (``exact_frame``).
 
-    Each --mesh frame is bit-equal to the one-device frame and its
-    second and third frames build no kernel operands. Returns the
-    record."""
+    Each --mesh frame is bit-equal to the one-device frame, a frame on
+    block lists (5, 5d) to the same frame over the full windows, and its
+    second and third frames build no kernel operands and no block list.
+    Returns the record."""
     import contextlib
     import io
     import torch
@@ -3474,9 +3839,12 @@ def mesh_phases():
     facets, sources, synopsis, nch = stitch_config(
         "config 5", np.random.default_rng(5))
     p5 = stitch_plan(facets, synopsis, nch)
+    # the facets reach latitudes within 26 degrees: of the four bands of
+    # 512 rows (90..45, 45..0, 0..-45, -45..-90 degrees) only the middle
+    # two, so the outer bands' lists are empty and launch nothing
     rec["config 5"] = mesh_frames("config 5", p5, sources,
-                                  {"resample_planar_chain": 3 * MESH_N},
-                                  devices)
+                                  {"resample_planar_chain": 3 * 2,
+                                   "chain_blocks": 3 * MESH_N}, devices)
     rec["config 5, --shard_table"] = ring_frames("config 5", p5, sources,
                                                  devices)
     del sources
@@ -3485,9 +3853,11 @@ def mesh_phases():
         "config 5d", np.random.default_rng(5))
     p5d = stitch_plan(facets, synopsis, nch, twine=2)
     check(len(p5d.spread) == 4, f"config 5d spread {p5d.spread}")
+    # within 29 degrees of latitude: the middle two bands, as config 5
     rec["config 5d twined"] = mesh_frames(
         "config 5d twined (2x2 taps)", p5d, sources,
-        {"resample_twined_chain": 6 * 4 * MESH_N}, devices)
+        {"resample_twined_chain": 6 * 4 * 2, "chain_blocks": 6 * MESH_N},
+        devices)
     del sources
     torch.cuda.empty_cache()
     # ---- degree 9 on the exact route ------------------------------------
@@ -3533,7 +3903,7 @@ def build_report():
         entry = None
         for line in lib.build_log.splitlines():
             if "Compiling entry function" in line:
-                name = re.search(r"([a-z_]+_kernel)I", line)
+                name = re.search(r"([a-z_]+_kernel)[IE]", line)
                 # template arguments: the ints, then the table's type
                 # (f, or 13__nv_bfloat16)
                 args = re.search(r"kernelI((?:Li\d+E)+)(\w+?)E", line)
@@ -3882,8 +4252,9 @@ def main():
     limg = rng.uniform(0, 1, (1152, 1536, 3)).astype(np.float32)
     lsrc = E.make_mount_source(lf, limg, 3, 3, device="cuda")
     p5 = plan_for(lf, P.SPHERICAL, 4096, 2048, 360, 3)
-    out5, _ms, n5 = render(p5, lsrc, "lens facet",
-                           want={"resample_planar_chain": 1})
+    out5, first5_ms, n5 = render(p5, lsrc, "lens facet",
+                                 want={"resample_planar_chain": 1,
+                                       "chain_blocks": 1})
     peak = torch.cuda.max_memory_allocated() / 2**20
     planar_n["lens facet"] = n5["resample_planar_chain"]
     covered = float((out5 != 0).any(axis=-1).mean())
@@ -3897,6 +4268,8 @@ def main():
     t_planar["lens facet"] = time_planar(p5, lsrc, "lens facet", peak)
     t_planar["lens facet"].pop("sx")
     t_planar["lens facet"].pop("sy")
+    t_planar["lens facet"]["compact"] = compact_path("lens facet", p5,
+                                                     [lsrc], first5_ms)
     p5t = plan_for(lf, P.SPHERICAL, 4096, 2048, 360, 3, twine=2)
     t_twined["lens facet"] = twined_planar_path("lens facet twined", p5t,
                                                 lsrc)
@@ -3944,9 +4317,11 @@ def main():
     sa = make_args(lf, P.RECTILINEAR, 1024, 768, 100, 3, (5, 0, 0))
     sa.facets, sa.solo = [lf, tf], -1
     ps = RD.build_plan(sa, [lf, tf])
-    outs, _ms, ns = render(ps, [lsrc, tsrc], "lens and translated stitch",
-                           want={"resample_planar_chain": 1,
-                                 "resample_planar": 1})
+    outs, first_ls_ms, ns = render(ps, [lsrc, tsrc],
+                                   "lens and translated stitch",
+                                   want={"resample_planar_chain": 1,
+                                         "resample_planar": 1,
+                                         "chain_blocks": 1})
     stack = torch.empty((2, 768, 1024, 3), device="cuda")
     score = torch.empty((2, 768, 1024), device="cuda")
     err_ls, err_lslot, edge_ls, flip_ls = stitch_errors(ps, [lsrc, tsrc],
@@ -3961,6 +4336,8 @@ def main():
           "the lens and translated stitch disagrees with the exact path")
     check(0.05 < share < 0.95, "the translated facet wins no share")
     planar_n["lens and translated stitch"] = ns["resample_planar_chain"]
+    compact_path("lens and translated stitch", ps, [lsrc, tsrc],
+                 first_ls_ms)
     # the same stitch twined (--twine 2): per tap one one-tap launch of
     # the twined chain form with its score for the lens facet and, for
     # the translated facet, the coordinate pass and the twined planes
@@ -3968,10 +4345,10 @@ def main():
     sa = make_args(lf, P.RECTILINEAR, 1024, 768, 100, 3, (5, 0, 0), twine=2)
     sa.facets, sa.solo = [lf, tf], -1
     pst = RD.build_plan(sa, [lf, tf])
-    outs, _ms, nst = render(pst, [lsrc, tsrc],
-                            "lens and translated stitch, twined (4 taps)",
-                            want={"resample_twined_chain": 4,
-                                  "resample_twined": 4})
+    outs, first_lst_ms, nst = render(
+        pst, [lsrc, tsrc], "lens and translated stitch, twined (4 taps)",
+        want={"resample_twined_chain": 4, "resample_twined": 4,
+              "chain_blocks": 1})
     errs_t = stitch_errors(pst, [lsrc, tsrc], outs, stack, score)
     print(f"lens and translated stitch, twined (4 taps): vs exact path, "
           f"whole frame: max abs diff {errs_t[0]:.3e}, slots {errs_t[1]:.3e}"
@@ -3985,7 +4362,9 @@ def main():
     t_lens_translated_twined = dict(
         launches={k: v for k, v in nst.items() if v}, max_abs_err=errs_t[0],
         slot_max_abs_err=errs_t[1], edge_px=errs_t[2],
-        excluded_px=errs_t[3])
+        excluded_px=errs_t[3],
+        compact=compact_path("lens and translated stitch, twined", pst,
+                             [lsrc, tsrc], first_lst_ms))
     del lsrc, tsrc, stack, score, outs
     torch.cuda.empty_cache()
 
@@ -4105,6 +4484,27 @@ def main():
     print(f"precise: {json.dumps(t_precise)}", flush=True)
     print(f"surfaces: {json.dumps(t_surfaces)}", flush=True)
     print(f"mesh: {json.dumps(t_mesh)}", flush=True)
+    print(f"compact: {json.dumps(COMPACT)}", flush=True)
+    # the compact grid: the coverage pass of every job with block lists,
+    # and the listed launches' times against the full window's per job
+    covers = {job: [f["cover"] for f in rec["facets"] if f is not None]
+              for job, rec in COMPACT.items()}
+    cover5d = covers["config 5d, twined (4 taps)"][0]
+
+    def compact_of(kernel):
+        twined = kernel == "resample_twined_chain"
+        return {job: dict(
+            launch_ms=[f and f["launch_ms"] for f in rec["facets"]],
+            full_ms=[f and f["full_ms"] for f in rec["facets"]],
+            launch_burst_ms=[f and f["launch_burst_ms"]
+                             for f in rec["facets"]],
+            full_burst_ms=[f and f["full_burst_ms"] for f in rec["facets"]],
+            share=[f and f["share"] for f in rec["facets"]],
+            frame_burst_ms=rec["frame_burst_ms"],
+            full_frame_burst_ms=rec["full_frame_burst_ms"])
+            for job, rec in COMPACT.items()
+            if any(f is not None and f["cover"]["twined"] == twined
+                   for f in rec["facets"])}
     print(f"command time: {time.perf_counter() - T_START:.1f} s, the "
           f"kernel build included", flush=True)
 
@@ -4164,6 +4564,7 @@ def main():
          "stitches": {k: t for k, t in t_stitch.items()
                       if t["synopsis"] != "hdr_merge"},
          "pto_alpha": t_alpha,
+         "compact": compact_of("resample_planar_chain"),
          "mesh": mesh_launches(t_mesh, "resample_planar_chain")},
         dict({k: t4[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
@@ -4217,7 +4618,28 @@ def main():
              # --twine_precise jobs left this form for the exact route:
              # the form's deviation on a precise job, and its time
              precise_job=t_precise,
+             compact=compact_of("resample_twined_chain"),
              mesh=mesh_launches(t_mesh, "resample_twined_chain")),
+        # the coverage pass of the compact grid: launched and measured on
+        # config 5d twined's first facet (its four taps' union); every
+        # job's passes beside it
+        {"name": "chain_blocks", "route": "cuda",
+         "source": "envutil_tpu_torch/csrc/chain_blocks.cu",
+         "replaces": "envutil_tpu/runtime/fastpath.py:1040 (plan_passes' "
+                     "per-tile coverage, ZERO_PASS: the tiles of "
+                     "envutil_tpu/ops/pallas_resample.py:1148 and :1930)",
+         "launches": t_twined_stitch["config 5d, twine 2"]["launches"][
+             "chain_blocks"],
+         "max_abs_err": max(c["max_abs_err"] for cs in covers.values()
+                            for c in cs),
+         "differing_blocks": sum(c["differing_blocks"]
+                                 for cs in covers.values() for c in cs),
+         "ms": cover5d["ms"], "plain_ms": cover5d["plain_ms"],
+         "bound_ms": cover5d["bound_ms"], "bound_by": cover5d["bound_by"],
+         "library_ms": None,   # no PyTorch call lists a chain's blocks
+         "path": "config 5d twined (2x2 taps), facet 0", "jobs": covers,
+         "build": build.get("chain_cover_kernel"),
+         "mesh": mesh_launches(t_mesh, "chain_blocks")},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

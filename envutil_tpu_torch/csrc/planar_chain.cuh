@@ -12,6 +12,12 @@
 // features (planar x, planar y): ster and fish apply
 // geometry.ster_to_ray / fish_to_ray in the kernel.
 //
+// The compact grid: both chain forms take an optional list of the
+// window's 32x8 blocks (chain_block, chain_grid) and launch one CUDA
+// block per listed block, so that a facet's launch covers only the
+// blocks its rays can reach; chain_blocks.cu builds the list with the
+// same device functions.
+//
 // Source modes: cubemap / biatan6 IR sources through K1's pickup() as
 // it is, or, for the twined kernel, a forced-face counterpart
 // (geometry.ray_to_cubeface_fixed) that takes all three pickups of the
@@ -255,6 +261,94 @@ __device__ __forceinline__ void derivative_ray(const float (&p)[3],
   t = add(t, mul(sub(p[2], q[2]), p[2]));
 #pragma unroll
   for (int i = 0; i < 3; ++i) q[i] = sub(add(q[i], mul(t, p[i])), p[i]);
+}
+
+// The twined chain's rays of pixel (x, y): the ninepack's centre p0 and
+// its two neighbours p10, p01 from the doubled feature sets (the
+// centre's nfx / nfy rows, then the DERIV_BIAS-biased ones), each
+// normalised, and the derivative rays du, dv; with ``precise`` the
+// neighbours are then p0 + du and p0 + dv, as in fastpath.twined_coords
+__device__ __forceinline__ void ninepack_rays(
+    int tmode, const float* xfeat, const float* yfeat, int nfx, int nfy,
+    int64_t x, int64_t y, int64_t width, int64_t height, const float* bm,
+    bool precise, float (&p0)[3], float (&p10)[3], float (&p01)[3],
+    float (&du)[3], float (&dv)[3]) {
+  const float* xbias = xfeat + nfx * width;
+  const float* ybias = yfeat + nfy * height;
+  chain_ray(tmode, xfeat, yfeat, x, y, width, height, bm, p0);
+  chain_ray(tmode, xbias, yfeat, x, y, width, height, bm, p10);
+  chain_ray(tmode, xfeat, ybias, x, y, width, height, bm, p01);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    du[i] = p10[i];
+    dv[i] = p01[i];
+  }
+  derivative_ray(p0, du, precise);
+  derivative_ray(p0, dv, precise);
+  if (precise) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      p10[i] = add(p0[i], du[i]);
+      p01[i] = add(p0[i], dv[i]);
+    }
+  }
+}
+
+// The tap's deflected ray p0 + cx du + cy dv into ``r`` and whether the
+// tap counts: with ``tap_valid``, where the ray passes the mount's
+// window test, the mask the exact path applies to that tap.
+__device__ __forceinline__ bool tap_ray(const ChainPickup& pick,
+                                        bool tap_valid, const float (&p0)[3],
+                                        const float (&du)[3],
+                                        const float (&dv)[3], float cx,
+                                        float cy, float (&r)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    r[i] = add(add(p0[i], mul(cx, du[i])), mul(cy, dv[i]));
+  float px, py;
+  return !tap_valid || mount_planar(pick, r[0], r[1], r[2], px, py);
+}
+
+// The compact grid of the chain forms (the TPU kernels' ``tiles``): the
+// (bx, by) of the 32x8 block that this CUDA block covers. Without a
+// block list (``b`` < 0) the grid is the whole raster's, (blockIdx.x,
+// blockIdx.y); with one, CUDA block i covers listed block b = blocks[i]
+// = by * nbx + bx of the window's ceil(W / 32) x ceil(H / 8) blocks,
+// and pixels of unlisted blocks are not touched.
+__device__ __forceinline__ void block_xy(int b, int64_t width, int64_t& bx,
+                                         int64_t& by) {
+  if (b < 0) {
+    bx = blockIdx.x;
+    by = blockIdx.y;
+    return;
+  }
+  // 32-bit: a list indexes at most 2^31 - 1 blocks
+  const int nbx = (int)((width + BLOCK_X - 1) / BLOCK_X);
+  const int row = b / nbx;
+  by = row;
+  bx = b - row * nbx;
+}
+
+// block_xy of this CUDA block: the list's entry, or the raster's grid
+__device__ __forceinline__ void chain_block(const int* __restrict__ blocks,
+                                            int64_t width, int64_t& bx,
+                                            int64_t& by) {
+  block_xy(blocks == nullptr ? -1 : __ldg(blocks + blockIdx.x), width, bx,
+           by);
+}
+
+// the launch grid of a chain form: one CUDA block per listed block, or
+// the whole raster's (frame_grid) without a list
+inline dim3 chain_grid(const int* blocks, long long n_blocks,
+                       int64_t height, int64_t width) {
+  return blocks == nullptr ? frame_grid(height, width)
+                           : dim3((unsigned)n_blocks);
+}
+
+// the checks a chain form's entry point makes of its block list: a null
+// list, or 1 .. 2^31 - 1 entries (an empty list launches nothing)
+inline bool chain_list_ok(const int* blocks, long long n_blocks) {
+  return blocks == nullptr || (n_blocks >= 1 && n_blocks <= 0x7fffffffLL);
 }
 
 // a coordinate derivative as fastpath.twined_coords takes it: wrapped

@@ -31,6 +31,16 @@
 // modes are runtime branches, uniform over a launch, so the build
 // keeps 32 instantiations (DEGREE x NCH) per form.
 //
+// The chain form's compact grid (the TPU kernels' ``tiles``): given a
+// list of the window's 32x8 blocks (chain_blocks.cu: the blocks some
+// pixel of which the ray hits, and a margin of one), it launches one
+// CUDA block per listed block and leaves every other pixel as it was;
+// the caller fills the frame or the stack with 0 and the score with
+// LOWEST first, what the full-window launch writes there, so the two
+// are the same bit for bit. A stitch's facet covers 6-7% of an
+// equirect, and the chain over every missed pixel was most of the
+// full-window launch.
+//
 // The planes form (resample_planar_kernel) reads precomputed padded
 // coordinates (sx, sy) and serves the jobs whose chain has no kernel
 // form: translated facets (render.generic_r3). With a merge mask, a
@@ -141,9 +151,12 @@ resample_planar_chain_kernel(float* __restrict__ out,
                              const float* __restrict__ xfeat,
                              const float* __restrict__ yfeat,
                              const float* __restrict__ bmats,
+                             const int* __restrict__ blocks,
                              const ChainParams p) {
-  const int64_t x = (int64_t)blockIdx.x * BLOCK_X + threadIdx.x;
-  const int64_t y = (int64_t)blockIdx.y * BLOCK_Y + threadIdx.y;
+  int64_t bx, by;
+  chain_block(blocks, p.width, bx, by);
+  const int64_t x = bx * BLOCK_X + threadIdx.x;
+  const int64_t y = by * BLOCK_Y + threadIdx.y;
   if (x >= p.width || y >= p.height) return;
   int face = 0;
   if (p.face_rows > 0) face = min(max((p.row0 + (int)y) / p.face_rows, 0), 5);
@@ -171,11 +184,13 @@ struct ChainLaunch {
   template <int DEGREE, int NCH>
   static cudaError_t run(float* out, float* score, const T* coeff,
                          const float* xfeat, const float* yfeat,
-                         const float* bmats, const ChainParams& p,
+                         const float* bmats, const int* blocks,
+                         long long n_blocks, const ChainParams& p,
                          cudaStream_t stream) {
     resample_planar_chain_kernel<DEGREE, NCH, T>
-        <<<frame_grid(p.height, p.width), dim3(BLOCK_X, BLOCK_Y), 0, stream>>>(
-            out, score, coeff, xfeat, yfeat, bmats, p);
+        <<<chain_grid(blocks, n_blocks, p.height, p.width),
+           dim3(BLOCK_X, BLOCK_Y), 0, stream>>>(
+            out, score, coeff, xfeat, yfeat, bmats, blocks, p);
     return cudaGetLastError();
   }
 };
@@ -215,14 +230,20 @@ extern "C" int envutil_resample_planar(
 // ``score`` may be null; otherwise it is an (H, W) device plane that
 // receives each pixel's score, the ray's z times ``recip_step``.
 // ``coeff`` is float32, or bfloat16 where ``coeff_bf16`` is set.
+// ``blocks`` may be null (the whole window's grid); otherwise it is a
+// device array of ``n_blocks`` indices by * ceil(W / 32) + bx of the
+// window's 32x8 blocks (chain_blocks.cu), one CUDA block each, and the
+// pixels of every other block are not touched.
 extern "C" int envutil_resample_planar_chain(
     float* out, float* score, const void* coeff, const float* xfeat,
     const float* yfeat, const float* bmats, const float* wmat,
-    const int* ipick, const float* fpick, long long height, long long width,
+    const int* ipick, const float* fpick, const int* blocks,
+    long long n_blocks, long long height, long long width,
     long long hp, long long wp, int row0, int face_rows, int degree, int nch,
     int tmode, float recip_step, int coeff_bf16, void* stream) {
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (tmode < TMODE_AFFINE || tmode > TMODE_FISH) return (int)cudaErrorInvalidValue;
+  if (!chain_list_ok(blocks, n_blocks)) return (int)cudaErrorInvalidValue;
   if (height <= 0 || width <= 0) return 0;
   if ((height + BLOCK_Y - 1) / BLOCK_Y > 65535) return (int)cudaErrorInvalidValue;
   ChainParams p;
@@ -234,8 +255,9 @@ extern "C" int envutil_resample_planar_chain(
   if (coeff_bf16)
     return (int)by_degree<ChainLaunch<__nv_bfloat16>>(
         degree, nch, out, score, (const __nv_bfloat16*)coeff, xfeat, yfeat,
-        bmats, p, (cudaStream_t)stream);
+        bmats, blocks, n_blocks, p, (cudaStream_t)stream);
   return (int)by_degree<ChainLaunch<float>>(degree, nch, out, score,
                                             (const float*)coeff, xfeat, yfeat,
-                                            bmats, p, (cudaStream_t)stream);
+                                            bmats, blocks, n_blocks, p,
+                                            (cudaStream_t)stream);
 }

@@ -38,6 +38,11 @@
 // PyTorch cannot, and on the H100 that pass took 90-99% of a twined
 // planar frame (PERF.md).
 //
+// The chain form takes the compact grid as the planar chain form does
+// (resample_planar.cu): a list of 32x8 blocks where some tap of some
+// pixel passes its window test, the union over the spread, so that
+// the one list serves every one-tap launch of a twined stitch's facet.
+//
 // The planes form (resample_twined_kernel) reads the six operand planes
 // and, for partial facets, (K, H, W) float32 or 8-bit tap-weight planes
 // (the counterpart of the TPU kernel's champ[k] == fi, which for one
@@ -209,21 +214,6 @@ struct ChainParams {
   Table table;
 };
 
-// The tap's deflected ray p0 + cx du + cy dv into ``r`` and whether the
-// tap counts: with ``tap_valid``, where the ray passes the mount's
-// window test, the mask the exact path applies to that tap.
-__device__ __forceinline__ bool tap_ray(const ChainParams& p,
-                                        const float (&p0)[3],
-                                        const float (&du)[3],
-                                        const float (&dv)[3], float cx,
-                                        float cy, float (&r)[3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    r[i] = add(add(p0[i], mul(cx, du[i])), mul(cy, dv[i]));
-  float px, py;
-  return !p.tap_valid || mount_planar(p.pick, r[0], r[1], r[2], px, py);
-}
-
 // four blocks an SM (64 registers): without the cap ptxas spilled 8
 // bytes at degree 1, two channels; no instantiation needs more
 template <int DEGREE, int NCH, typename T>
@@ -235,44 +225,32 @@ resample_twined_chain_kernel(float* __restrict__ out,
                              const float* __restrict__ yfeat,
                              const float* __restrict__ bmats,
                              const float* __restrict__ spread,
+                             const int* __restrict__ blocks,
                              const ChainParams p) {
   extern __shared__ float taps[];  // (n_taps, 3): cx, cy, w
+  // the listed block's index (-1: the raster's grid), read from shared
+  // memory where it is needed: the pixel's position kept in registers
+  // across the tap loop made ptxas spill at degree 7
+  __shared__ int listed;
+  if (threadIdx.x == 0 && threadIdx.y == 0)
+    listed = blocks == nullptr ? -1 : __ldg(blocks + blockIdx.x);
   for (int i = threadIdx.y * BLOCK_X + threadIdx.x; i < 3 * p.n_taps;
        i += BLOCK_X * BLOCK_Y)
     taps[i] = spread[i];
   __syncthreads();
 
-  const int64_t x = (int64_t)blockIdx.x * BLOCK_X + threadIdx.x;
-  const int64_t y = (int64_t)blockIdx.y * BLOCK_Y + threadIdx.y;
+  int64_t bx, by;
+  block_xy(listed, p.width, bx, by);
+  const int64_t x = bx * BLOCK_X + threadIdx.x;
+  const int64_t y = by * BLOCK_Y + threadIdx.y;
   if (x >= p.width || y >= p.height) return;
   int face = 0;
   if (p.face_rows > 0) face = min(max((p.row0 + (int)y) / p.face_rows, 0), 5);
-  const float* bm = bmats + face * 9;
-  const float* xbias = xfeat + p.nfx * p.width;   // the biased sets
-  const float* ybias = yfeat + p.nfy * p.height;
 
-  // the ninepack's three normalised rays and the derivative rays; with
-  // ``precise`` the neighbours are then p0 + du and p0 + dv, as in
-  // fastpath.twined_coords
+  // the ninepack's three normalised rays and the derivative rays
   float p0[3], p10[3], p01[3], du[3], dv[3];
-  chain_ray(p.tmode, xfeat, yfeat, x, y, p.width, p.height, bm, p0);
-  chain_ray(p.tmode, xbias, yfeat, x, y, p.width, p.height, bm, p10);
-  chain_ray(p.tmode, xfeat, ybias, x, y, p.width, p.height, bm, p01);
-  const bool precise = p.precise != 0;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    du[i] = p10[i];
-    dv[i] = p01[i];
-  }
-  derivative_ray(p0, du, precise);
-  derivative_ray(p0, dv, precise);
-  if (precise) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      p10[i] = add(p0[i], du[i]);
-      p01[i] = add(p0[i], dv[i]);
-    }
-  }
+  ninepack_rays(p.tmode, xfeat, yfeat, p.nfx, p.nfy, x, y, p.width, p.height,
+                bmats + face * 9, p.precise != 0, p0, p10, p01, du, dv);
 
   // the three pickups (an IR source's in the centre ray's face) and the
   // coordinate derivatives
@@ -293,7 +271,8 @@ resample_twined_chain_kernel(float* __restrict__ out,
     // it lives on into the tap loop (with the score in the loop ptxas
     // spilled at degree 7); the loop tests the tap's ray again
     float r[3];
-    const bool hit = tap_ray(p, p0, du, dv, taps[0], taps[1], r);
+    const bool hit = tap_ray(p.pick, p.tap_valid, p0, du, dv, taps[0],
+                             taps[1], r);
     score[y * p.width + x] = hit ? mul(r[2], p.recip_step) : LOWEST;
   }
   const float lower = sub(p.pick.pad, 0.5f);
@@ -304,7 +283,8 @@ resample_twined_chain_kernel(float* __restrict__ out,
   for (int k = 0; k < p.n_taps; ++k) {
     const float cx = taps[3 * k], cy = taps[3 * k + 1], w = taps[3 * k + 2];
     float r[3];
-    if (p.tap_valid && !tap_ray(p, p0, du, dv, cx, cy, r)) continue;
+    if (p.tap_valid && !tap_ray(p.pick, true, p0, du, dv, cx, cy, r))
+      continue;
     float sx = sx0 + cx * dux + cy * dvx;
     float sy = sy0 + cx * duy + cy * dvy;
     if (p.pick.period > 0.0f) sx = lower + floor_mod(sx - lower, p.pick.period);
@@ -314,7 +294,9 @@ resample_twined_chain_kernel(float* __restrict__ out,
 #pragma unroll
     for (int c = 0; c < NCH; ++c) acc[c] += w * val[c];
   }
-  float* dst = out + (y * p.width + x) * NCH;
+  block_xy(*(volatile int*)&listed, p.width, bx, by);  // read anew
+  float* dst = out + ((by * BLOCK_Y + threadIdx.y) * p.width + bx * BLOCK_X +
+                      threadIdx.x) * NCH;
 #pragma unroll
   for (int c = 0; c < NCH; ++c) dst[c] = acc[c];
 }
@@ -325,11 +307,13 @@ struct ChainLaunch {
   static cudaError_t run(float* out, float* score, const T* coeff,
                          const float* xfeat, const float* yfeat,
                          const float* bmats, const float* spread,
+                         const int* blocks, long long n_blocks,
                          const ChainParams& p, cudaStream_t stream) {
     const size_t smem = (size_t)3 * p.n_taps * sizeof(float);
     resample_twined_chain_kernel<DEGREE, NCH, T>
-        <<<frame_grid(p.height, p.width), dim3(BLOCK_X, BLOCK_Y), smem,
-           stream>>>(out, score, coeff, xfeat, yfeat, bmats, spread, p);
+        <<<chain_grid(blocks, n_blocks, p.height, p.width),
+           dim3(BLOCK_X, BLOCK_Y), smem, stream>>>(
+            out, score, coeff, xfeat, yfeat, bmats, spread, blocks, p);
     return cudaGetLastError();
   }
 };
@@ -379,11 +363,14 @@ extern "C" int envutil_resample_twined(
 // otherwise the spread has one tap and ``score`` is an (H, W) device
 // plane that receives that tap's score, its deflected ray's z times
 // ``recip_step``, LOWEST where the tap misses. ``coeff`` is float32, or
-// bfloat16 where ``coeff_bf16`` is set.
+// bfloat16 where ``coeff_bf16`` is set. ``blocks`` and ``n_blocks`` as
+// for envutil_resample_planar_chain: a null list launches over the
+// whole window, a list over its listed 32x8 blocks only.
 extern "C" int envutil_resample_twined_chain(
     float* out, float* score, const void* coeff, const float* xfeat,
     const float* yfeat, const float* bmats, const float* spread,
     const float* wmat, const int* ipick, const float* fpick,
+    const int* blocks, long long n_blocks,
     long long height, long long width, long long hp, long long wp, int row0,
     int face_rows, int degree, int nch, int tmode, int n_taps, int precise,
     int tap_valid, float recip_step, int coeff_bf16, void* stream) {
@@ -392,6 +379,7 @@ extern "C" int envutil_resample_twined_chain(
   if (tmode < TMODE_AFFINE || tmode > TMODE_FISH) return (int)cudaErrorInvalidValue;
   if (n_taps < 1 || n_taps > MAX_TAPS) return (int)cudaErrorInvalidValue;
   if (score != nullptr && n_taps != 1) return (int)cudaErrorInvalidValue;
+  if (!chain_list_ok(blocks, n_blocks)) return (int)cudaErrorInvalidValue;
   if (height <= 0 || width <= 0) return 0;
   if ((height + BLOCK_Y - 1) / BLOCK_Y > 65535) return (int)cudaErrorInvalidValue;
   ChainParams p;
@@ -407,9 +395,9 @@ extern "C" int envutil_resample_twined_chain(
   if (coeff_bf16)
     return (int)by_degree<ChainLaunch<__nv_bfloat16>>(
         degree, nch, out, score, (const __nv_bfloat16*)coeff, xfeat, yfeat,
-        bmats, spread, p, (cudaStream_t)stream);
+        bmats, spread, blocks, n_blocks, p, (cudaStream_t)stream);
   return (int)by_degree<ChainLaunch<float>>(degree, nch, out, score,
                                             (const float*)coeff, xfeat, yfeat,
-                                            bmats, spread, p,
-                                            (cudaStream_t)stream);
+                                            bmats, spread, blocks, n_blocks,
+                                            p, (cudaStream_t)stream);
 }

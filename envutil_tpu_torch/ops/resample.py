@@ -34,6 +34,14 @@ coordinate derivative planes, its planes form.
 their pickups, the coordinate derivatives and each tap's validity per
 pixel in the kernel, then the same sum.
 
+Both chain forms take an optional block list (``blocks``), the
+counterpart of the TPU kernels' ``tiles``: one CUDA block per listed
+32x8 block of the window, every other pixel left as it was.
+``chain_blocks`` (csrc/chain_blocks.cu) is the coverage pass that lists
+the blocks a chain launch would write as something other than 0 /
+LOWEST, with a margin of one block; ``runtime/fastpath.block_list``
+keeps its list per plan.
+
 Each wrapper launches its hand-written kernel (csrc/resample_*.cu,
 built with nvcc at first use by ops/kernels.py) for CUDA tensors,
 raises if it cannot, and takes its plain version only for CPU tensors;
@@ -130,7 +138,7 @@ TILE_INLINE = (32, 16)
 
 _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-# every entry point ends in (..., int coeff_bf16, void* stream)
+# every resampling entry point ends in (..., int coeff_bf16, void* stream)
 _INLINE = K.Library("resample_inline.cu", {
     "envutil_resample_inline":
         [_p] * 6 + [_ll] * 4 + [_i] * 7 + [_f, _f, _i] + [_f] * 8
@@ -138,7 +146,7 @@ _INLINE = K.Library("resample_inline.cu", {
 _PLANAR = K.Library("resample_planar.cu", {
     "envutil_resample_planar": [_p] * 6 + [_ll] * 4 + [_i, _i, _i, _p],
     "envutil_resample_planar_chain":
-        [_p] * 9 + [_ll] * 4 + [_i] * 5 + [_f, _i, _p]})
+        [_p] * 10 + [_ll] * 5 + [_i] * 5 + [_f, _i, _p]})
 _INLINE_TWINED = K.Library("resample_inline_twined.cu", {
     "envutil_resample_inline_twined":
         [_p] * 7 + [_ll] * 4 + [_i] * 9 + [_f, _f, _i] + [_f] * 8
@@ -147,8 +155,10 @@ _TWINED = K.Library("resample_twined.cu", {
     "envutil_resample_twined": [_p] * 12 + [_ll] * 4 + [_i] * 4
     + [_f, _f, _i, _p],
     "envutil_resample_twined_chain":
-        [_p] * 10 + [_ll] * 4 + [_i] * 8 + [_f, _i, _p]})
-LIBRARIES = (_INLINE, _PLANAR, _INLINE_TWINED, _TWINED)
+        [_p] * 11 + [_ll] * 5 + [_i] * 8 + [_f, _i, _p]})
+_BLOCKS = K.Library("chain_blocks.cu", {
+    "envutil_chain_blocks": [_p] * 9 + [_ll] * 2 + [_i] * 5 + [_p]})
+LIBRARIES = (_INLINE, _PLANAR, _INLINE_TWINED, _TWINED, _BLOCKS)
 
 
 def build():
@@ -212,6 +222,10 @@ def _check_features(out, coeff, xfeat, yfeat, bmats, degree, tmode,
         raise ValueError(
             f"features {tuple(xfeat.shape)}/{tuple(yfeat.shape)} do not "
             f"fit tmode {tmode!r} and out {tuple(out.shape)}")
+    _check_bmats(out, xfeat, yfeat, bmats, face_rows)
+
+
+def _check_bmats(out, xfeat, yfeat, bmats, face_rows):
     nf = bmats.shape[0]
     if bmats.shape != (nf, 9) or (nf == 6) != (face_rows > 0) \
             or nf not in (1, 6):
@@ -1000,7 +1014,7 @@ def _check_score(out, score):
 def resample_planar_chain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
                           tmode: str, pick: ChainPickup, row0: int = 0,
                           face_rows: int = 0, score=None,
-                          recip_step: float = 1.0):
+                          recip_step: float = 1.0, blocks=None):
     """The chain form of the planar kernel: per pixel the target ray from
     the axis features (``tmode`` affine, sph or cyl as for
     ``resample_inline``, or ster / fish on planar features), its pickup
@@ -1010,13 +1024,22 @@ def resample_planar_chain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
     written there as well (``synopsis.facet_score``: the normalised ray's
     z times ``recip_step`` where the ray hits, ``synopsis.LOWEST`` where
     it misses); ``out`` is the same bit for bit with or without it.
+    With ``blocks`` (``chain_blocks``' list) the launch covers only the
+    listed 32x8 blocks of the window, and every other pixel of ``out``
+    and ``score`` keeps its contents (the compact grid: the caller fills
+    them with 0 and ``synopsis.LOWEST``); an empty list launches
+    nothing. ``resample_planar_chain.blocks`` counts the blocks launched.
     Returns ``out``. CUDA tensors go through the kernel; CPU tensors
     through ``resample_planar_chain_plain``."""
     _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
                  face_rows, 1)
     _check_score(out, score)
+    _check_blocks(out, blocks)
+    if blocks is not None and blocks.numel() == 0:
+        return out
     kw = dict(degree=degree, tmode=tmode, pick=pick, row0=row0,
-              face_rows=face_rows, score=score, recip_step=recip_step)
+              face_rows=face_rows, score=score, recip_step=recip_step,
+              blocks=blocks)
     if out.device.type == "cpu":
         return resample_planar_chain_plain(out, coeff, xfeat, yfeat, bmats,
                                            **kw)
@@ -1030,30 +1053,41 @@ def resample_planar_chain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = fn(out.data_ptr(), None if score is None else score.data_ptr(),
                  coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
-                 bmats.data_ptr(), _wmat(degree), ints, floats, h, w, hp, wp,
+                 bmats.data_ptr(), _wmat(degree), ints, floats,
+                 *_list_args(blocks), h, w, hp, wp,
                  int(row0), int(face_rows), int(degree), int(nch),
                  _CHAIN_TMODES[tmode], float(recip_step), _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_planar_chain kernel launch failed: "
                            f"CUDA error {err}")
     resample_planar_chain.launches += 1
+    resample_planar_chain.blocks += _launched(out, blocks)
     return out
 
 
 resample_planar_chain.launches = 0
+resample_planar_chain.blocks = 0
 
 
 def resample_planar_chain_plain(out, coeff, xfeat, yfeat, bmats, *,
                                 degree: int, tmode: str, pick: ChainPickup,
                                 row0: int = 0, face_rows: int = 0,
-                                score=None, recip_step: float = 1.0):
+                                score=None, recip_step: float = 1.0,
+                                blocks=None):
     """The planar chain kernel's computation in plain PyTorch, with its
     signature: ``chain_rays`` and ``chain_coords``, the score from the
     ray's z where asked, then ``resample_planar_plain`` under the
-    validity mask over a zero canvas. Runs on any device."""
+    validity mask over a zero canvas; with ``blocks``, written into the
+    listed blocks only (``_listed``). Runs on any device."""
     _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
                  face_rows, 1)
     _check_score(out, score)
+    _check_blocks(out, blocks)
+    if blocks is not None:
+        return _listed(resample_planar_chain_plain, out, score, blocks,
+                       coeff, xfeat, yfeat, bmats, degree=degree,
+                       tmode=tmode, pick=pick, row0=row0,
+                       face_rows=face_rows, recip_step=recip_step)
     ray = chain_rays(xfeat, yfeat, bmats, tmode=tmode, row0=row0,
                      face_rows=face_rows)
     sx, sy, mask = chain_coords(pick, *ray)
@@ -1175,7 +1209,7 @@ def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
                           pick: ChainPickup, row0: int = 0,
                           face_rows: int = 0, precise: bool = False,
                           tap_valid: bool = False, score=None,
-                          recip_step: float = 1.0):
+                          recip_step: float = 1.0, blocks=None):
     """The chain form of the planar twined kernel: per pixel the three
     rays of the ninepack from the doubled feature sets (as for
     ``resample_inline_twined``, plus the ster / fish modes), the
@@ -1188,13 +1222,19 @@ def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
     written there as well: the z of its deflected ray p0 + cx du + cy dv
     (not renormalised) times ``recip_step`` where the tap counts,
     ``synopsis.LOWEST`` where it misses; ``out`` is the same bit for bit
-    with or without it. Returns ``out``. CUDA tensors go through the
-    kernel; CPU tensors through ``resample_twined_chain_plain``."""
+    with or without it. ``blocks`` as for ``resample_planar_chain``
+    (counted in ``resample_twined_chain.blocks``). Returns ``out``. CUDA
+    tensors go through the kernel; CPU tensors through
+    ``resample_twined_chain_plain``."""
     _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
                         n_taps, tmode, pick, face_rows, tap_valid, score)
+    _check_blocks(out, blocks)
+    if blocks is not None and blocks.numel() == 0:
+        return out
     kw = dict(degree=degree, n_taps=n_taps, tmode=tmode, pick=pick,
               row0=row0, face_rows=face_rows, precise=precise,
-              tap_valid=tap_valid, score=score, recip_step=recip_step)
+              tap_valid=tap_valid, score=score, recip_step=recip_step,
+              blocks=blocks)
     if out.device.type == "cpu":
         return resample_twined_chain_plain(out, coeff, xfeat, yfeat, bmats,
                                            spread, **kw)
@@ -1209,17 +1249,20 @@ def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
         err = fn(out.data_ptr(), None if score is None else score.data_ptr(),
                  coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
                  bmats.data_ptr(), spread.data_ptr(), _wmat(degree), ints,
-                 floats, h, w, hp, wp, int(row0), int(face_rows), int(degree),
-                 int(nch), _CHAIN_TMODES[tmode], int(n_taps), int(precise),
-                 int(tap_valid), float(recip_step), _bf16(coeff), stream)
+                 floats, *_list_args(blocks), h, w, hp, wp, int(row0),
+                 int(face_rows), int(degree), int(nch), _CHAIN_TMODES[tmode],
+                 int(n_taps), int(precise), int(tap_valid),
+                 float(recip_step), _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_twined_chain kernel launch failed: "
                            f"CUDA error {err}")
     resample_twined_chain.launches += 1
+    resample_twined_chain.blocks += _launched(out, blocks)
     return out
 
 
 resample_twined_chain.launches = 0
+resample_twined_chain.blocks = 0
 
 
 def resample_twined_chain_plain(out, coeff, xfeat, yfeat, bmats, spread, *,
@@ -1227,14 +1270,22 @@ def resample_twined_chain_plain(out, coeff, xfeat, yfeat, bmats, spread, *,
                                 pick: ChainPickup, row0: int = 0,
                                 face_rows: int = 0, precise: bool = False,
                                 tap_valid: bool = False, score=None,
-                                recip_step: float = 1.0):
+                                recip_step: float = 1.0, blocks=None):
     """The twined chain kernel's computation in plain PyTorch, with its
     signature: ``twined_chain_operands`` (the score, where asked, by
     ``synopsis.facet_score`` of ``synopsis.deflect`` of the chain's
-    rays), then ``resample_twined_plain`` on them. Runs on any
+    rays), then ``resample_twined_plain`` on them; with ``blocks``,
+    written into the listed blocks only (``_listed``). Runs on any
     device."""
     _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
                         n_taps, tmode, pick, face_rows, tap_valid, score)
+    _check_blocks(out, blocks)
+    if blocks is not None:
+        return _listed(resample_twined_chain_plain, out, score, blocks,
+                       coeff, xfeat, yfeat, bmats, spread, degree=degree,
+                       n_taps=n_taps, tmode=tmode, pick=pick, row0=row0,
+                       face_rows=face_rows, precise=precise,
+                       tap_valid=tap_valid, recip_step=recip_step)
     ops = twined_chain_operands(
         xfeat, yfeat, bmats, spread, tmode=tmode, pick=pick, row0=row0,
         face_rows=face_rows, precise=precise, tap_valid=tap_valid,
@@ -1246,3 +1297,185 @@ def resample_twined_chain_plain(out, coeff, xfeat, yfeat, bmats, spread, *,
                                        "dvy")),
         spread, degree=degree, n_taps=n_taps,
         tap_weights=ops["tap_weights"], wrap_x=ops["wrap_x"])
+
+
+# ---------------------------------------------------------------------------
+# the compact grid of the chain forms: a facet's launch over the blocks
+# its rays can reach (the TPU kernels' ``tiles``)
+# ---------------------------------------------------------------------------
+
+# the chain forms' blocks, x by y (BLOCK_X, BLOCK_Y in
+# csrc/resample_common.cuh)
+CHAIN_BLOCK = (32, 8)
+
+
+def block_grid(height: int, width: int):
+    """(nby, nbx): the chain forms' 32x8 blocks over an (H, W) window,
+    the ragged edge included; block (by, bx) has the index
+    by * nbx + bx."""
+    bx, by = CHAIN_BLOCK
+    return -(-height // by), -(-width // bx)
+
+
+def block_pixels(blocks, height: int, width: int):
+    """The (H, W) bool plane of the pixels of the listed ``blocks``."""
+    nby, nbx = block_grid(height, width)
+    flag = torch.zeros(nby * nbx, dtype=torch.bool, device=blocks.device)
+    flag[blocks.long()] = True
+    bx, by = CHAIN_BLOCK
+    return flag.view(nby, nbx).repeat_interleave(by, 0).repeat_interleave(
+        bx, 1)[:height, :width]
+
+
+def list_blocks(hit):
+    """The block list of an (H, W) bool plane: every 32x8 block that
+    holds a True pixel, and the eight blocks around it (a margin, so
+    that a difference in contraction between the coverage pass and a
+    launch cannot drop a pixel), as int32 indices by * nbx + bx in
+    ascending order."""
+    h, w = hit.shape
+    nby, nbx = block_grid(h, w)
+    bx, by = CHAIN_BLOCK
+    grid = torch.zeros((nby * by, nbx * bx), dtype=torch.bool,
+                       device=hit.device)
+    grid[:h, :w] = hit
+    flags = grid.view(nby, by, nbx, bx).any(3).any(1)
+    near = torch.nn.functional.max_pool2d(
+        flags[None, None].to(torch.float32), 3, stride=1, padding=1)[0, 0]
+    return torch.nonzero(near.reshape(-1) > 0).reshape(-1).to(torch.int32)
+
+
+def _check_blocks(out, blocks):
+    if blocks is not None and (
+            blocks.dtype != torch.int32 or blocks.dim() != 1
+            or not blocks.is_contiguous() or blocks.device != out.device):
+        raise ValueError("blocks must be a contiguous int32 list on out's "
+                         "device")
+
+
+def _list_args(blocks):
+    """(pointer, count) of a block list for the chain forms' C entry
+    points: (None, 0) for the whole window."""
+    return (None, 0) if blocks is None else (blocks.data_ptr(),
+                                            blocks.numel())
+
+
+def _launched(out, blocks):
+    """The 32x8 blocks a chain form's launch covers."""
+    if blocks is not None:
+        return blocks.numel()
+    nby, nbx = block_grid(*out.shape[:2])
+    return nby * nbx
+
+
+def _listed(plain, out, score, blocks, *args, **kw):
+    """A chain form's plain version over the listed ``blocks``: the
+    window computed into fresh buffers by ``plain``, then the listed
+    blocks' pixels (and scores) written into ``out`` (and ``score``),
+    every other pixel keeping its contents, as the kernel leaves them."""
+    keep = block_pixels(blocks, *out.shape[:2])
+    full = torch.empty_like(out)
+    full_score = None if score is None else torch.empty_like(score)
+    plain(full, *args, score=full_score, **kw)
+    out.copy_(torch.where(keep[..., None], full, out))
+    if score is not None:
+        score.copy_(torch.where(keep, full_score, score))
+    return out
+
+
+def _check_cover(xfeat, yfeat, bmats, tmode, pick, face_rows, spread,
+                 n_taps):
+    if not isinstance(pick, ChainPickup) or pick.smode not in _CHAIN_SMODES:
+        raise ValueError("pick must be a ChainPickup with smode cubemap, "
+                         "biatan6 or mount")
+    if tmode not in _CHAIN_TMODES:
+        raise ValueError(f"unknown tmode {tmode!r}")
+    sets = 1 if spread is None else 2
+    nfx, nfy = _feature_rows(tmode)
+    if xfeat.dim() != 2 or yfeat.dim() != 2 or xfeat.shape[0] != sets * nfx \
+            or yfeat.shape[0] != sets * nfy:
+        raise ValueError(f"features {tuple(xfeat.shape)}/"
+                         f"{tuple(yfeat.shape)} do not fit tmode {tmode!r}")
+    _check_bmats(xfeat, xfeat, yfeat, bmats, face_rows)
+    if spread is not None:
+        _spread_taps(spread, n_taps, xfeat.device)
+        if pick.smode != "mount":
+            raise ValueError("a twined coverage tests taps against a "
+                             "mount's window: mount sources only")
+
+
+def chain_blocks(xfeat, yfeat, bmats, *, tmode: str, pick: ChainPickup,
+                 row0: int = 0, face_rows: int = 0, spread=None,
+                 n_taps: int = 0, precise: bool = False):
+    """The coverage pass of the chain forms' compact grid: the block list
+    (``list_blocks``) of the pixels that a chain launch with these
+    operands would write as something other than 0 / ``synopsis.LOWEST``
+    over the window of the features, (H, W) = (yfeat.shape[1],
+    xfeat.shape[1]): untwined (``spread`` None), where the centre ray's
+    pickup hits; twined (the doubled feature sets and ``n_taps`` of
+    ``spread``; a mount source, whose taps are tested), where some tap's
+    deflected ray passes the window test, over every tap, so that the
+    list serves each one-tap launch of the spread's taps. Returns the
+    int32 list on the features' device; on the card the count is read
+    back once (a synchronisation: the list is built once per plan).
+    CUDA tensors go through the kernel (csrc/chain_blocks.cu,
+    ``chain_blocks.launches`` counts its launches); CPU tensors through
+    ``chain_blocks_plain``."""
+    _check_cover(xfeat, yfeat, bmats, tmode, pick, face_rows, spread,
+                 n_taps)
+    kw = dict(tmode=tmode, pick=pick, row0=row0, face_rows=face_rows,
+              spread=spread, n_taps=n_taps, precise=precise)
+    device = xfeat.device
+    if device.type == "cpu":
+        return chain_blocks_plain(xfeat, yfeat, bmats, **kw)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    fn = _BLOCKS.get("envutil_chain_blocks")
+    h, w = yfeat.shape[1], xfeat.shape[1]
+    nby, nbx = block_grid(h, w)
+    n = nby * nbx
+    # one scratch allocation: the flags (2n bytes), then, 16-byte
+    # aligned, the list and its count (n + 1 ints); the list returned is
+    # a view of it
+    at = -(-2 * n // 16) * 16
+    scratch = torch.empty(at + 4 * (n + 1), dtype=torch.uint8, device=device)
+    flags = scratch[:2 * n]
+    listed = scratch[at:].view(torch.int32)
+    blocks, count = listed[:n], listed[n:]
+    ints, floats = _pickup_arrays(pick)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(flags.data_ptr(), blocks.data_ptr(), count.data_ptr(),
+                 xfeat.data_ptr(), yfeat.data_ptr(), bmats.data_ptr(),
+                 None if spread is None else spread.data_ptr(), ints, floats,
+                 h, w, int(row0), int(face_rows), _CHAIN_TMODES[tmode],
+                 int(n_taps), int(precise), stream)
+    if err != 0:
+        raise RuntimeError(f"chain_blocks kernel launch failed: CUDA error "
+                           f"{err}")
+    chain_blocks.launches += 1
+    return blocks[:int(count.item())]
+
+
+chain_blocks.launches = 0
+
+
+def chain_blocks_plain(xfeat, yfeat, bmats, *, tmode: str,
+                       pick: ChainPickup, row0: int = 0, face_rows: int = 0,
+                       spread=None, n_taps: int = 0, precise: bool = False):
+    """The coverage pass in plain PyTorch, with its signature: the
+    validity mask of ``planar_chain_coords`` (untwined) or the tap
+    weights of ``twined_chain_operands`` with ``tap_valid`` (twined),
+    reduced to the block list by ``list_blocks``. Runs on any device."""
+    _check_cover(xfeat, yfeat, bmats, tmode, pick, face_rows, spread,
+                 n_taps)
+    if spread is None:
+        hit = planar_chain_coords(xfeat, yfeat, bmats, tmode=tmode,
+                                  pick=pick, row0=row0,
+                                  face_rows=face_rows)[2]
+    else:
+        hit = twined_chain_operands(
+            xfeat, yfeat, bmats, spread, tmode=tmode, pick=pick, row0=row0,
+            face_rows=face_rows, precise=precise,
+            tap_valid=True)["tap_weights"].bool().any(0)
+    return list_blocks(hit)

@@ -51,6 +51,16 @@ kernel, and sums the taps' combines with their weights: the exact
 path's ``synopsis.twined``, where every facet's ray deflects and the
 champion is chosen anew for each tap.
 
+The chain forms run on a compact grid, the TPU kernels' ``tiles``
+(JAX ``plan_passes`` marks a facet's tiles without a hit ``ZERO_PASS``
+and no kernel runs over them): a coverage pass (``block_list``, kept
+per plan) lists the 32x8 blocks of the window that a facet's rays can
+reach, and its chain launches cover only those, over a frame buffer or
+stack filled with 0 (and LOWEST scores) before. A source that covers
+every ray (cubemap sources, full spheres and fisheyes) has no list and
+its launch covers the whole window, as do the inline kernels and the
+planes forms.
+
 ``render_fast_mesh`` renders a frame's output rows in bands, each on
 its device through the route the whole frame takes (--mesh).
 
@@ -569,30 +579,110 @@ def planar_frame(plan, src, out=None, device=None):
     the planar kernel, over the whole window for cubemap sources (the K5
     form) and over a zero-filled canvas through the validity mask (the
     K2 form) for other sources, or ``twined_coords`` and the planar
-    twined kernel. Every form writes every pixel, 0 where the source
-    (or, twined, every tap) misses: the JAX finish
-    ``where(mask, canvas, 0)``. ``out`` and the return value are as for
-    ``fused_frame``."""
+    twined kernel. Every pixel is written, 0 where the source (or,
+    twined, every tap) misses: the JAX finish ``where(mask, canvas, 0)``;
+    a chain form on the plan's block list (``block_list``, the compact
+    grid) fills ``out`` with 0 and launches over the listed blocks only,
+    so a reused ``out`` never shows an earlier frame's pixels. ``out``
+    and the return value are as for ``fused_frame``."""
     out = _frame_buffer(plan, src, out, device)
     launch(plan, src, out, inline=False)
     return _finish(plan, src, out)
 
 
-def chain_launch(plan, src, out, score=None):
+def cover_operands(plan, src):
+    """(features, keywords) of the coverage pass
+    (``ops/resample.chain_blocks``) of the plan's chain launches: those
+    of its facet's twined plan for a one-tap plan of a twined stitch
+    (``_TAP_OF``), whose coverage is the union over every tap."""
+    owner = _TAP_OF.get(plan, plan)
+    ops = chain_operands(owner, src)
+    kw = {k: ops[k] for k in ("tmode", "pick", "row0", "face_rows")}
+    if owner.spread is not None:
+        kw.update(spread=ops["spread"], n_taps=ops["n_taps"],
+                  precise=ops["precise"])
+    return [ops[k] for k in ("xfeat", "yfeat", "bmats")], kw
+
+
+# per plan (a stitch's one-tap plans under their facet's twined plan,
+# ``_TAP_OF``), the compact grid's block list of its chain launches
+_BLOCK_LISTS = weakref.WeakKeyDictionary()
+
+
+def block_list(plan, src):
+    """The compact grid of the plan's chain launches: the int32 list of
+    the window's 32x8 blocks that its rays can reach
+    (``ops/resample.chain_blocks``, the coverage pass, with a margin of
+    one block), on the source's device, or None where the launch covers
+    the whole window: a source that covers every ray
+    (``_covers_every_ray``; a chain launch with ``tap_valid`` off), or a
+    list that holds every block. Built once per plan and source layout
+    (counted in ``block_list.builds``) and kept as long as the plan
+    lives; a one-tap plan of a twined stitch takes its facet's twined
+    plan's list (``_TAP_OF``), whose coverage is the union over every
+    tap of the spread, so one pass serves every tap and frame. The plan
+    must have no generic chain."""
+    if _covers_every_ray(src):
+        return None
+    owner = _TAP_OF.get(plan, plan)
+    spl = src.spl
+    key = (src.static, tuple(spl.core_shape), spl.pad, tuple(spl.bcs),
+           spl.coeff.device)
+    per_plan = _BLOCK_LISTS.setdefault(owner, {})
+    if key not in per_plan:
+        feats, kw = cover_operands(owner, src)
+        blocks = R.chain_blocks(*feats, **kw)
+        nby, nbx = R.block_grid(feats[1].shape[1], feats[0].shape[1])
+        per_plan[key] = None if blocks.numel() == nby * nbx else blocks
+        block_list.builds += 1
+    return per_plan[key]
+
+
+block_list.builds = 0
+
+
+def chain_launch(plan, src, out, score=None, filled=False):
     """One launch of a chain form over the plan's window into ``out``
     (H, W, C_source): the planar chain kernel, or the twined chain
     kernel for a twined plan. The plan must have no generic chain. With
     ``score`` (H, W; untwined, or twined with one tap) the kernel writes
-    each pixel's voronoi score there as well."""
+    each pixel's voronoi score there as well. Where the plan has a block
+    list (``block_list``) the launch covers only the listed blocks, and
+    ``out`` is filled with 0 and ``score`` with ``synopsis.LOWEST``
+    first, what a full-window launch writes outside them, unless
+    ``filled`` says the caller has done so (``multi_frame`` fills its
+    stacks once a frame). Returns the list, or None."""
     ops = chain_operands(plan, src)
+    blocks = block_list(plan, src)
+    if blocks is not None and not filled:
+        out.zero_()
+        if score is not None:
+            score.fill_(SYN.LOWEST)
     tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
     if plan.spread is None:
         R.resample_planar_chain(out, src.spl.coeff, *tensors, score=score,
-                                recip_step=src.static.recip_step, **ops)
+                                recip_step=src.static.recip_step,
+                                blocks=blocks, **ops)
     else:
         R.resample_twined_chain(out, src.spl.coeff, *tensors,
                                 ops.pop("spread"), score=score,
-                                recip_step=src.static.recip_step, **ops)
+                                recip_step=src.static.recip_step,
+                                blocks=blocks, **ops)
+    return blocks
+
+
+def blocks_text(plan, src, what):
+    """What ``--verbose`` says of a launch's grid: for a chain form
+    (``what``, the kernel's name), its listed blocks against the
+    window's; else nothing."""
+    if not what.endswith("_chain"):
+        return ""
+    y0, y1, x0, x1 = frame_window(plan)
+    nby, nbx = R.block_grid(y1 - y0, x1 - x0)
+    blocks = block_list(plan, src)
+    if blocks is None:
+        return f" over all {nby * nbx} 32x8 blocks"
+    return f" over {blocks.numel()} of {nby * nbx} 32x8 blocks"
 
 
 def planes_launch(plan, src, out, score=None):
@@ -676,11 +766,13 @@ def route(plan, src, score=False, inline=True):
     return "chain"
 
 
-def launch(plan, src, out, score=None, inline=True):
+def launch(plan, src, out, score=None, inline=True, filled=False):
     """One kernel launch over the plan's window into ``out``
     (H, W, C_source), of the form ``route`` chooses. With ``score``
     (H, W; untwined, or twined with one tap) the facet's voronoi score
-    is written there too. Returns the kernel's name."""
+    is written there too. Every pixel of ``out`` (and ``score``) is
+    written: a chain form on its plan's block list fills the rest first
+    unless ``filled`` (``chain_launch``). Returns the kernel's name."""
     form = "twined" if plan.spread is not None else "planar"
     how = route(plan, src, score is not None, inline)
     if how == "planes":
@@ -689,22 +781,25 @@ def launch(plan, src, out, score=None, inline=True):
     if how == "inline":
         inline_launch(plan, src, out)
         return "resample_inline" + ("_twined" if form == "twined" else "")
-    chain_launch(plan, src, out, score)
+    chain_launch(plan, src, out, score, filled)
     return f"resample_{form}_chain"
 
 
-def facet_into(plan, src, slot, score=None):
+def facet_into(plan, src, slot, score=None, filled=False):
     """Render one facet of a stitch (``plan`` is its entry of
     ``facet_plans``, or of one tap's ``tap_plans``) into ``slot``
     (H, W, nchannels), what the exact path's ``environment.lookup`` gives
     for it at that tap's rays: one ``launch`` (with ``score`` (H, W), the
     voronoi route, which writes the facet's score; without it,
     hdr_merge's, the route a single-facet frame takes), then the channel
-    adaptation and brighten (``_finish``). Returns the kernel's name."""
+    adaptation and brighten (``_finish``). ``filled``: ``slot`` holds 0
+    and ``score`` ``synopsis.LOWEST`` wherever this facet's chain launch
+    does not write (``multi_frame``'s fill), so a launch on the compact
+    grid need not fill them. Returns the kernel's name."""
     nch = src.spl.coeff.shape[-1]
     out = slot if nch == slot.shape[-1] else torch.empty(
         slot.shape[:2] + (nch,), dtype=torch.float32, device=slot.device)
-    what = launch(plan, src, out, score)
+    what = launch(plan, src, out, score, filled=filled and out is slot)
     _finish(plan, src, out, slot)
     return what
 
@@ -721,9 +816,13 @@ def multi_frame(plan, sources, device=None, log=None):
     per tap of its spread through the facets' one-tap plans
     (``tap_plans``), reusing the stacks, and sums the taps' combines with
     their weights (``synopsis.twined_stack``), as ``synopsis.twined``
-    sums them on the exact path. Returns the (H, W, nchannels) image
-    tensor on the sources' device; ``log``, a list, receives each
-    launch's kernel name, tap by tap and facet by facet."""
+    sums them on the exact path. Where a facet's chain launches take a
+    block list (``block_list``: the compact grid), the pixel stack is
+    filled with 0 and the score stack with ``synopsis.LOWEST`` once a
+    frame, before the first tap, and each launch writes only its listed
+    blocks. Returns the (H, W, nchannels) image tensor on the sources'
+    device; ``log``, a list, receives each launch's kernel name, tap by
+    tap and facet by facet."""
     _check_kernel_job(plan, sources)
     dev = sources[0].spl.coeff.device
     if any(s.spl.coeff.device != dev for s in sources) or (
@@ -737,11 +836,22 @@ def multi_frame(plan, sources, device=None, log=None):
                         device=dev)
     score = None if syn is SYN.hdr_merge else torch.empty(
         shape, dtype=torch.float32, device=dev)
+    # the compact grid: where some facet's chain launches cover only its
+    # listed blocks, the stacks hold 0 and LOWEST elsewhere, filled once
+    # a frame (every tap of a facet writes the same blocks)
+    scored = score is not None
+    filled = any(route(fp, src, scored) == "chain"
+                 and block_list(fp, src) is not None
+                 for fp, src in zip(facet_plans(plan), sources))
+    if filled:
+        stack.zero_()
+        if scored:
+            score.fill_(SYN.LOWEST)
 
     def stitch(fplans):
         for fi, (fplan, src) in enumerate(zip(fplans, sources)):
             what = facet_into(fplan, src, stack[fi],
-                              None if score is None else score[fi])
+                              None if score is None else score[fi], filled)
             if log is not None:
                 log.append(what)
         if score is None:
@@ -787,11 +897,15 @@ def frame_tensor(plan, sources, verbose: bool = False,
         if verbose:
             n_f = len(sources)
             taps = plan.spread or ((0.0, 0.0, 1.0),)
+            fplans = [facet_plans(plan)] if plan.spread is None else \
+                [one for _w, one in tap_plans(plan)]
             for ti, (cx, cy, w) in enumerate(taps):
                 at = "" if plan.spread is None else \
                     f"tap {ti} ({cx:g}, {cy:g}, weight {w:g}): "
                 for fi, what in enumerate(log[ti * n_f:(ti + 1) * n_f]):
-                    print(f"fastpath: {at}facet {fi}: 1 launch of {what}")
+                    grid = blocks_text(fplans[ti][fi], sources[fi], what)
+                    print(f"fastpath: {at}facet {fi}: 1 launch of {what}"
+                          f"{grid}")
             print(f"fastpath: {plan.synopsis} of {n_f} facets"
                   + ("" if plan.spread is None else
                      f" per tap, {len(taps)} taps")
@@ -806,7 +920,8 @@ def frame_tensor(plan, sources, verbose: bool = False,
         taps = f", {len(plan.spread)} taps" if plan.spread is not None \
             else ""
         print(f"fastpath: 1 launch of {what} over "
-              f"{img.shape[0]}x{img.shape[1]} px{taps}")
+              f"{img.shape[0]}x{img.shape[1]} px{taps}"
+              f"{blocks_text(plan, src, what)}")
     return img
 
 
