@@ -31,28 +31,36 @@ events. The paths:
 - twined, config 3: a smooth biatan6 source -> 1920x1152 stereographic,
   --twine 2, and the lens facet -> 4096x2048 equirect, --twine 2
   (resample_twined_chain);
-- untwined stitches of benchmarks.py, each -> a 4096x2048 equirect
-  through one launch per facet and the synopsis of the stacks
-  (fastpath.multi_frame): config 5 (three 2048x1536 rectilinear facets,
-  voronoi; resample_planar_chain with its score output), the same
+- untwined stitches of benchmarks.py, each -> a 4096x2048 equirect:
+  config 5 (three 2048x1536 rectilinear facets, voronoi), the same
   facets with alpha (voronoi_plus), config 5b (six 1536x1152
   lens-corrected facets, voronoi) and config 5c (three 4096x2048
   brackets, hdr_merge; resample_inline) and config 5d (six 1536x1152
-  rectilinear facets, yaw 60 i), each checked against the exact path
-  and timed per facet, combine and frame;
-- twined stitches through the same route once per tap of the spread
-  (one one-tap launch per facet and tap, the twined chain form with its
-  score for voronoi, resample_inline_twined for hdr_merge brackets,
-  then that tap's combine, summed by weight): config 5d at 2x2 taps
-  (the 4-tap twine its comment in benchmarks.py names) and at 2x1 (what
-  its twine=1 gives), config 5 with alpha and config 5c at 2x2, each
-  against the exact path with the launches counted and timed per
-  facet, combine and frame; config 5d at one tap off the pixel centre;
-  the lens and translated facets stitched under twining (the twined
-  planes form with its score); and a twined stereographic view of the
-  pole of an 8192x4096 smooth sphere (the twined chain form), held
-  against the exact path below 80 degrees of latitude and reported
-  above;
+  rectilinear facets, yaw 60 i), each checked against the exact path.
+  A voronoi stitch renders through the voronoi route
+  (fastpath.voronoi_frame: the champion planes built once per plan by
+  the champion pass, csrc/champion.cu, then one launch per facet,
+  resample_planar_chain in its champion mode, into one frame); the
+  others through the stack route (fastpath.multi_frame: one launch per
+  facet into a pixel stack, resample_planar_chain with its score
+  output, and the synopsis of the stacks), timed per facet, combine and
+  frame; the stack route is timed on the voronoi stitches too, as the
+  reference of ``champion_path``;
+- twined stitches: config 5d at 2x2 taps (the 4-tap twine its comment in
+  benchmarks.py names) and at 2x1 (what its twine=1 gives) through the
+  voronoi route (one launch per facet of resample_twined_chain in its
+  tapsel mode, each tap counted where the facet champions it, added
+  into the frame), config 5 with alpha and config 5c at 2x2 through the
+  stack route once per tap of the spread (one one-tap launch per facet
+  and tap, the twined chain form with its score for voronoi_plus,
+  resample_inline_twined for hdr_merge brackets, then that tap's
+  combine, summed by weight), each against the exact path with the
+  launches counted; config 5d at one tap off the pixel centre; the
+  lens and translated facets stitched under twining (the translated
+  facet through the twined planes form with its champion planes as tap
+  weights); and a twined stereographic view of the pole of an 8192x4096
+  smooth sphere (the twined chain form), held against the exact path
+  below 80 degrees of latitude and reported above;
 - PTO jobs: ``--single 0`` on config 5b (facet 0's 1536x1152 lens
   geometry re-created from all six facets through the inverse lens LUT:
   the coordinate pass and one resample_planar launch a facet, the
@@ -82,17 +90,39 @@ Then --mesh and --shard_table through ``render_frame(mesh_n=4,
 devices=[cuda:0] * 4)`` (``mesh_phases``: four bands on this card, so
 that every band decomposition, band launch and ring hand-over runs on a
 one-card machine; over all cards as well where there are two or more):
-the main path, configs 3, 4 twined, 5, 5d twined at 2x2 taps and the
+the main path, configs 3, 4 twined, 5, 5d twined at 2x2 taps (both
+on the voronoi route, each band with its own champion planes) and the
 degree-9 view, each frame bit-equal to the one-device frame with its
-launches counted and no kernel operands built by its second and third
-frames, its time beside the one-device frame's; --shard_table on the
-main path and config 5 against ``fastpath.exact_frame`` (rtol = atol =
-4e-7); and ``mesh_n=7`` on the 12288-row stripe, which falls back to
-one device with its message.
+launches counted and no kernel operands, block lists or champion
+planes built by its second and third frames, its time beside the
+one-device frame's; --shard_table on the main path and config 5
+against ``fastpath.exact_frame`` (rtol = atol = 4e-7); and
+``mesh_n=7`` on the 12288-row stripe, which falls back to one device
+with its message.
 
 Both chain forms' score outputs are held against their plain versions
 over every small chain case (the twined one at one tap), with the
 pixels required bit-equal to the launch without it.
+
+The voronoi route: every small chain case, untwined and twined, also
+runs as the one facet of a voronoi stitch (``champion_case``): the
+champion kernel's planes against its plain version's (equal away from
+window and face edges), the champion lists against theirs, and the
+chain form's champion mode (untwined) or tapsel mode (twined, 1 and 3
+channels) on those planes against its plain version, float32 and bf16
+tables. At full size (``champion_path``: configs 5, 5b, 5d, 5d at 2x2,
+2x1 and one tap, config 5 on bf16 tables, the lens and translated
+stitch untwined and twined) the champion planes are held against the
+first-wins argmax of the stack route's one-tap scores and against the
+plain pass (equal but at near-tied scores, counted per tap), the frame
+against the stack route (1e-5, window-edge and near-tied pixels
+excluded and counted) and the exact path (5e-3, ``stitch_errors``),
+with F launches a frame, one champion pass per plan and none in later
+frames, no call of the stack route; then timed: the frame single and
+in bursts in turns against the stack route, each facet's launch and
+its plain version beside its bound, the champion pass and its plain
+version beside its bound, the first ``render_frame`` and the peak
+device memory of a frame of each route.
 
 The compact grid: the chain forms launch over a block list, the 32x8
 blocks their rays can reach, which a coverage pass (chain_blocks,
@@ -839,13 +869,42 @@ def band_errors(plan, src, frame, bands, ir_edges):
 
 WRAPPERS = ("resample_inline", "resample_planar", "resample_planar_chain",
             "resample_inline_twined", "resample_twined",
-            "resample_twined_chain", "chain_blocks")
+            "resample_twined_chain", "chain_blocks", "champion_planes",
+            "champion_lists")
+# the launches of the chain forms' champion modes (the voronoi route),
+# counted within their wrappers' launches
+MODES = {"resample_planar_chain:champion": ("resample_planar_chain",
+                                            "champion_launches"),
+         "resample_twined_chain:tapsel": ("resample_twined_chain",
+                                          "tapsel_launches")}
+
+
+COUNTERS = WRAPPERS + tuple(MODES) + ("exact_frame", "multi_frame")
+
+
+@contextlib.contextmanager
+def counting_stack_frames():
+    """``fastpath.multi_frame`` counted (``.calls``) while the block is
+    active: the voronoi route must not call it."""
+    from envutil_tpu_torch.runtime import fastpath as FP
+    stack = FP.multi_frame
+
+    def counted(*a, **kw):
+        counted.calls += 1
+        return stack(*a, **kw)
+    counted.calls = 0
+    FP.multi_frame = counted
+    try:
+        yield counted
+    finally:
+        FP.multi_frame = stack
 
 
 def launch_counts(fn):
-    """Every wrapper's launch count and ``exact_frame``'s set to 0, ``fn()``
-    run and the card synchronised: (its result, {counter: launches} of
-    the counters that moved)."""
+    """Every wrapper's launch count, its champion modes' (MODES) and
+    ``exact_frame``'s set to 0, ``fn()`` run (``fastpath.multi_frame``'s
+    calls counted as "multi_frame") and the card synchronised: (its
+    result, {counter: launches} of the counters that moved)."""
     import torch
     from envutil_tpu_torch.ops import resample as R
     from envutil_tpu_torch.runtime import fastpath as FP
@@ -854,9 +913,18 @@ def launch_counts(fn):
     torch.cuda.synchronize()
     for counter in counters.values():
         counter.launches = 0
-    out = fn()
+    for wrapper, attr in MODES.values():
+        setattr(getattr(R, wrapper), attr, 0)
+    with counting_stack_frames() as stack:
+        out = fn()
     torch.cuda.synchronize()
-    return out, {k: c.launches for k, c in counters.items() if c.launches}
+    moved = {k: c.launches for k, c in counters.items() if c.launches}
+    moved.update({mode: getattr(getattr(R, wrapper), attr)
+                  for mode, (wrapper, attr) in MODES.items()
+                  if getattr(getattr(R, wrapper), attr)})
+    if stack.calls:
+        moved["multi_frame"] = stack.calls
+    return out, moved
 
 
 def render(plan, src, name, want_inline=0, want_planar=0, want=None,
@@ -870,7 +938,7 @@ def render(plan, src, name, want_inline=0, want_planar=0, want=None,
     launches)."""
     import torch
     from envutil_tpu_torch.runtime import render as RD
-    expect = dict.fromkeys(WRAPPERS + ("exact_frame",), 0)
+    expect = dict.fromkeys(COUNTERS, 0)
     expect.update(want or {"resample_inline": want_inline,
                            "resample_planar": want_planar})
     torch.cuda.synchronize()
@@ -1416,29 +1484,7 @@ def chain_vs_plain(plan, src):
     out_p = plain(nan.clone(), *args, **ops)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out_k).all()), "chain kernel output not finite")
-    skip = edge.clone()
-    # coverage is the plain chain's validity (untwined: the ray's window
-    # test; twined: any tap's), not the output's zeros: a covered pixel
-    # whose support lies in an alpha-0 region of the source (a lens crop,
-    # an exclude polygon) holds only the prefilter's tail there and may
-    # round to exactly 0 in one evaluation order and not in the other
-    if spread is None:
-        sx, sy, hit = R.planar_chain_coords(*args[1:4], **{
-            k: ops[k] for k in ("tmode", "pick", "row0", "face_rows")})
-        if src.spl.degree == 0:
-            skip |= near_cell_edge(sx) | near_cell_edge(sy)
-    else:
-        tw = R.twined_chain_operands(*args[1:5], **{
-            k: ops[k] for k in ("tmode", "pick", "row0", "face_rows",
-                                "precise", "tap_valid")})
-        hit = torch.ones(shape[:2], dtype=torch.bool, device=coeff.device) \
-            if tw["tap_weights"] is None else tw["tap_weights"].bool().any(0)
-        if src.spl.degree == 0:
-            for x, y, _w in R.twined_tap_coords(
-                    *(tw[k] for k in ("sx", "sy", "dux", "duy", "dvx",
-                                      "dvy")), args[4], coeff.shape[0],
-                    coeff.shape[1], 0, tw["wrap_x"]):
-                skip |= near_cell_edge(x) | near_cell_edge(y)
+    skip, hit = chain_skip(src, args, ops, spread, edge)
     missed = ~hit & ~edge
     check(not bool(((out_k != 0).any(dim=-1) & missed).any())
           and not bool(((out_p != 0).any(dim=-1) & missed).any()),
@@ -1447,6 +1493,114 @@ def chain_vs_plain(plan, src):
     flip = (out_k == 0).all(dim=-1) != (out_p == 0).all(dim=-1)
     diff = torch.where(skip[..., None], 0.0, (out_k - out_p).abs())
     return float(diff.max()), int(edge.sum()), int(flip.sum()), out_k, out_p
+
+
+def chain_skip(src, args, ops, spread, edge):
+    """(skip, hit), (H, W) each, of a chain launch's comparison with its
+    plain version (``args``: the table, the features and, twined, the
+    spread; ``ops`` its keywords): ``edge`` and, at degree 0, the pixels
+    whose (any tap's) coordinate lies near a cell edge; and the plain
+    chain's coverage (untwined: the ray's window test; twined: any
+    tap's), not the output's zeros: a covered pixel whose support lies
+    in an alpha-0 region of the source (a lens crop, an exclude polygon)
+    holds only the prefilter's tail there and may round to exactly 0 in
+    one evaluation order and not in the other."""
+    import torch
+    from envutil_tpu_torch.ops import resample as R
+    coeff = src.spl.coeff
+    skip = edge.clone()
+    if spread is None:
+        sx, sy, hit = R.planar_chain_coords(*args[1:4], **{
+            k: ops[k] for k in ("tmode", "pick", "row0", "face_rows")})
+        if src.spl.degree == 0:
+            skip |= near_cell_edge(sx) | near_cell_edge(sy)
+        return skip, hit
+    tw = R.twined_chain_operands(*args[1:5], **{
+        k: ops[k] for k in ("tmode", "pick", "row0", "face_rows",
+                            "precise", "tap_valid")})
+    hit = torch.ones(edge.shape, dtype=torch.bool, device=coeff.device) \
+        if tw["tap_weights"] is None else tw["tap_weights"].bool().any(0)
+    if src.spl.degree == 0:
+        for x, y, _w in R.twined_tap_coords(
+                *(tw[k] for k in ("sx", "sy", "dux", "duy", "dvx", "dvy")),
+                args[4], coeff.shape[0], coeff.shape[1], 0, tw["wrap_x"]):
+            skip |= near_cell_edge(x) | near_cell_edge(y)
+    return skip, hit
+
+
+def champion_case(plan, src):
+    """One small chain case as the one facet of a voronoi stitch: the
+    champion kernel's planes (facet 0, over the case's coverage list)
+    against its plain version's, equal away from window and face edges
+    and their best scores within SCORE_BOUND of z; the champion lists
+    (kernel, plain) equal; and the chain form's champion mode (untwined)
+    or tapsel mode (twined, 1 and 3 channels) on the kernel's planes and
+    list, with brighten 1.5 and, twined, adding, against its plain
+    version on the same planes over a canvas of 0.25: within
+    KERNEL_BOUND over the champion pixels (``chain_skip`` excluded), and
+    0.25 untouched elsewhere in both. Returns (pixels whose champion
+    differs away from the edges, best-score error in units of z, mode
+    error or None)."""
+    import torch
+    from envutil_tpu_torch.models import synopsis as SYN
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    ops = FP.chain_operands(plan, src)
+    feats = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
+    spread = ops.pop("spread", None)
+    twined = spread is not None
+    y0, y1, x0, x1 = FP.frame_window(plan)
+    shape = (len(plan.spread) if twined else 1, y1 - y0, x1 - x0)
+    rs = src.static.recip_step
+    ckw = dict(facet=0, tmode=ops["tmode"], pick=ops["pick"],
+               row0=ops["row0"], face_rows=ops["face_rows"], recip_step=rs,
+               blocks=FP.block_list(plan, src))
+    if twined:
+        ckw.update({k: ops[k] for k in ("n_taps", "precise", "tap_valid")},
+                   spread=spread)
+    planes = []
+    for fn in (R.champion_planes, R.champion_planes_plain):
+        best = torch.full(shape, SYN.LOWEST, device="cuda")
+        champ = torch.full(shape, R.NO_CHAMPION, dtype=torch.uint8,
+                           device="cuda")
+        fn(best, champ, *feats, **ckw)
+        planes.append((best, champ))
+    torch.cuda.synchronize()
+    edge = chain_edges(dict(ops, xfeat=feats[0], yfeat=feats[1],
+                            bmats=feats[2]), spread)
+    (bk, ck), (bp, cp) = planes
+    differ = int(((ck != cp) & ~edge).sum())
+    both = (ck != R.NO_CHAMPION) & (cp != R.NO_CHAMPION)
+    best_err = float((bk - bp)[both].abs().max()) / rs if bool(both.any()) \
+        else 0.0
+    lst = R.champion_lists(ck, 1)[0]
+    check(torch.equal(lst, R.champion_lists_plain(ck, 1)[0]),
+          "the champion lists differ from their plain version's")
+    nch = src.spl.coeff.shape[-1]
+    if twined and nch not in (1, 3):
+        return differ, best_err, None
+    args = [src.spl.coeff] + feats + ([spread] if twined else [])
+    mkw = dict(ops, blocks=lst, champ=ck, facet=0, scale=1.5)
+    if twined:
+        mkw.update(tap_valid=False, accumulate=True)
+        forms = R.resample_twined_chain, R.resample_twined_chain_plain
+    else:
+        forms = R.resample_planar_chain, R.resample_planar_chain_plain
+    outs = [torch.full(shape[1:] + (nch,), 0.25, device="cuda")
+            for _ in forms]
+    for form, out in zip(forms, outs):
+        form(out, *args, **mkw)
+    torch.cuda.synchronize()
+    own = (ck == 0).any(0)
+    check(bool((outs[0][~own] == 0.25).all())
+          and bool((outs[1][~own] == 0.25).all()),
+          f"{forms[0].__name__}'s champion mode writes a pixel the facet "
+          f"does not champion")
+    skip, _hit = chain_skip(src, args, dict(ops, tap_valid=ops.get(
+        "tap_valid", False)), spread, edge)
+    diff = torch.where((own & ~skip)[..., None], (outs[0] - outs[1]).abs(),
+                       0.0)
+    return differ, best_err, float(diff.max())
 
 
 def chain_score_vs_plain(plan, src):
@@ -1550,7 +1704,9 @@ def phase_small_chain(coeff_dtype="f32"):
                 [(0.5, -0.25, 1.0)]]
     from envutil_tpu_torch.runtime import fastpath as FP
     worst = {"planar": 0.0, "twined": 0.0, "score": 0.0,
-             "twined score": 0.0}
+             "twined score": 0.0, "champion differing px": 0,
+             "champion score": 0.0, "champion mode": 0.0,
+             "tapsel mode": 0.0, "champion cases": 0, "tapsel cases": 0}
     edges = {"planar": [0, 0], "twined": [0, 0]}
     # the coverage pass: cases, blocks differing from the plain version's,
     # blocks listed, blocks of the windows
@@ -1581,6 +1737,23 @@ def phase_small_chain(coeff_dtype="f32"):
                         cover, (1,) + cover_case(
                             p, src, f"{form} {sname} -> {tname}, "
                             f"{coeff_dtype}"))]
+                differ, best_err, mode_err = champion_case(p, src)
+                what = f"({form}, {sname} -> {tname}, degree {degree}, " \
+                    f"C {nch}, {coeff_dtype})"
+                check(differ == 0, f"the champion kernel's planes differ "
+                      f"from the plain version's at {differ} px {what}")
+                check(best_err <= SCORE_BOUND, f"the champion kernel's "
+                      f"scores differ by {best_err} {what}")
+                worst["champion score"] = max(worst["champion score"],
+                                              best_err)
+                if mode_err is not None:
+                    mode = "tapsel" if form == "twined" else "champion"
+                    check(mode_err <= KERNEL_BOUND, f"the {mode} mode "
+                          f"disagrees with its plain version: {mode_err} "
+                          f"{what}")
+                    worst[f"{mode} mode"] = max(worst[f"{mode} mode"],
+                                                mode_err)
+                    worst[f"{mode} cases"] += 1
             err = chain_score_vs_plain(plan, src)[0]
             check(err <= SCORE_BOUND, f"planar chain kernel's score "
                   f"({sname} -> {tname}) disagrees: {err}")
@@ -1599,13 +1772,26 @@ def phase_small_chain(coeff_dtype="f32"):
               f"{worst['twined']:.3e} (bound {KERNEL_BOUND:g}), planar "
               f"score {worst['score']:.3e} of z, twined score at one tap "
               f"{worst['twined score']:.3e} of z (bound {SCORE_BOUND:g}); "
-              f"pixels bit-equal with and without the score", flush=True)
+              f"pixels bit-equal with and without the score; champion "
+              f"planes equal to plain away from edges, scores "
+              f"{worst['champion score']:.3e} of z; champion mode "
+              f"{worst['champion mode']:.3e}, tapsel mode "
+              f"{worst['tapsel mode']:.3e} (bound {KERNEL_BOUND:g})",
+              flush=True)
     for form in edges:
         print(f"{form} chain vs plain ({coeff_dtype}): {i} cases, worst "
               f"{worst[form]:.3e} "
               f"(bound {KERNEL_BOUND:g}); {edges[form][0]} px at a window "
               f"or face edge excluded, {edges[form][1]} of them with the "
               f"coverage flipped", flush=True)
+    print(f"champion pass vs plain ({coeff_dtype}): {2 * i} cases "
+          f"(untwined and twined), planes equal away from window and face "
+          f"edges, best scores within {worst['champion score']:.3e} of z "
+          f"(bound {SCORE_BOUND:g}), lists equal; champion mode vs plain "
+          f"{worst['champion mode']:.3e} over {worst['champion cases']} "
+          f"cases, tapsel mode {worst['tapsel mode']:.3e} over "
+          f"{worst['tapsel cases']} (1 and 3 channels; bound "
+          f"{KERNEL_BOUND:g}), untouched pixels kept", flush=True)
     print(f"coverage pass vs plain ({coeff_dtype}): {cover[0]} cases "
           f"(untwined and twined, partial sources), {cover[1]} blocks in one "
           f"list and not the other (none allowed), {cover[2]} of {cover[3]} "
@@ -2064,16 +2250,23 @@ COMPACT = {}
 def full_window():
     """Every chain launch over its whole window while the block is
     active: ``fastpath.block_list`` answers None, as it does for a source
-    that covers every ray. The comparison and timing of the compact grid
-    against full-window launches use it; the program has no such
-    switch."""
+    that covers every ray; and the voronoi route's champion planes are
+    built anew at every frame (``fastpath._build_champions``, kept
+    nowhere), their pass over the whole windows. The comparison and
+    timing of the compact grid against full-window launches use it; the
+    program has no such switch."""
     from envutil_tpu_torch.runtime import fastpath as FP
-    listed = FP.block_list
+    listed, kept = FP.block_list, FP.champion_planes
+
+    def fresh(plan, sources):
+        return FP._build_champions(plan, sources)
+    fresh.builds = kept.builds
     FP.block_list = lambda plan, src: None
+    FP.champion_planes = fresh
     try:
         yield
     finally:
-        FP.block_list = listed
+        FP.block_list, FP.champion_planes = listed, kept
 
 
 def ab_turns(fa, fb, single=20, bursts=5, burst=20):
@@ -2460,7 +2653,7 @@ def hdr_condition(px_list, brightens, out):
 
 
 def stitch_errors(plan, sources, frame, stack, score, chunk=128,
-                  amplify=None):
+                  amplify=None, skipped=None):
     """A stitch's ``frame`` and its facets' slots against the port's
     exact path on the card, in row chunks: each facet rendered into its
     slot of ``stack`` (and ``score``, None for hdr_merge) as
@@ -2476,7 +2669,9 @@ def stitch_errors(plan, sources, frame, stack, score, chunk=128,
     quality sum near 0). Returns (frame max abs diff, slot max abs diff,
     window-edge px, champion-flip or ill-conditioned px); ``stack`` and
     ``score`` hold the last tap's slots. ``amplify`` (a ``--single``
-    job's) brightens the exact frame as ``render_frame`` brightens it."""
+    job's) brightens the exact frame as ``render_frame`` brightens it.
+    ``skipped``, a list, receives the (H, W) plane of the excluded
+    pixels."""
     import torch
     from envutil_tpu_torch.models import environment as E
     from envutil_tpu_torch.models import stepper as ST
@@ -2548,6 +2743,8 @@ def stitch_errors(plan, sources, frame, stack, score, chunk=128,
             dim=-1)
         worst = max(worst, float(torch.where(edge[r0:r1] | other[r0:r1],
                                              0.0, diff).max()))
+    if skipped is not None:
+        skipped.append(edge | other)
     return worst, worst_slot, int(edge.sum()), int((other & ~edge).sum())
 
 
@@ -2635,6 +2832,396 @@ def facet_vs_plain(fplan, src, scored):
     return rec
 
 
+# ---- the voronoi route: champion planes, champion and tapsel modes ------
+
+# the voronoi route's frame against the stack route's (multi_frame) on the
+# card: the same champions from the same scores and the same spline at
+# the same coordinates; the stack route brightens each tap's value and
+# then sums, this route sums and then brightens, a few ulps apart
+STACK_BOUND = 1e-5
+# the champion planes, kernel against plain version (or against the
+# argmax of the stack route's one-tap scores): two facets' scores within
+# this relative margin may swap the champion under an ulp of a ray (the
+# plain version's transcendentals are PyTorch's on the card); such
+# pixels are counted, and held to TIE_SHARE of a tap's pixels
+TIE_REL = 1e-6
+TIE_SHARE = 1e-3
+# per stitch name, the record of champion_path
+CHAMPION = {}
+
+
+def tap_scores(plan, sources):
+    """(K, F, H, W) float32: the voronoi scores that the stack route's
+    launches write (``fastpath.launch`` with a score plane; per tap of a
+    twined stitch, its one-tap plans), on the card."""
+    import torch
+    from envutil_tpu_torch.runtime import fastpath as FP
+    taps = [FP.facet_plans(plan)] if plan.spread is None else \
+        [one for _w, one in FP.tap_plans(plan)]
+    y0, y1, x0, x1 = FP.frame_window(plan)
+    out = torch.empty((len(taps), len(sources), y1 - y0, x1 - x0),
+                      device="cuda")
+    for k, fplans in enumerate(taps):
+        for f, (fp, src) in enumerate(zip(fplans, sources)):
+            buf = torch.empty((y1 - y0, x1 - x0, src.spl.coeff.shape[-1]),
+                              device="cuda")
+            FP.launch(fp, src, buf, out[k, f])
+    return out
+
+
+def first_wins(scores):
+    """(K, H, W) uint8: per tap and pixel the first facet of the largest
+    score (``NO_CHAMPION`` where every score is LOWEST), computed
+    without torch.max's tie order; and the (K, H, W) near-tie mask, the
+    two best scores within TIE_REL of each other."""
+    import torch
+    from envutil_tpu_torch.models import synopsis as SYN
+    from envutil_tpu_torch.ops import resample as R
+    best = scores.amax(dim=1, keepdim=True)
+    idx = torch.arange(scores.shape[1], device=scores.device).view(
+        1, -1, 1, 1)
+    first = torch.where(scores == best, idx, scores.shape[1]).amin(dim=1)
+    first = torch.where(best[:, 0] > SYN.LOWEST, first, R.NO_CHAMPION)
+    top2 = torch.topk(scores, min(2, scores.shape[1]), dim=1).values
+    tie = (top2[:, -1] > SYN.LOWEST) & (
+        (top2[:, 0] - top2[:, -1]).abs() <= TIE_REL * top2[:, 0].abs())
+    return first.to(torch.uint8), tie
+
+
+@contextlib.contextmanager
+def plain_champions():
+    """The champion pass on its plain versions while the block is active
+    (the comparison in the script only; the program has no such
+    switch)."""
+    from envutil_tpu_torch.ops import resample as R
+    real = R.champion_planes, R.champion_lists
+    R.champion_planes, R.champion_lists = (R.champion_planes_plain,
+                                           R.champion_lists_plain)
+    try:
+        yield
+    finally:
+        R.champion_planes, R.champion_lists = real
+
+
+def champion_bound(plan, sources, champs):
+    """(bound ms, by, bytes, ops ms) of the champion pass of a stitch,
+    counted from this run's data: per facet on the kernel route, over
+    the pixels of its coverage list (the whole window where it has
+    none), the chain (untwined: one ray, its normalisation and the
+    pickup; twined: three rays, the derivative rays) and K deflections
+    and window tests; bytes: the champion planes written once and the
+    features read."""
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    k, h, w = champs.planes.shape
+    ops, moved = 0, champs.planes.numel()
+    for fp, src in zip(FP.facet_plans(plan), sources):
+        if FP.route(fp, src, True) == "planes":
+            continue
+        cops = FP.chain_operands(fp, src)
+        blocks = FP.block_list(fp, src)
+        n_px = h * w if blocks is None else blocks.numel() * 256
+        chain = TARGET_FLOPS[cops["tmode"]] + 12
+        test = pickup_flops(cops["pick"])
+        if plan.spread is None:
+            ops += n_px * (chain + test)
+        else:
+            ops += n_px * (3 * chain + (21 if plan.twine_precise else 6)
+                           + k * (12 + test))
+        moved += sum(cops[t].numel() * 4 for t in ("xfeat", "yfeat",
+                                                   "bmats"))
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOPS * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
+            else "operations", moved, ops_ms)
+
+
+def mode_bound(fplan, src, champs, facet):
+    """(bound ms, by, bytes, ops ms) of one facet's launch on the voronoi
+    route, counted from this run's data whatever implements it: the
+    table entries under the taps the facet champions, counted once, the
+    champion bytes of its listed pixels read and its champion pixels
+    written (twined: read and written, the launch adds); operations: the
+    chain of every champion pixel (twined: three rays and pickups and the
+    derivatives) and the spline (and deflection) of every champion tap.
+    A translated facet's planes form reads its operand planes and mask
+    over the window as well."""
+    import torch
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    coeff, n = src.spl.coeff, src.spl.degree
+    nch = coeff.shape[-1]
+    own = champs.planes == facet
+    px = own.any(0)
+    n_own = int(px.sum())
+    listed = champs.lists[facet].numel() * 256 * champs.planes.shape[0]
+    planes = FP.route(fplan, src, True) == "planes"
+    window = FP.frame_window(fplan)
+    if fplan.spread is None:
+        if planes:
+            sx, sy, _m, _z = FP.coords(fplan, window, src)
+        else:
+            cops = FP.chain_operands(fplan, src)
+            sx, sy, _m = R.planar_chain_coords(*(cops[k] for k in (
+                "xfeat", "yfeat", "bmats")), **{k: cops[k] for k in (
+                    "tmode", "pick", "row0", "face_rows")})
+        table = touched_bytes(coeff, sx[px], sy[px], n)
+        pairs, extra = n_own, (3 * sx.numel() * 4 if planes else listed)
+        per_px = 0 if planes else TARGET_FLOPS[
+            cops["tmode"]] + 12 + pickup_flops(cops["pick"])
+        spline = spline_flops(n, nch)
+        out_bytes = n_own * nch * 4
+    else:
+        if planes:
+            tw = FP.twined_coords(fplan, window, src, tap_valid=False)
+            per_px = 0
+            extra = 6 * tw["sx"].numel() * 4 + own.numel()
+        else:
+            cops = FP.chain_operands(fplan, src)
+            tw = R.twined_chain_operands(*(cops[k] for k in (
+                "xfeat", "yfeat", "bmats", "spread")), **{
+                    k: cops[k] for k in ("tmode", "pick", "row0",
+                                         "face_rows", "precise")})
+            per_px = 3 * (TARGET_FLOPS[cops["tmode"]] + 12
+                          + pickup_flops(cops["pick"])) \
+                + (21 if fplan.twine_precise else 6) + 8
+            extra = listed
+        spread = FP._spread_tensor(fplan.spread, coeff.device)
+        table, pairs = live_tap_table(coeff, n, dict(
+            tw, tap_weights=own.to(torch.uint8)), spread)
+        spline = 4 + spline_flops(n, nch) + 2 * nch
+        out_bytes = 2 * n_own * nch * 4
+    moved = table + out_bytes + extra
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = (n_own * per_px + pairs * spline) / F32_FLOPS * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
+            else "operations", moved, ops_ms)
+
+
+def mode_plain(fplan, src, frame, champs, facet):
+    """A callable that runs one facet's launch on the voronoi route as
+    the kernels' plain versions do it, on the same operands, into
+    ``frame``."""
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    if FP.route(fplan, src, True) == "planes":
+        return None
+    ops = FP.chain_operands(fplan, src)
+    args = [src.spl.coeff] + [ops.pop(k) for k in ("xfeat", "yfeat",
+                                                    "bmats")]
+    kw = dict(ops, blocks=champs.lists[facet], champ=champs.planes,
+              facet=facet, scale=src.static.brighten)
+    if fplan.spread is None:
+        return lambda: R.resample_planar_chain_plain(frame, *args, **kw)
+    args.append(kw.pop("spread"))
+    kw.update(tap_valid=False, accumulate=True)
+    return lambda: R.resample_twined_chain_plain(frame, *args, **kw)
+
+
+def champion_path(name, plan, sources, frame, first_ms, skip, first_peak):
+    """The voronoi route of one stitch at full size, after its first
+    ``render_frame`` (``frame``, the host frame; ``first_ms``; its peak
+    device memory ``first_peak`` in MiB), held and timed:
+
+    - the champion planes the first frame built against the first-wins
+      argmax of the stack route's one-tap scores (``tap_scores``; the
+      same device functions score both) and against the champion pass's
+      plain versions on the card: equal but at near-tied scores, counted
+      per tap (TIE_SHARE); the champion lists against the plain
+      version's, equal; torch.max's index (the stack route's
+      ``voronoi_stack``) the first maximum on this card too;
+    - the frame against the stack route (``multi_frame``) at STACK_BOUND,
+      ``skip`` (window-edge and near-tied pixels of ``stitch_errors``)
+      excluded and counted, and its max over every pixel beside it
+      (untwined with brighten 1: bit-equal); a second frame builds no
+      champion planes and makes F launches; the frame with the champion
+      pass over full windows (``full_window``) bit-equal;
+    - CUDA-event times: the frame single (median of 10) and in bursts of
+      10 (median of 3) in turns against the stack route (``ab_turns``),
+      each facet's launch (median of 10) and its plain version (median
+      of 3) beside its bound (``mode_bound``), the champion pass as a
+      plan builds it (the count read back included; median of 5) and its
+      plain version (median of 3) beside its bound, and the lists alone;
+      the peak device memory of a frame of each route (the champion
+      planes kept per plan, the stack route's stacks per frame).
+
+    Records and returns the record in CHAMPION[name]."""
+    import torch
+    from envutil_tpu_torch.ops import resample as R
+    from envutil_tpu_torch.runtime import fastpath as FP
+    champs = FP.champion_planes(plan, sources)
+    k, h, w = champs.planes.shape
+    n_f = len(sources)
+    scores = tap_scores(plan, sources)
+    want, tie = first_wins(scores)
+    _best, by_max = torch.max(scores, dim=1)
+    owned = want != R.NO_CHAMPION
+    max_first = bool(torch.equal(by_max.to(torch.uint8)[owned], want[owned]))
+    check(max_first, f"{name}: torch.max's champion is not the first "
+          f"maximum on this card")
+    vs_stack = champs.planes != want
+    del scores, _best, by_max
+    with plain_champions():
+        plain = FP._build_champions(plan, sources)
+    vs_plain = champs.planes != plain.planes
+    torch.cuda.synchronize()
+    # the kernels score by the same device functions, rounded step by
+    # step: their planes equal the argmax but at ties; the plain version
+    # may also flip a pixel at a window edge (``skip``)
+    untied = (int((vs_stack & ~tie).sum()),
+              int((vs_plain & ~tie & ~skip).sum()))
+    tied = [int(t) for t in (vs_plain & (tie | skip)).sum(dim=(1, 2))]
+    check(untied == (0, 0), f"{name}: the champion planes differ from the "
+          f"stack route's argmax at {untied[0]} and from the plain "
+          f"version's at {untied[1]} pixels whose scores are not tied, "
+          f"away from window edges")
+    check(max(tied) <= TIE_SHARE * h * w, f"{name}: {tied} near-tied or "
+          f"window-edge pixels per tap with another champion in the plain "
+          f"version")
+    lists_equal = all(torch.equal(a, b) for a, b in zip(champs.lists,
+                                                        plain.lists))
+    check(lists_equal or bool(vs_plain.any()), f"{name}: the champion "
+          f"lists differ from the plain version's on equal planes")
+    del plain, vs_stack, vs_plain
+    # the frame against the stack route's
+    got = torch.from_numpy(frame).cuda()
+    stack = FP.multi_frame(plan, sources)
+    diff = (got - stack).abs().amax(dim=-1)
+    all_err = float(diff.max())
+    err = float(torch.where(skip, 0.0, diff).max())
+    n_skip = int(skip.sum())
+    bit_equal = bool(torch.equal(got, stack))
+    check(err <= STACK_BOUND, f"{name}: the voronoi route's frame differs "
+          f"from the stack route's by {err:.3e}")
+    if plan.spread is None and all(s.static.brighten == 1.0
+                                   for s in sources):
+        check(bit_equal, f"{name}: untwined, the voronoi route's frame is "
+              f"not bit-equal to the stack route's")
+    del stack
+    again, n2 = launch_counts(lambda: FP.voronoi_frame(plan, sources))
+    check(torch.equal(again, got), f"{name}: a second frame differs")
+    check(not any(c in n2 for c in ("champion_planes", "champion_lists",
+                                    "chain_blocks", "multi_frame"))
+          and sum(n2.get(c, 0) for c in ("resample_planar_chain",
+                                         "resample_twined_chain",
+                                         "resample_planar",
+                                         "resample_twined")) == n_f,
+          f"{name}: a second frame's launches {n2}")
+    with full_window():
+        full = FP.voronoi_frame(plan, sources)
+    check(torch.equal(full, got), f"{name}: the frame with the champion "
+          f"pass over full windows differs")
+    del again, full
+    # times
+    fl, fs = ab_turns(lambda: FP.voronoi_frame(plan, sources),
+                      lambda: FP.multi_frame(plan, sources), single=10,
+                      bursts=3, burst=10)
+    scratch = torch.zeros((h, w, plan.nchannels), device="cuda")
+    facets = []
+    for fi, (fp, src) in enumerate(zip(FP.facet_plans(plan), sources)):
+        what = FP.champion_launch(fp, src, scratch, champs, fi)
+        rec = dict(kernel=what, blocks=champs.lists[fi].numel(),
+                   ms=events_ms(lambda fp=fp, s=src, i=fi:
+                                FP.champion_launch(fp, s, scratch, champs,
+                                                   i), 10))
+        plain_launch = mode_plain(fp, src, scratch, champs, fi)
+        rec["plain_ms"] = None if plain_launch is None else \
+            events_ms(plain_launch, 3)
+        b = mode_bound(fp, src, champs, fi)
+        rec.update(bound_ms=b[0], bound_by=b[1])
+        facets.append(rec)
+    del scratch
+    pass_ms = events_ms(lambda: FP._build_champions(plan, sources), 5)
+    with plain_champions():
+        pass_plain_ms = events_ms(lambda: FP._build_champions(plan,
+                                                              sources), 3)
+    lists_ms = events_ms(lambda: R.champion_lists(champs.planes, n_f), 10)
+    lists_plain_ms = events_ms(lambda: R.champion_lists_plain(
+        champs.planes, n_f), 3)
+    pbound = champion_bound(plan, sources, champs)
+    lbound = champs.planes.numel() / HBM_BYTES_PER_S * 1e3
+    peaks = []
+    for frame_fn in (lambda: FP.voronoi_frame(plan, sources),
+                     lambda: FP.multi_frame(plan, sources)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        frame_fn()
+        torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 2**20)
+    planes_mib = champs.planes.numel() / 2**20
+    rec = dict(facets=n_f, taps=k, launches_per_frame=n_f,
+               first_ms=first_ms, first_peak_mib=first_peak,
+               frame_ms=fl["ms"], frame_burst_ms=fl["burst_ms"],
+               stack_frame_ms=fs["ms"], stack_frame_burst_ms=fs["burst_ms"],
+               frame_turns=fl["turns"], stack_turns=fs["turns"],
+               max_abs_err_vs_stack=err, max_abs_err_vs_stack_all_px=all_err,
+               bit_equal_to_stack=bit_equal, excluded_px=n_skip,
+               champion_differs_untied_px=list(untied),
+               champion_differs_tied_px_per_tap=tied,
+               torch_max_first=max_first, lists_equal=lists_equal,
+               launches=facets, pass_ms=pass_ms, pass_plain_ms=pass_plain_ms,
+               pass_bound_ms=pbound[0], pass_bound_by=pbound[1],
+               lists_ms=lists_ms, lists_plain_ms=lists_plain_ms,
+               lists_bound_ms=lbound, frame_peak_mib=peaks[0],
+               stack_frame_peak_mib=peaks[1], planes_mib=planes_mib)
+    shape = tuple(champs.planes.shape)
+    print(f"{name}: voronoi route (champion planes {shape} uint8, "
+          f"{planes_mib:.1f} MiB kept per plan): "
+          f"{n_f} launches a frame, the champion pass once per plan; "
+          f"planes vs the stack route's first-wins argmax and vs the plain "
+          f"pass: {untied} px differ at untied scores away from window "
+          f"edges, {tied} near-tied or window-edge px per tap differ from "
+          f"the plain pass (bound "
+          f"{int(TIE_SHARE * h * w)}); torch.max takes the first maximum: "
+          f"{max_first}; lists equal to the plain version's: {lists_equal}; "
+          f"frame vs the stack route {err:.3e} (bound {STACK_BOUND:g}; "
+          f"{n_skip} window-edge or near-tied px excluded; all px "
+          f"{all_err:.3e}; bit-equal {bit_equal}); the frame with the pass "
+          f"over full windows bit-equal", flush=True)
+    print(f"{name}: voronoi route frame single {fl['ms']:.4f} ms / bursts "
+          f"{fl['burst_ms']:.4f} ms vs the stack route {fs['ms']:.4f} / "
+          f"{fs['burst_ms']:.4f} ms (x{fl['burst_ms'] / fs['burst_ms']:.3f}"
+          f" in bursts); per facet launch " + ", ".join(
+              f"{f['ms']:.4f}" for f in facets) + " ms (plain " + ", ".join(
+              "-" if f["plain_ms"] is None else f"{f['plain_ms']:.3f}"
+              for f in facets) + " ms; bounds " + ", ".join(
+              f"{f['bound_ms']:.4f} {f['bound_by']}" for f in facets)
+          + f"); champion pass {pass_ms:.4f} ms with its read back (plain "
+          f"{pass_plain_ms:.3f} ms; bound {pbound[0]:.4f} ms by "
+          f"{pbound[1]}), lists alone {lists_ms:.4f} ms (plain "
+          f"{lists_plain_ms:.3f}; bound {lbound:.4f} by bytes); first "
+          f"render_frame {first_ms:.1f} ms (peak {first_peak:.1f} MiB); "
+          f"peak device memory of a frame {peaks[0]:.1f} MiB vs the stack "
+          f"route's {peaks[1]:.1f} MiB; clocks/power/temp after: "
+          f"{smi_now()}", flush=True)
+    CHAMPION[name] = rec
+    return rec
+
+
+def voronoi_want(plan, sources):
+    """The launches of a voronoi stitch's first frame on its route: per
+    facet one launch of its kernel in its champion (or tapsel) mode, one
+    coverage pass and one champion kernel launch per facet on the chain
+    forms, one champion lists launch; nothing of the stack route."""
+    from envutil_tpu_torch.runtime import fastpath as FP
+    twined = plan.spread is not None
+    want = {"champion_lists": 1}
+    for fp, src in zip(FP.facet_plans(plan), sources):
+        how = FP.route(fp, src, True)
+        if how == "planes":
+            kernel = "resample_twined" if twined else "resample_planar"
+        else:
+            kernel = ("resample_twined_chain:tapsel" if twined
+                      else "resample_planar_chain:champion")
+            want[kernel.split(":")[0]] = want.get(kernel.split(":")[0], 0) + 1
+            want["champion_planes"] = want.get("champion_planes", 0) + 1
+            if not FP._covers_every_ray(src):
+                want["chain_blocks"] = want.get("chain_blocks", 0) + 1
+        want[kernel] = want.get(kernel, 0) + 1
+    return want
+
+
 def stitch_path(name, rng, coeff_dtype="f32", twine=0):
     """One stitch of benchmarks.py at full size, its tables of
     ``coeff_dtype``, twined for ``twine`` n > 0 (``stitch_plan``),
@@ -2678,18 +3265,29 @@ def stitch_path(name, rng, coeff_dtype="f32", twine=0):
     kernel = ("resample_inline" if hdr else "resample_planar_chain") \
         if plan.spread is None else \
         ("resample_inline_twined" if hdr else "resample_twined_chain")
-    # a facet on the chain forms (every facet of these voronoi stitches)
-    # gets its block list from one coverage pass at the first frame
-    frame, first_ms, n = render(plan, sources, name,
-                                want={kernel: n_f * n_t,
-                                      "chain_blocks": 0 if hdr else n_f})
+    # a facet on the chain forms (every facet of these stitches but
+    # hdr_merge's) gets its block list from one coverage pass at the
+    # first frame; a voronoi stitch takes the voronoi route (one launch a
+    # facet, after the champion pass), the others the stack route
+    routed = FP.champion_route(plan, sources) is None
+    want = voronoi_want(plan, sources) if routed else {
+        kernel: n_f * n_t, "chain_blocks": 0 if hdr else n_f,
+        "multi_frame": 1}
+    frame, first_ms, n = render(plan, sources, name, want=want)
     peak = torch.cuda.max_memory_allocated() / 2**20
     covered = float((frame != 0).any(axis=-1).mean())
     stack = torch.empty((n_f, plan.height, plan.width, nch), device="cuda")
     score = None if hdr else torch.empty((n_f, plan.height, plan.width),
                                          device="cuda")
+    skipped = []
     err, err_slot, n_edge, n_other = stitch_errors(plan, sources, frame,
-                                                   stack, score)
+                                                   stack, score,
+                                                   skipped=skipped)
+    routed_rec = None
+    if routed:
+        routed_rec = champion_path(name, plan, sources, frame, first_ms,
+                                   skipped[0], peak)
+    del skipped
     fplans = FP.facet_plans(plan) if plan.spread is None \
         else FP.tap_plans(plan)[0][1]
     vs_plain = [facet_vs_plain(fp, s, not hdr)
@@ -2780,7 +3378,7 @@ def stitch_path(name, rng, coeff_dtype="f32", twine=0):
     if not hdr and coeff_dtype == "f32":
         compact = compact_path(name, plan, sources, first_ms)
     return dict(facets=n_f, taps=n_t, synopsis=synopsis, channels=nch,
-                compact=compact,
+                compact=compact, voronoi_route=routed_rec,
                 launches=n, first_ms=first_ms, max_abs_err=err,
                 slot_max_abs_err=err_slot, edge_px=n_edge,
                 excluded_px=n_other, covered=covered, vs_plain=vs_plain,
@@ -2810,13 +3408,18 @@ def one_tap_stitch(rng):
                                spread=((0.25, 0.0, 1.0),))
     name = "config 5d, one tap at (0.25, 0)"
     frame, first_ms, n = render(plan, sources, name,
-                                want={"resample_twined_chain": len(sources),
-                                      "chain_blocks": len(sources)})
+                                want=voronoi_want(plan, sources))
+    peak = torch.cuda.max_memory_allocated() / 2**20
     stack = torch.empty((len(sources), plan.height, plan.width, nch),
                         device="cuda")
     score = torch.empty(stack.shape[:3], device="cuda")
+    skipped = []
     err, err_slot, n_edge, n_other = stitch_errors(plan, sources, frame,
-                                                   stack, score)
+                                                   stack, score,
+                                                   skipped=skipped)
+    del stack, score
+    routed = champion_path(name, plan, sources, frame, first_ms, skipped[0],
+                           peak)
     untwined = RD.render_frame(dataclasses.replace(plan, spread=None),
                                sources, device="cuda")
     moved = float(np.abs(frame - untwined).max())
@@ -2828,7 +3431,7 @@ def one_tap_stitch(rng):
           f"{name} disagrees with the exact path")
     check(moved > 0.1, f"{name}: the tap did not move")
     return dict(launches=n, max_abs_err=err, slot_max_abs_err=err_slot,
-                edge_px=n_edge, excluded_px=n_other,
+                edge_px=n_edge, excluded_px=n_other, voronoi_route=routed,
                 max_abs_diff_vs_untwined=moved,
                 compact=compact_path(name, plan, sources, first_ms))
 
@@ -2970,8 +3573,14 @@ def single_path(rng):
     check(all(p is not None for p in plan.planar_to_ray),
           f"{name}: a facet without a generic chain")
     n_f = len(sources)
+    # the voronoi route: a planes launch for each facet that champions
+    # some pixel of facet 0's view (the planes counted on a copy of the
+    # plan, so that the render builds its own)
+    owners = sum(lst.numel() > 0 for lst in FP._build_champions(
+        dataclasses.replace(plan), sources).lists)
     frame, first_ms, n = render(plan, sources, name,
-                                want={"resample_planar": n_f}, amplify=0.5)
+                                want={"resample_planar": owners,
+                                      "champion_lists": 1}, amplify=0.5)
     peak = torch.cuda.max_memory_allocated() / 2**20
     stack = torch.empty((n_f, plan.height, plan.width, nch), device="cuda")
     score = torch.empty((n_f, plan.height, plan.width), device="cuda")
@@ -2996,10 +3605,15 @@ def single_path(rng):
         FP.coords(fplan, window, src)
         coords_ms.append(events_ms(lambda fp=fplan, sr=src: FP.coords(
             fp, window, sr), 10))
-    FP.multi_frame(plan, sources)
-    frame_ms = events_ms(lambda: FP.multi_frame(plan, sources), 10)
-    print(f"{name}: frame (multi_frame, 6 coordinate passes and 6 planes "
-          f"launches, stacks allocated per frame) {frame_ms:.4f} ms; "
+    fl, fs = ab_turns(lambda: FP.voronoi_frame(plan, sources),
+                      lambda: FP.multi_frame(plan, sources), single=10,
+                      bursts=3, burst=5)
+    frame_ms = fl["ms"]
+    print(f"{name}: frame (voronoi_frame: {owners} coordinate passes and "
+          f"planes launches, the champion planes as merge masks) "
+          f"{frame_ms:.4f} ms, bursts {fl['burst_ms']:.4f} ms, in turns with "
+          f"the stack route (multi_frame, 6 of each, stacks allocated per "
+          f"frame) {fs['ms']:.4f} ms, bursts {fs['burst_ms']:.4f} ms; "
           f"coordinate pass with the inverse lens LUT per facet "
           + ", ".join(f"{t:.4f}" for t in coords_ms) + " ms; kernel alone "
           + ", ".join(f"{k['ms']:.4f}" for k in kernels) + " ms (bounds "
@@ -3010,6 +3624,8 @@ def single_path(rng):
     return dict(launches=n["resample_planar"], first_ms=first_ms,
                 max_abs_err=err, slot_max_abs_err=err_slot, edge_px=n_edge,
                 excluded_px=n_other, covered=covered, frame_ms=frame_ms,
+                frame_burst_ms=fl["burst_ms"], stack_frame_ms=fs["ms"],
+                stack_frame_burst_ms=fs["burst_ms"],
                 coords_ms=coords_ms, kernels=kernels, peak_mib=peak)
 
 
@@ -3628,7 +4244,7 @@ def mesh_frames(name, plan, sources, want, devices):
     frame, moved = launch_counts(meshed)
     first_ms = (time.perf_counter() - t0) * 1000.0
     mesh_peak = torch.cuda.max_memory_allocated() / 2**20
-    expect = dict.fromkeys(WRAPPERS + ("exact_frame",), 0)
+    expect = dict.fromkeys(COUNTERS, 0)
     n = dict(expect, **moved)
     expect.update(want)
     check(n == expect, f"mesh {name}: launches {n}, expected {expect}")
@@ -3640,13 +4256,16 @@ def mesh_frames(name, plan, sources, want, devices):
     for _ in range(2):
         before = FP._operands.builds
         listed = FP.block_list.builds
+        champions = FP.champion_planes.builds
         again = meshed()
         builds.append(FP._operands.builds - before)
-        lists.append(FP.block_list.builds - listed)
+        lists.append(FP.block_list.builds - listed
+                     + FP.champion_planes.builds - champions)
         check(np.array_equal(again, single),
               f"mesh {name}: a later --mesh frame differs")
     check(builds == [0, 0] and lists == [0, 0], f"mesh {name}: steady-state "
-          f"frames built {builds} operand sets and {lists} block lists")
+          f"frames built {builds} operand sets and {lists} block lists and "
+          f"champion planes")
     compact = bool(n.get("chain_blocks"))
     if compact:
         # the compact grid: the same frames with every chain launch over
@@ -3755,17 +4374,20 @@ def mesh_phases():
       resample_planar_chain;
     - config 4 twined (the 8K ramps at degree 1 -> 2048x1280, 4 taps):
       4 launches of resample_inline_twined;
-    - config 5 (voronoi of three facets -> 4096x2048): a block list per
-      band and facet (12 coverage passes) and 6 launches of
-      resample_planar_chain with the score (the facets reach the middle
-      two bands only), then --shard_table;
-    - config 5d twined at 2x2 taps: 24 coverage passes and 48 one-tap
-      launches of resample_twined_chain (the middle two bands);
+    - config 5 (voronoi of three facets -> 4096x2048, the voronoi
+      route): a block list per band and facet (12 coverage passes),
+      champion planes per band (6 champion launches, 4 lists) and 6
+      launches of resample_planar_chain in its champion mode (the
+      facets reach the middle two bands only), then --shard_table;
+    - config 5d twined at 2x2 taps: 24 coverage passes, 12 champion
+      launches and 4 lists, and 12 launches of resample_twined_chain in
+      its tapsel mode (the middle two bands);
     - the degree-9 view: 4 bands of the exact route (``exact_frame``).
 
     Each --mesh frame is bit-equal to the one-device frame, a frame on
     block lists (5, 5d) to the same frame over the full windows, and its
-    second and third frames build no kernel operands and no block list.
+    second and third frames build no kernel operands, no block list and
+    no champion planes.
     Returns the record."""
     import contextlib
     import io
@@ -3844,6 +4466,9 @@ def mesh_phases():
     # two, so the outer bands' lists are empty and launch nothing
     rec["config 5"] = mesh_frames("config 5", p5, sources,
                                   {"resample_planar_chain": 3 * 2,
+                                   "resample_planar_chain:champion": 3 * 2,
+                                   "champion_planes": 3 * 2,
+                                   "champion_lists": MESH_N,
                                    "chain_blocks": 3 * MESH_N}, devices)
     rec["config 5, --shard_table"] = ring_frames("config 5", p5, sources,
                                                  devices)
@@ -3856,8 +4481,9 @@ def mesh_phases():
     # within 29 degrees of latitude: the middle two bands, as config 5
     rec["config 5d twined"] = mesh_frames(
         "config 5d twined (2x2 taps)", p5d, sources,
-        {"resample_twined_chain": 6 * 4 * 2, "chain_blocks": 6 * MESH_N},
-        devices)
+        {"resample_twined_chain": 6 * 2, "resample_twined_chain:tapsel": 6 * 2,
+         "champion_planes": 6 * 2, "champion_lists": MESH_N,
+         "chain_blocks": 6 * MESH_N}, devices)
     del sources
     torch.cuda.empty_cache()
     # ---- degree 9 on the exact route ------------------------------------
@@ -4319,13 +4945,13 @@ def main():
     ps = RD.build_plan(sa, [lf, tf])
     outs, first_ls_ms, ns = render(ps, [lsrc, tsrc],
                                    "lens and translated stitch",
-                                   want={"resample_planar_chain": 1,
-                                         "resample_planar": 1,
-                                         "chain_blocks": 1})
+                                   want=voronoi_want(ps, [lsrc, tsrc]))
+    peak_ls = torch.cuda.max_memory_allocated() / 2**20
     stack = torch.empty((2, 768, 1024, 3), device="cuda")
     score = torch.empty((2, 768, 1024), device="cuda")
-    err_ls, err_lslot, edge_ls, flip_ls = stitch_errors(ps, [lsrc, tsrc],
-                                                        outs, stack, score)
+    skipped = []
+    err_ls, err_lslot, edge_ls, flip_ls = stitch_errors(
+        ps, [lsrc, tsrc], outs, stack, score, skipped=skipped)
     share = float((score[1] > score[0]).float().mean())
     print(f"lens and translated stitch (voronoi, 1024x768): the translated "
           f"facet wins {100 * share:.1f}% of the view; vs exact path, whole "
@@ -4336,6 +4962,8 @@ def main():
           "the lens and translated stitch disagrees with the exact path")
     check(0.05 < share < 0.95, "the translated facet wins no share")
     planar_n["lens and translated stitch"] = ns["resample_planar_chain"]
+    champion_path("lens and translated stitch", ps, [lsrc, tsrc], outs,
+                  first_ls_ms, skipped[0], peak_ls)
     compact_path("lens and translated stitch", ps, [lsrc, tsrc],
                  first_ls_ms)
     # the same stitch twined (--twine 2): per tap one one-tap launch of
@@ -4347,9 +4975,11 @@ def main():
     pst = RD.build_plan(sa, [lf, tf])
     outs, first_lst_ms, nst = render(
         pst, [lsrc, tsrc], "lens and translated stitch, twined (4 taps)",
-        want={"resample_twined_chain": 4, "resample_twined": 4,
-              "chain_blocks": 1})
-    errs_t = stitch_errors(pst, [lsrc, tsrc], outs, stack, score)
+        want=voronoi_want(pst, [lsrc, tsrc]))
+    peak_lst = torch.cuda.max_memory_allocated() / 2**20
+    skipped = []
+    errs_t = stitch_errors(pst, [lsrc, tsrc], outs, stack, score,
+                           skipped=skipped)
     print(f"lens and translated stitch, twined (4 taps): vs exact path, "
           f"whole frame: max abs diff {errs_t[0]:.3e}, slots {errs_t[1]:.3e}"
           f" (bound {TWINED_PLANAR_BOUND:g}); {errs_t[2]} px at a window edge"
@@ -4362,7 +4992,9 @@ def main():
     t_lens_translated_twined = dict(
         launches={k: v for k, v in nst.items() if v}, max_abs_err=errs_t[0],
         slot_max_abs_err=errs_t[1], edge_px=errs_t[2],
-        excluded_px=errs_t[3],
+        excluded_px=errs_t[3], voronoi_route=champion_path(
+            "lens and translated stitch, twined (4 taps)", pst,
+            [lsrc, tsrc], outs, first_lst_ms, skipped[0], peak_lst),
         compact=compact_path("lens and translated stitch, twined", pst,
                              [lsrc, tsrc], first_lst_ms))
     del lsrc, tsrc, stack, score, outs
@@ -4485,6 +5117,12 @@ def main():
     print(f"surfaces: {json.dumps(t_surfaces)}", flush=True)
     print(f"mesh: {json.dumps(t_mesh)}", flush=True)
     print(f"compact: {json.dumps(COMPACT)}", flush=True)
+    print(f"voronoi route: {json.dumps(CHAMPION)}", flush=True)
+    # the voronoi route's kernels, measured on config 5 (the champion
+    # mode) and config 5d at 2x2 taps (the tapsel mode, the champion
+    # pass and its lists)
+    r5d = t_twined_stitch["config 5d, twine 2"]
+    vr5, vr5d = t_stitch["config 5"]["voronoi_route"], r5d["voronoi_route"]
     # the compact grid: the coverage pass of every job with block lists,
     # and the listed launches' times against the full window's per job
     covers = {job: [f["cover"] for f in rec["facets"] if f is not None]
@@ -4640,6 +5278,89 @@ def main():
          "path": "config 5d twined (2x2 taps), facet 0", "jobs": covers,
          "build": build.get("chain_cover_kernel"),
          "mesh": mesh_launches(t_mesh, "chain_blocks")},
+        # the champion pass of the voronoi route: its time as a plan
+        # builds it (its kernel a facet, the lists and the count's read
+        # back), on config 5d at 2x2 taps; the planes' agreement with
+        # the plain pass and with the stack route's argmax on every
+        # voronoi stitch under "jobs"
+        {"name": "champion", "route": "cuda",
+         "source": "envutil_tpu_torch/csrc/champion.cu",
+         "replaces": "envutil_tpu/runtime/fastpath.py:2978 (_pertap_build's "
+                     "champion stack, XLA, the champ operand of "
+                     "envutil_tpu/ops/pallas_resample.py:1751)",
+         "launches": r5d["launches"]["champion_planes"],
+         "max_abs_err": max(worst_chain["champion score"],
+                            chain_bf16["champion score"]),
+         "differing_untied_px": sum(sum(r["champion_differs_untied_px"])
+                                    for r in CHAMPION.values()),
+         "differing_tied_px": sum(sum(r["champion_differs_tied_px_per_tap"])
+                                  for r in CHAMPION.values()),
+         "ms": vr5d["pass_ms"], "plain_ms": vr5d["pass_plain_ms"],
+         "bound_ms": vr5d["pass_bound_ms"],
+         "bound_by": vr5d["pass_bound_by"],
+         "library_ms": None,   # no PyTorch call takes a first-wins argmax
+         # over facets' chains
+         "path": "config 5d twined (2x2 taps)",
+         "jobs": {k: {f: r[f] for f in ("pass_ms", "pass_plain_ms",
+                                        "pass_bound_ms", "planes_mib",
+                                        "champion_differs_untied_px",
+                                        "champion_differs_tied_px_per_tap")}
+                  for k, r in CHAMPION.items()},
+         "build": build.get("champion_kernel"),
+         "mesh": mesh_launches(t_mesh, "champion_planes")},
+        {"name": "champion_lists", "route": "cuda",
+         "source": "envutil_tpu_torch/csrc/champion.cu",
+         "replaces": "envutil_tpu/ops/pallas_resample.py:1060 (_emit_rows_zero"
+                     ", the tapsel kernel's skip of row blocks no tap "
+                     "champions, :1904)",
+         "launches": r5d["launches"]["champion_lists"],
+         "max_abs_err": float(not all(r["lists_equal"]
+                                      for r in CHAMPION.values())),
+         "ms": vr5d["lists_ms"], "plain_ms": vr5d["lists_plain_ms"],
+         "bound_ms": vr5d["lists_bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "path": "config 5d twined (2x2 taps)",
+         "build": build.get("champion_flags_kernel"),
+         "mesh": mesh_launches(t_mesh, "champion_lists")},
+        # the chain forms' modes on the voronoi route: a facet's launch
+        # (facet 0) on config 5 (champion mode) and config 5d at 2x2
+        # taps (tapsel mode), every stitch's launches under "stitches"
+        {"name": "resample_planar_chain:champion", "route": "cuda",
+         "source": "envutil_tpu_torch/csrc/resample_planar.cu",
+         "replaces": "envutil_tpu/ops/pallas_resample.py:1070 (K2's "
+                     "merge-mask overlay, merge=True; resample_planar_into "
+                     ":1148)",
+         "launches": t_stitch["config 5"]["launches"][
+             "resample_planar_chain:champion"],
+         "max_abs_err": worst_chain["champion mode"],
+         "ms": vr5["launches"][0]["ms"],
+         "plain_ms": vr5["launches"][0]["plain_ms"],
+         "bound_ms": vr5["launches"][0]["bound_ms"],
+         "bound_by": vr5["launches"][0]["bound_by"], "library_ms": None,
+         "path": "config 5, facet 0",
+         "small_case_max_abs_err": worst_chain["champion mode"],
+         "bf16": {"small_case_max_abs_err": chain_bf16["champion mode"],
+                  "stitch": t_stitch_bf16["voronoi_route"]},
+         "stitches": {k: r["launches"] for k, r in CHAMPION.items()
+                      if r["taps"] == 1},
+         "mesh": mesh_launches(t_mesh, "resample_planar_chain:champion")},
+        {"name": "resample_twined_chain:tapsel", "route": "cuda",
+         "source": "envutil_tpu_torch/csrc/resample_twined.cu",
+         "replaces": "envutil_tpu/ops/pallas_resample.py:1751 (K3's "
+                     "champion-routed tap weights, champ; "
+                     "resample_twined_into :1930)",
+         "launches": r5d["launches"]["resample_twined_chain:tapsel"],
+         "max_abs_err": worst_chain["tapsel mode"],
+         "ms": vr5d["launches"][0]["ms"],
+         "plain_ms": vr5d["launches"][0]["plain_ms"],
+         "bound_ms": vr5d["launches"][0]["bound_ms"],
+         "bound_by": vr5d["launches"][0]["bound_by"], "library_ms": None,
+         "path": "config 5d twined (2x2 taps), facet 0",
+         "small_case_max_abs_err": worst_chain["tapsel mode"],
+         "bf16": {"small_case_max_abs_err": chain_bf16["tapsel mode"]},
+         "stitches": {k: r["launches"] for k, r in CHAMPION.items()
+                      if r["taps"] > 1},
+         "build": build.get("resample_twined_chain_kernel"),
+         "mesh": mesh_launches(t_mesh, "resample_twined_chain:tapsel")},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

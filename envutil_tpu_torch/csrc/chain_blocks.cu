@@ -23,11 +23,10 @@
 // device functions of the launches (chain_ray, chain_pickup,
 // ninepack_rays, tap_ray; planar_chain.cuh) with the same row0,
 // face_rows, target mode and spread, each step rounded as there, so a
-// pixel is flagged exactly where its launch writes. chain_list_kernel
-// adds a margin of one block around every flagged block
-// (chain_margin_kernel), so that a difference in contraction between
-// two builds cannot drop a pixel, and compacts the result in one block
-// (chain_list_kernel) into an int32 list of block indices
+// pixel is flagged exactly where its launch writes. chain_margin_kernel
+// adds a margin of one block around every flagged block, so that a difference in contraction between
+// two builds cannot drop a pixel, and list_kernel (planar_chain.cuh)
+// compacts the result in one block into an int32 list of block indices
 // by * ceil(W / 32) + bx in ascending order, with its count; the caller
 // reads the count once, when the list is built (it is kept per plan:
 // runtime/fastpath.block_list).
@@ -44,8 +43,6 @@
 namespace {
 
 using namespace envutil;
-
-constexpr int LIST_THREADS = 1024;
 
 struct CoverParams {
   int64_t height, width;        // window
@@ -117,45 +114,6 @@ chain_margin_kernel(const unsigned char* __restrict__ flags,
   near[b] = any;
 }
 
-// the list: one block walks the block indices in tiles of LIST_THREADS,
-// a thread an index; a tile's listed indices go out in ascending order
-// at the running count (warp ballots, then a scan of the warps' counts)
-__global__ void __launch_bounds__(LIST_THREADS)
-chain_list_kernel(const unsigned char* __restrict__ near,
-                  int* __restrict__ blocks, int* __restrict__ count,
-                  int64_t n) {
-  constexpr int WARPS = LIST_THREADS / 32;
-  __shared__ int before[WARPS];   // listed indices of the earlier warps
-  __shared__ int tile, base;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) base = 0;
-  for (int64_t t0 = 0; t0 < n; t0 += LIST_THREADS) {
-    const int64_t b = t0 + threadIdx.x;
-    const bool on = b < n && near[b] != 0;
-    const unsigned ballot = __ballot_sync(0xffffffffu, on);
-    if (lane == 0) before[warp] = __popc(ballot);
-    __syncthreads();
-    if (warp == 0) {
-      const int own = lane < WARPS ? before[lane] : 0;
-      int sum = own;
-      for (int off = 1; off < 32; off <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, sum, off);
-        if (lane >= off) sum += v;
-      }
-      if (lane < WARPS) before[lane] = sum - own;
-      if (lane == 31) tile = sum;
-    }
-    __syncthreads();
-    if (on)
-      blocks[base + before[warp] + __popc(ballot & ((1u << lane) - 1u))] =
-          (int)b;
-    __syncthreads();
-    if (threadIdx.x == 0) base += tile;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) *count = base;
-}
-
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Over the (height, width)
@@ -206,6 +164,6 @@ extern "C" int envutil_chain_blocks(
                         LIST_THREADS, 0, s>>>(flags, near, nby, nbx);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  chain_list_kernel<<<1, LIST_THREADS, 0, s>>>(near, blocks, count, n);
+  list_kernel<LIST_THREADS><<<1, LIST_THREADS, 0, s>>>(near, blocks, count, n);
   return (int)cudaGetLastError();
 }

@@ -351,6 +351,54 @@ inline bool chain_list_ok(const int* blocks, long long n_blocks) {
   return blocks == nullptr || (n_blocks >= 1 && n_blocks <= 0x7fffffffLL);
 }
 
+// The threads of list_kernel, one block a list.
+constexpr int LIST_THREADS = 1024;
+
+// Compaction of per-block flags into lists: CUDA block i walks the n
+// flags at flags + i n in tiles of LIST_THREADS, a thread an index, and
+// writes the flagged indices in ascending order to blocks + i n (warp
+// ballots, then a scan of the warps' counts) and their number to
+// count[i]. The coverage pass (chain_blocks.cu) makes one list, the
+// champion pass (champion.cu) one a facet. A template, so that a source
+// that includes this header and makes no list compiles no such kernel.
+template <int THREADS = LIST_THREADS>
+__global__ void __launch_bounds__(THREADS)
+list_kernel(const unsigned char* __restrict__ flags, int* __restrict__ blocks,
+            int* __restrict__ count, int64_t n) {
+  constexpr int WARPS = THREADS / 32;
+  __shared__ int before[WARPS];   // listed indices of the earlier warps
+  __shared__ int tile, base;
+  flags += (int64_t)blockIdx.x * n;
+  blocks += (int64_t)blockIdx.x * n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) base = 0;
+  for (int64_t t0 = 0; t0 < n; t0 += THREADS) {
+    const int64_t b = t0 + threadIdx.x;
+    const bool on = b < n && flags[b] != 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) before[warp] = __popc(ballot);
+    __syncthreads();
+    if (warp == 0) {
+      const int own = lane < WARPS ? before[lane] : 0;
+      int sum = own;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, sum, off);
+        if (lane >= off) sum += v;
+      }
+      if (lane < WARPS) before[lane] = sum - own;
+      if (lane == 31) tile = sum;
+    }
+    __syncthreads();
+    if (on)
+      blocks[base + before[warp] + __popc(ballot & ((1u << lane) - 1u))] =
+          (int)b;
+    __syncthreads();
+    if (threadIdx.x == 0) base += tile;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) count[blockIdx.x] = base;
+}
+
 // a coordinate derivative as fastpath.twined_coords takes it: wrapped
 // by the period on a periodic source, 0 where not finite
 __device__ __forceinline__ float coord_derivative(float a, float b,

@@ -41,12 +41,26 @@
 // equirect, and the chain over every missed pixel was most of the
 // full-window launch.
 //
+// The chain form's champion mode, the merge overlay of the voronoi
+// route (K2's merge_mask, _resample_kernel_into with merge=True, with
+// the champion plane as the mask): given the (H, W) uint8 champion
+// plane of the stitch (champion.cu) and the facet's index, a pixel
+// whose champion is another facet reads nothing and leaves ``out``
+// untouched, and a champion pixel is written the facet's brighten
+// ``scale`` times its value. One launch per facet over its champion
+// list then writes each covered pixel of one frame once, and a voronoi
+// stitch needs no pixel stack and no combine; the champion's ray hits
+// the facet by construction (its score beat LOWEST). The champion is
+// read first, so that a pixel another facet wins costs one byte.
+//
 // The planes form (resample_planar_kernel) reads precomputed padded
 // coordinates (sx, sy) and serves the jobs whose chain has no kernel
 // form: translated facets (render.generic_r3). With a merge mask, a
 // pixel whose mask is <= 0.5 reads nothing else and leaves ``out``
-// untouched (K2's overlay onto the prior canvas); without one every
-// pixel is written (K5).
+// untouched (K2's overlay onto the prior canvas; the voronoi route's
+// translated facet takes its champion plane as the mask); without one
+// every pixel is written (K5). Either form writes ``scale`` times the
+// value where a scale other than 1 is given.
 //
 // Both forms: one thread per output pixel on 32x8 blocks, taps gathered
 // straight from global memory through L1/L2, so none of the TPU
@@ -92,8 +106,14 @@ using namespace envutil;
 
 struct Params {
   int64_t height, width;        // output window
+  float scale;                  // the value written is scale * spline
   Table table;
 };
+
+// the value a pixel is written: scale * v, v itself for a scale of 1
+__device__ __forceinline__ float scaled(float scale, float v) {
+  return scale == 1.0f ? v : __fmul_rn(scale, v);
+}
 
 template <int DEGREE, int NCH, typename T>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
@@ -115,7 +135,7 @@ resample_planar_kernel(float* __restrict__ out,
   spline_at<DEGREE, NCH>(coeff, p.table, sx, sy, acc);
   float* dst = out + pix * NCH;
 #pragma unroll
-  for (int c = 0; c < NCH; ++c) dst[c] = acc[c];
+  for (int c = 0; c < NCH; ++c) dst[c] = scaled(p.scale, acc[c]);
 }
 
 template <typename T>
@@ -139,6 +159,8 @@ struct ChainParams {
   int face_rows;                // rows per cube face (0: one matrix)
   int tmode;                    // TMODE_* (planar_chain.cuh)
   float recip_step;             // score = z * recip_step
+  int facet;                    // champion mode: the facet's index
+  float scale;                  // the value written is scale * spline
   ChainPickup pick;
   Table table;
 };
@@ -152,12 +174,15 @@ resample_planar_chain_kernel(float* __restrict__ out,
                              const float* __restrict__ yfeat,
                              const float* __restrict__ bmats,
                              const int* __restrict__ blocks,
+                             const unsigned char* __restrict__ champ,
                              const ChainParams p) {
   int64_t bx, by;
   chain_block(blocks, p.width, bx, by);
   const int64_t x = bx * BLOCK_X + threadIdx.x;
   const int64_t y = by * BLOCK_Y + threadIdx.y;
   if (x >= p.width || y >= p.height) return;
+  const int64_t pix = y * p.width + x;
+  if (champ != nullptr && __ldg(champ + pix) != p.facet) return;
   int face = 0;
   if (p.face_rows > 0) face = min(max((p.row0 + (int)y) / p.face_rows, 0), 5);
   float r[3], sx, sy;
@@ -172,10 +197,9 @@ resample_planar_chain_kernel(float* __restrict__ out,
 #pragma unroll
     for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
   }
-  const int64_t pix = y * p.width + x;
   float* dst = out + pix * NCH;
 #pragma unroll
-  for (int c = 0; c < NCH; ++c) dst[c] = acc[c];
+  for (int c = 0; c < NCH; ++c) dst[c] = scaled(p.scale, acc[c]);
   if (score != nullptr) score[pix] = hit ? mul(r[2], p.recip_step) : LOWEST;
 }
 
@@ -185,12 +209,12 @@ struct ChainLaunch {
   static cudaError_t run(float* out, float* score, const T* coeff,
                          const float* xfeat, const float* yfeat,
                          const float* bmats, const int* blocks,
-                         long long n_blocks, const ChainParams& p,
-                         cudaStream_t stream) {
+                         long long n_blocks, const unsigned char* champ,
+                         const ChainParams& p, cudaStream_t stream) {
     resample_planar_chain_kernel<DEGREE, NCH, T>
         <<<chain_grid(blocks, n_blocks, p.height, p.width),
            dim3(BLOCK_X, BLOCK_Y), 0, stream>>>(
-            out, score, coeff, xfeat, yfeat, bmats, blocks, p);
+            out, score, coeff, xfeat, yfeat, bmats, blocks, champ, p);
     return cudaGetLastError();
   }
 };
@@ -198,7 +222,8 @@ struct ChainLaunch {
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). ``mask`` may be null (the
-// whole window is written). Returns cudaGetLastError() after the
+// whole window is written). Each pixel written is ``scale`` times the
+// spline's value. Returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for an unsupported degree or channel
 // count. ``wmat`` is a host array of (degree+1)^2 floats, copied into
 // the kernel parameters. ``coeff`` is float32, or bfloat16 where
@@ -207,12 +232,12 @@ extern "C" int envutil_resample_planar(
     float* out, const void* coeff, const float* sx, const float* sy,
     const float* mask, const float* wmat, long long height,
     long long width, long long hp, long long wp, int degree, int nch,
-    int coeff_bf16, void* stream) {
+    float scale, int coeff_bf16, void* stream) {
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (height <= 0 || width <= 0) return 0;
   if ((height + BLOCK_Y - 1) / BLOCK_Y > 65535) return (int)cudaErrorInvalidValue;
   Params p;
-  p.height = height; p.width = width;
+  p.height = height; p.width = width; p.scale = scale;
   set_table(p.table, hp, wp, degree, wmat);
   if (coeff_bf16)
     return (int)by_degree<Launch<__nv_bfloat16>>(
@@ -233,31 +258,37 @@ extern "C" int envutil_resample_planar(
 // ``blocks`` may be null (the whole window's grid); otherwise it is a
 // device array of ``n_blocks`` indices by * ceil(W / 32) + bx of the
 // window's 32x8 blocks (chain_blocks.cu), one CUDA block each, and the
-// pixels of every other block are not touched.
+// pixels of every other block are not touched. ``champ`` may be null;
+// otherwise it is the stitch's (H, W) uint8 champion plane and only the
+// pixels whose champion is ``facet`` are written (the score must then be
+// null). Each pixel written is ``scale`` times the spline's value.
 extern "C" int envutil_resample_planar_chain(
     float* out, float* score, const void* coeff, const float* xfeat,
     const float* yfeat, const float* bmats, const float* wmat,
     const int* ipick, const float* fpick, const int* blocks,
-    long long n_blocks, long long height, long long width,
-    long long hp, long long wp, int row0, int face_rows, int degree, int nch,
-    int tmode, float recip_step, int coeff_bf16, void* stream) {
+    long long n_blocks, const unsigned char* champ, long long height,
+    long long width, long long hp, long long wp, int row0, int face_rows,
+    int degree, int nch, int tmode, float recip_step, int facet, float scale,
+    int coeff_bf16, void* stream) {
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (tmode < TMODE_AFFINE || tmode > TMODE_FISH) return (int)cudaErrorInvalidValue;
   if (!chain_list_ok(blocks, n_blocks)) return (int)cudaErrorInvalidValue;
+  if (champ != nullptr && (score != nullptr || facet < 0 || facet > 254))
+    return (int)cudaErrorInvalidValue;
   if (height <= 0 || width <= 0) return 0;
   if ((height + BLOCK_Y - 1) / BLOCK_Y > 65535) return (int)cudaErrorInvalidValue;
   ChainParams p;
   p.height = height; p.width = width;
   p.row0 = row0; p.face_rows = face_rows; p.tmode = tmode;
-  p.recip_step = recip_step;
+  p.recip_step = recip_step; p.facet = facet; p.scale = scale;
   if (!set_pickup(p.pick, ipick, fpick)) return (int)cudaErrorInvalidValue;
   set_table(p.table, hp, wp, degree, wmat);
   if (coeff_bf16)
     return (int)by_degree<ChainLaunch<__nv_bfloat16>>(
         degree, nch, out, score, (const __nv_bfloat16*)coeff, xfeat, yfeat,
-        bmats, blocks, n_blocks, p, (cudaStream_t)stream);
+        bmats, blocks, n_blocks, champ, p, (cudaStream_t)stream);
   return (int)by_degree<ChainLaunch<float>>(degree, nch, out, score,
                                             (const float*)coeff, xfeat, yfeat,
-                                            bmats, blocks, n_blocks, p,
+                                            bmats, blocks, n_blocks, champ, p,
                                             (cudaStream_t)stream);
 }

@@ -43,12 +43,33 @@
 // pixel passes its window test, the union over the spread, so that
 // the one list serves every one-tap launch of a twined stitch's facet.
 //
+// The chain form's tapsel mode, the TPU kernel's champion-routed tap
+// weights (champ[k] == fi, pallas_resample.py:1751-1762, 1819-1831):
+// given the stitch's (K, H, W) uint8 champion planes (champion.cu) and
+// the facet's index, tap k counts only where the facet champions it,
+// and the pixel is written ``scale`` (the facet's brighten) times the
+// sum, added to what ``out`` holds with ``accumulate``; a pixel with no
+// champion tap is left untouched. One launch per facet over its
+// champion list, each adding into one frame in facet order on one
+// stream, forms the twined voronoi stitch sum_f sum_k w_k [champ_k = f]
+// v_fk, the per-tap route's sum_k w_k v_{champ_k, k} regrouped by
+// facet: no pixel stack, no combine. A champion's tap is valid by
+// construction (its score beat LOWEST), so the mode runs no window
+// test. The champion bytes are read before the chain, so that a pixel
+// another facet wins at every tap costs K bytes and nothing of its
+// chain; those of the first 64 taps are kept as a mask in shared
+// memory, read in the tap loop as the listed block is (nothing
+// per-pixel lives in registers across the loop, where ptxas spilled at
+// degree 7), and a tap past the 64th reads its byte again.
+//
 // The planes form (resample_twined_kernel) reads the six operand planes
 // and, for partial facets, (K, H, W) float32 or 8-bit tap-weight planes
 // (the counterpart of the TPU kernel's champ[k] == fi, which for one
-// facet is the tap's own validity); a merge mask leaves pixels <= 0.5
+// facet is the tap's own validity, and for a translated facet of the
+// voronoi route its champion planes); a merge mask leaves pixels <= 0.5
 // untouched. It serves translated facets, whose generic chain has no
-// kernel form.
+// kernel form. Both forms write ``scale`` times the sum, added to what
+// ``out`` holds with ``accumulate`` (a pixel no tap counts at adds 0).
 //
 // Both forms: each tap's coordinates are clamped as floats like the
 // planar kernel's (NaN/inf of grazing rays stay harmless); on a
@@ -93,8 +114,30 @@ struct Params {
   int n_taps;
   int tapw_u8;                  // tap-weight planes are 8-bit
   float lower_x, period_x;      // periodic wrap of deflected x (0: none)
+  float scale;                  // the value written is scale * sum
+  int accumulate;               // add it to out
   Table table;
 };
+
+// a pixel's store: scale * acc, added to what dst holds with
+// ``accumulate``. The prior value is read volatile, so that it is read
+// here, after the tap loop: a select that read it anyway let the loads
+// move ahead of the loop, where they held registers across it
+template <int NCH>
+__device__ __forceinline__ void store(float* dst, const float (&acc)[NCH],
+                                      float scale, bool accumulate) {
+  float v[NCH];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+    v[c] = scale == 1.0f ? acc[c] : __fmul_rn(scale, acc[c]);
+  if (accumulate) {
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+      v[c] = __fadd_rn(*(volatile float*)(dst + c), v[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) dst[c] = v[c];
+}
 
 // The spline of one tap, kept out of line at degrees 5 and above: inlined
 // into the tap loop, ptxas spilled 4-24 bytes at degrees 5-7 in every
@@ -174,9 +217,7 @@ resample_twined_kernel(float* __restrict__ out,
 #pragma unroll
     for (int c = 0; c < NCH; ++c) acc[c] += w * val[c];
   }
-  float* dst = out + pix * NCH;
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) dst[c] = acc[c];
+  store<NCH>(out + pix * NCH, acc, p.scale, p.accumulate != 0);
 }
 
 template <typename T>
@@ -210,14 +251,30 @@ struct ChainParams {
   int precise;                  // tangent-plane derivative basis
   int tap_valid;                // test each tap's ray against the window
   float recip_step;             // score = z of the tap's ray * recip_step
+  int facet;                    // tapsel mode: the facet's index
+  float scale;                  // the value written is scale * sum
+  int accumulate;               // add it to out
   ChainPickup pick;
   Table table;
 };
 
+// the window pixel this thread covers, from the listed block's index
+// (-1: the raster's grid)
+__device__ __forceinline__ int64_t chain_pixel(int listed, int64_t width) {
+  int64_t bx, by;
+  block_xy(listed, width, bx, by);
+  return (by * BLOCK_Y + threadIdx.y) * width + bx * BLOCK_X + threadIdx.x;
+}
+
 // four blocks an SM (64 registers): without the cap ptxas spilled 8
-// bytes at degree 1, two channels; no instantiation needs more
-template <int DEGREE, int NCH, typename T>
-__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y, 4)
+// bytes at degree 1, two channels; no instantiation needs more. The
+// tapsel mode is an instantiation of its own (TAPSEL), for the 1 and 3
+// channels of a voronoi stitch, at three blocks an SM (80 registers):
+// within 64, ptxas spilled 4-12 bytes at degree 7 in every arrangement
+// of its loop that was built, and the 64 registers of the tested
+// instantiations stay as they were
+template <int DEGREE, int NCH, typename T, bool TAPSEL>
+__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y, TAPSEL ? 3 : 4)
 resample_twined_chain_kernel(float* __restrict__ out,
                              float* __restrict__ score,
                              const T* __restrict__ coeff,
@@ -226,12 +283,16 @@ resample_twined_chain_kernel(float* __restrict__ out,
                              const float* __restrict__ bmats,
                              const float* __restrict__ spread,
                              const int* __restrict__ blocks,
+                             const unsigned char* __restrict__ champ,
                              const ChainParams p) {
   extern __shared__ float taps[];  // (n_taps, 3): cx, cy, w
   // the listed block's index (-1: the raster's grid), read from shared
   // memory where it is needed: the pixel's position kept in registers
   // across the tap loop made ptxas spill at degree 7
   __shared__ int listed;
+  // tapsel mode: per thread, the taps (of the first 64) its pixel's
+  // champion planes give this facet
+  __shared__ uint64_t own_taps[BLOCK_X * BLOCK_Y];
   if (threadIdx.x == 0 && threadIdx.y == 0)
     listed = blocks == nullptr ? -1 : __ldg(blocks + blockIdx.x);
   for (int i = threadIdx.y * BLOCK_X + threadIdx.x; i < 3 * p.n_taps;
@@ -244,6 +305,20 @@ resample_twined_chain_kernel(float* __restrict__ out,
   const int64_t x = bx * BLOCK_X + threadIdx.x;
   const int64_t y = by * BLOCK_Y + threadIdx.y;
   if (x >= p.width || y >= p.height) return;
+  if constexpr (TAPSEL) {
+    const int64_t plane = p.height * p.width;
+    const int64_t pix = y * p.width + x;
+    uint64_t mine = 0;
+    bool any = false;
+#pragma unroll 1
+    for (int k = 0; k < p.n_taps; ++k) {
+      const bool own = __ldg(champ + k * plane + pix) == p.facet;
+      if (k < 64) mine |= (uint64_t)own << k;
+      any = any || own;
+    }
+    if (!any) return;   // no champion tap: the pixel is left as it is
+    own_taps[threadIdx.y * BLOCK_X + threadIdx.x] = mine;
+  }
   int face = 0;
   if (p.face_rows > 0) face = min(max((p.row0 + (int)y) / p.face_rows, 0), 5);
 
@@ -279,12 +354,9 @@ resample_twined_chain_kernel(float* __restrict__ out,
   float acc[NCH];
 #pragma unroll
   for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
-#pragma unroll 1
-  for (int k = 0; k < p.n_taps; ++k) {
+  // tap k's spline at its deflected coordinates, weighted into acc
+  auto add_tap = [&](int k) {
     const float cx = taps[3 * k], cy = taps[3 * k + 1], w = taps[3 * k + 2];
-    float r[3];
-    if (p.tap_valid && !tap_ray(p.pick, true, p0, du, dv, cx, cy, r))
-      continue;
     float sx = sx0 + cx * dux + cy * dvx;
     float sy = sy0 + cx * duy + cy * dvy;
     if (p.pick.period > 0.0f) sx = lower + floor_mod(sx - lower, p.pick.period);
@@ -293,12 +365,30 @@ resample_twined_chain_kernel(float* __restrict__ out,
                            clamp_coord<DEGREE>(sy, p.table.hp), val);
 #pragma unroll
     for (int c = 0; c < NCH; ++c) acc[c] += w * val[c];
+  };
+  if constexpr (TAPSEL) {
+#pragma unroll 1
+    for (int k = 0; k < p.n_taps; ++k) {
+      const bool own = k < 64
+          ? ((((volatile uint64_t*)own_taps)[threadIdx.y * BLOCK_X +
+                                             threadIdx.x] >> k) & 1u) != 0
+          : __ldg(champ + k * p.height * p.width +
+                  chain_pixel(*(volatile int*)&listed, p.width)) == p.facet;
+      if (own) add_tap(k);
+    }
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < p.n_taps; ++k) {
+      float r[3];
+      if (p.tap_valid && !tap_ray(p.pick, true, p0, du, dv, taps[3 * k],
+                                  taps[3 * k + 1], r))
+        continue;
+      add_tap(k);
+    }
   }
-  block_xy(*(volatile int*)&listed, p.width, bx, by);  // read anew
-  float* dst = out + ((by * BLOCK_Y + threadIdx.y) * p.width + bx * BLOCK_X +
-                      threadIdx.x) * NCH;
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) dst[c] = acc[c];
+  // the pixel from the listed block, read anew
+  store<NCH>(out + chain_pixel(*(volatile int*)&listed, p.width) * NCH, acc,
+             p.scale, p.accumulate != 0);
 }
 
 template <typename T>
@@ -308,12 +398,23 @@ struct ChainLaunch {
                          const float* xfeat, const float* yfeat,
                          const float* bmats, const float* spread,
                          const int* blocks, long long n_blocks,
-                         const ChainParams& p, cudaStream_t stream) {
+                         const unsigned char* champ, const ChainParams& p,
+                         cudaStream_t stream) {
     const size_t smem = (size_t)3 * p.n_taps * sizeof(float);
-    resample_twined_chain_kernel<DEGREE, NCH, T>
-        <<<chain_grid(blocks, n_blocks, p.height, p.width),
-           dim3(BLOCK_X, BLOCK_Y), smem, stream>>>(
-            out, score, coeff, xfeat, yfeat, bmats, spread, blocks, p);
+    const dim3 grid = chain_grid(blocks, n_blocks, p.height, p.width);
+    if (champ == nullptr) {
+      resample_twined_chain_kernel<DEGREE, NCH, T, false>
+          <<<grid, dim3(BLOCK_X, BLOCK_Y), smem, stream>>>(
+              out, score, coeff, xfeat, yfeat, bmats, spread, blocks, champ,
+              p);
+    } else if constexpr (NCH == 1 || NCH == 3) {
+      resample_twined_chain_kernel<DEGREE, NCH, T, true>
+          <<<grid, dim3(BLOCK_X, BLOCK_Y), smem, stream>>>(
+              out, score, coeff, xfeat, yfeat, bmats, spread, blocks, champ,
+              p);
+    } else {
+      return cudaErrorInvalidValue;   // a voronoi stitch has 1 or 3
+    }
     return cudaGetLastError();
   }
 };
@@ -326,14 +427,17 @@ struct ChainLaunch {
 // (n_taps, H, W), 8-bit when ``tapw_u8`` is set, else float32. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for an
 // unsupported argument. ``wmat`` is a host array of (degree+1)^2 floats.
-// ``coeff`` is float32, or bfloat16 where ``coeff_bf16`` is set.
+// ``coeff`` is float32, or bfloat16 where ``coeff_bf16`` is set. A pixel
+// is written ``scale`` times its sum, added to what ``out`` holds where
+// ``accumulate`` is set.
 extern "C" int envutil_resample_twined(
     float* out, const void* coeff, const float* sx, const float* sy,
     const float* dux, const float* duy, const float* dvx, const float* dvy,
     const float* spread, const float* mask, const void* tapw,
     const float* wmat, long long height, long long width, long long hp,
     long long wp, int degree, int nch, int n_taps, int tapw_u8,
-    float lower_x, float period_x, int coeff_bf16, void* stream) {
+    float lower_x, float period_x, float scale, int accumulate,
+    int coeff_bf16, void* stream) {
   constexpr int MAX_TAPS = 4096;  // 48 KiB of shared memory
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (n_taps < 1 || n_taps > MAX_TAPS) return (int)cudaErrorInvalidValue;
@@ -343,6 +447,7 @@ extern "C" int envutil_resample_twined(
   p.height = height; p.width = width;
   p.n_taps = n_taps; p.tapw_u8 = tapw_u8;
   p.lower_x = lower_x; p.period_x = period_x;
+  p.scale = scale; p.accumulate = accumulate;
   set_table(p.table, hp, wp, degree, wmat);
   if (coeff_bf16)
     return (int)by_degree<Launch<__nv_bfloat16>>(
@@ -365,21 +470,30 @@ extern "C" int envutil_resample_twined(
 // ``recip_step``, LOWEST where the tap misses. ``coeff`` is float32, or
 // bfloat16 where ``coeff_bf16`` is set. ``blocks`` and ``n_blocks`` as
 // for envutil_resample_planar_chain: a null list launches over the
-// whole window, a list over its listed 32x8 blocks only.
+// whole window, a list over its listed 32x8 blocks only. ``champ`` may
+// be null; otherwise it is the stitch's (n_taps, H, W) uint8 champion
+// planes, tap k counts only where its champion is ``facet`` (no window
+// test: ``tap_valid`` and ``score`` must be off; 1 or 3 channels), and
+// a pixel with no such tap is left untouched. A pixel is written ``scale`` times its
+// sum, added to what ``out`` holds where ``accumulate`` is set.
 extern "C" int envutil_resample_twined_chain(
     float* out, float* score, const void* coeff, const float* xfeat,
     const float* yfeat, const float* bmats, const float* spread,
     const float* wmat, const int* ipick, const float* fpick,
-    const int* blocks, long long n_blocks,
+    const int* blocks, long long n_blocks, const unsigned char* champ,
     long long height, long long width, long long hp, long long wp, int row0,
     int face_rows, int degree, int nch, int tmode, int n_taps, int precise,
-    int tap_valid, float recip_step, int coeff_bf16, void* stream) {
+    int tap_valid, float recip_step, int facet, float scale, int accumulate,
+    int coeff_bf16, void* stream) {
   constexpr int MAX_TAPS = 4096;  // 48 KiB of shared memory
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   if (tmode < TMODE_AFFINE || tmode > TMODE_FISH) return (int)cudaErrorInvalidValue;
   if (n_taps < 1 || n_taps > MAX_TAPS) return (int)cudaErrorInvalidValue;
   if (score != nullptr && n_taps != 1) return (int)cudaErrorInvalidValue;
   if (!chain_list_ok(blocks, n_blocks)) return (int)cudaErrorInvalidValue;
+  if (champ != nullptr && (score != nullptr || tap_valid || facet < 0 ||
+                           facet > 254))
+    return (int)cudaErrorInvalidValue;
   if (height <= 0 || width <= 0) return 0;
   if ((height + BLOCK_Y - 1) / BLOCK_Y > 65535) return (int)cudaErrorInvalidValue;
   ChainParams p;
@@ -389,15 +503,16 @@ extern "C" int envutil_resample_twined_chain(
   p.nfy = tmode == TMODE_SPH ? 2 : 1;
   p.n_taps = n_taps; p.precise = precise; p.tap_valid = tap_valid;
   p.recip_step = recip_step;
+  p.facet = facet; p.scale = scale; p.accumulate = accumulate;
   if (!set_pickup(p.pick, ipick, fpick)) return (int)cudaErrorInvalidValue;
   if (tap_valid && p.pick.smode != SMODE_MOUNT) return (int)cudaErrorInvalidValue;
   set_table(p.table, hp, wp, degree, wmat);
   if (coeff_bf16)
     return (int)by_degree<ChainLaunch<__nv_bfloat16>>(
         degree, nch, out, score, (const __nv_bfloat16*)coeff, xfeat, yfeat,
-        bmats, spread, blocks, n_blocks, p, (cudaStream_t)stream);
+        bmats, spread, blocks, n_blocks, champ, p, (cudaStream_t)stream);
   return (int)by_degree<ChainLaunch<float>>(degree, nch, out, score,
                                             (const float*)coeff, xfeat, yfeat,
                                             bmats, spread, blocks, n_blocks,
-                                            p, (cudaStream_t)stream);
+                                            champ, p, (cudaStream_t)stream);
 }

@@ -135,6 +135,9 @@ MAX_DEGREE = 7
 # in flight.
 WINDOW_BYTES = 32 * 1024
 TILE_INLINE = (32, 16)
+# the champion planes' entry of a pixel and tap that no facet covers
+# (csrc/champion.cu); a stitch's facets are 0 .. NO_CHAMPION - 1
+NO_CHAMPION = 255
 
 _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -144,21 +147,26 @@ _INLINE = K.Library("resample_inline.cu", {
         [_p] * 6 + [_ll] * 4 + [_i] * 7 + [_f, _f, _i] + [_f] * 8
         + [_i, _i, _p]})
 _PLANAR = K.Library("resample_planar.cu", {
-    "envutil_resample_planar": [_p] * 6 + [_ll] * 4 + [_i, _i, _i, _p],
+    "envutil_resample_planar": [_p] * 6 + [_ll] * 4 + [_i, _i, _f, _i, _p],
     "envutil_resample_planar_chain":
-        [_p] * 10 + [_ll] * 5 + [_i] * 5 + [_f, _i, _p]})
+        [_p] * 10 + [_ll, _p] + [_ll] * 4 + [_i] * 5
+        + [_f, _i, _f, _i, _p]})
 _INLINE_TWINED = K.Library("resample_inline_twined.cu", {
     "envutil_resample_inline_twined":
         [_p] * 7 + [_ll] * 4 + [_i] * 9 + [_f, _f, _i] + [_f] * 8
         + [_i, _p]})
 _TWINED = K.Library("resample_twined.cu", {
     "envutil_resample_twined": [_p] * 12 + [_ll] * 4 + [_i] * 4
-    + [_f, _f, _i, _p],
+    + [_f, _f, _f, _i, _i, _p],
     "envutil_resample_twined_chain":
-        [_p] * 11 + [_ll] * 5 + [_i] * 8 + [_f, _i, _p]})
+        [_p] * 11 + [_ll, _p] + [_ll] * 4 + [_i] * 8
+        + [_f, _i, _f, _i, _i, _p]})
 _BLOCKS = K.Library("chain_blocks.cu", {
     "envutil_chain_blocks": [_p] * 9 + [_ll] * 2 + [_i] * 5 + [_p]})
-LIBRARIES = (_INLINE, _PLANAR, _INLINE_TWINED, _TWINED, _BLOCKS)
+_CHAMPION = K.Library("champion.cu", {
+    "envutil_champion": [_p] * 9 + [_ll] * 3 + [_i] * 7 + [_f, _p],
+    "envutil_champion_lists": [_p] * 4 + [_ll] * 2 + [_i] * 2 + [_p]})
+LIBRARIES = (_INLINE, _PLANAR, _INLINE_TWINED, _TWINED, _BLOCKS, _CHAMPION)
 
 
 def build():
@@ -707,18 +715,20 @@ def _check_planar(out, coeff, sx, sy, degree, merge_mask):
                              "tensors on one device")
 
 
-def resample_planar(out, coeff, sx, sy, *, degree: int, merge_mask=None):
+def resample_planar(out, coeff, sx, sy, *, degree: int, merge_mask=None,
+                    scale: float = 1.0):
     """Evaluate the degree-``degree`` spline of the braced (Hp, Wp, C)
     table ``coeff`` at padded table coordinates ``sx``, ``sy`` (H, W)
     into ``out`` (H, W, C), in place, and return ``out``. With
     ``merge_mask`` (H, W), pixels whose mask is <= 0.5 keep the prior
     contents of ``out`` bit for bit; without it every pixel is written.
-    CUDA tensors go through the kernel; CPU tensors through
-    ``resample_planar_plain``."""
+    A pixel written holds ``scale`` times the spline's value (the
+    voronoi route's brighten). CUDA tensors go through the kernel; CPU
+    tensors through ``resample_planar_plain``."""
     _check_planar(out, coeff, sx, sy, degree, merge_mask)
     if out.device.type == "cpu":
         return resample_planar_plain(out, coeff, sx, sy, degree=degree,
-                                     merge_mask=merge_mask)
+                                     merge_mask=merge_mask, scale=scale)
     if out.device.type != "cuda":
         raise ValueError(f"unsupported device {out.device}")
     fn = _PLANAR.get("envutil_resample_planar")
@@ -730,7 +740,7 @@ def resample_planar(out, coeff, sx, sy, *, degree: int, merge_mask=None):
                  sy.data_ptr(),
                  None if merge_mask is None else merge_mask.data_ptr(),
                  _wmat(degree), h, w, hp, wp, int(degree), int(nch),
-                 _bf16(coeff), stream)
+                 float(scale), _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_planar kernel launch failed: CUDA "
                            f"error {err}")
@@ -749,18 +759,26 @@ def clamp_coords(s, extent: int, degree: int):
     return torch.nan_to_num(s, nan=lo, posinf=hi, neginf=lo).clamp(lo, hi)
 
 
+def _scaled(val, scale: float):
+    """``scale`` * ``val`` as the kernels store it (``val`` itself for a
+    scale of 1)."""
+    return val if scale == 1.0 else val * scale
+
+
 def resample_planar_plain(out, coeff, sx, sy, *, degree: int,
-                          merge_mask=None):
+                          merge_mask=None, scale: float = 1.0):
     """The kernel's computation in plain PyTorch, with its signature:
     clamp the coordinates, ``eval_spline`` (ungated, each tap of a bf16
-    table upcast) on the padded table, overlay by the mask. Finite wherever the table is, whatever
-    the coordinates. Runs on any device."""
+    table upcast) on the padded table, scale, overlay by the mask.
+    Finite wherever the table is, whatever the coordinates. Runs on any
+    device."""
     _check_planar(out, coeff, sx, sy, degree, merge_mask)
     hp, wp, _ = coeff.shape
     table = S.Spline2D(coeff=coeff, pad=0, degree=degree,
                        bcs=(S.CONSTANT, S.CONSTANT), core_shape=(hp, wp))
-    val = S.eval_spline(table, clamp_coords(sx, wp, degree),
-                        clamp_coords(sy, hp, degree), apply_gate=False)
+    val = _scaled(S.eval_spline(table, clamp_coords(sx, wp, degree),
+                                clamp_coords(sy, hp, degree),
+                                apply_gate=False), scale)
     if merge_mask is None:
         out.copy_(val)
     else:
@@ -795,7 +813,8 @@ def _check_twined(out, coeff, planes, spread, degree, n_taps, merge_mask,
 
 def resample_twined(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, *,
                     degree: int, n_taps: int, merge_mask=None,
-                    tap_weights=None, wrap_x=None):
+                    tap_weights=None, wrap_x=None, scale: float = 1.0,
+                    accumulate: bool = False):
     """Sum over the spread's taps of w_k times the degree-``degree``
     spline of the braced (Hp, Wp, C) table ``coeff`` at the padded
     coordinates (sx + cx_k dux + cy_k dvx, sy + cx_k duy + cy_k dvy),
@@ -806,16 +825,20 @@ def resample_twined(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, *,
     w_k * tap_weights[k]: a tap of weight 0 reads nothing and a pixel
     whose weights are all 0 is written 0. ``wrap_x`` = (lower, period),
     in padded coordinates, wraps each deflected x into
-    [lower, lower + period) for horizontally periodic tables. CUDA
-    tensors go through the kernel; CPU tensors through
-    ``resample_twined_plain``."""
+    [lower, lower + period) for horizontally periodic tables. A pixel
+    written holds ``scale`` times its sum, added to what ``out`` held
+    with ``accumulate`` (a pixel no tap counts at adds 0): the voronoi
+    route's translated facet adds its champion taps (``tap_weights`` its
+    champion planes) brightened into the frame. CUDA tensors go through
+    the kernel; CPU tensors through ``resample_twined_plain``."""
     planes = (sx, sy, dux, duy, dvx, dvy)
     _check_twined(out, coeff, planes, spread, degree, n_taps, merge_mask,
                   tap_weights, wrap_x)
     if out.device.type == "cpu":
         return resample_twined_plain(
             out, coeff, *planes, spread, degree=degree, n_taps=n_taps,
-            merge_mask=merge_mask, tap_weights=tap_weights, wrap_x=wrap_x)
+            merge_mask=merge_mask, tap_weights=tap_weights, wrap_x=wrap_x,
+            scale=scale, accumulate=accumulate)
     if out.device.type != "cuda":
         raise ValueError(f"unsupported device {out.device}")
     fn = _TWINED.get("envutil_resample_twined")
@@ -831,7 +854,8 @@ def resample_twined(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, *,
                  _wmat(degree), h, w, hp, wp, int(degree), int(nch),
                  int(n_taps), int(tap_weights is not None
                      and tap_weights.dtype != torch.float32),
-                 float(lower), float(period), _bf16(coeff), stream)
+                 float(lower), float(period), float(scale), int(accumulate),
+                 _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_twined kernel launch failed: CUDA "
                            f"error {err}")
@@ -857,12 +881,14 @@ def twined_tap_coords(sx, sy, dux, duy, dvx, dvy, spread, hp: int, wp: int,
 
 def resample_twined_plain(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, *,
                           degree: int, n_taps: int, merge_mask=None,
-                          tap_weights=None, wrap_x=None):
+                          tap_weights=None, wrap_x=None, scale: float = 1.0,
+                          accumulate: bool = False):
     """The twined kernel's computation in plain PyTorch, with its
     signature: the tap loop over ``resample_planar_plain``'s pieces
     (deflect, wrap, clamp, ``eval_spline`` ungated on the padded table),
-    the taps weighted per pixel by ``tap_weights``, the sum overlaid by
-    the mask. Runs on any device."""
+    the taps weighted per pixel by ``tap_weights``, the sum scaled,
+    added to ``out`` (``accumulate``) and overlaid by the mask. Runs on
+    any device."""
     planes = (sx, sy, dux, duy, dvx, dvy)
     _check_twined(out, coeff, planes, spread, degree, n_taps, merge_mask,
                   tap_weights, wrap_x)
@@ -878,11 +904,14 @@ def resample_twined_plain(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, *,
         else:
             term = (w * tap_weights[k].to(torch.float32))[..., None] * val
         acc = term if acc is None else acc + term
+    val = _scaled(acc, scale)
+    if accumulate:
+        val = out + val
     if merge_mask is None:
-        out.copy_(acc)
+        out.copy_(val)
     else:
         keep = (merge_mask > 0.5)[..., None]
-        out.copy_(torch.where(keep, acc, out))
+        out.copy_(torch.where(keep, val, out))
     return out
 
 
@@ -1011,10 +1040,25 @@ def _check_score(out, score):
                          "on out's device")
 
 
+def _check_champ(out, champ, facet, n_planes, score):
+    if champ is None:
+        return
+    if tuple(champ.shape) != (n_planes,) + tuple(out.shape[:2]) \
+            or champ.dtype != torch.uint8 or not champ.is_contiguous() \
+            or champ.device != out.device:
+        raise ValueError(f"champ must be contiguous ({n_planes}, H, W) uint8 "
+                         "champion planes on out's device")
+    if not 0 <= facet < NO_CHAMPION:
+        raise ValueError(f"facet {facet} outside 0..{NO_CHAMPION - 1}")
+    if score is not None:
+        raise ValueError("a champion-mode launch writes no score")
+
+
 def resample_planar_chain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
                           tmode: str, pick: ChainPickup, row0: int = 0,
                           face_rows: int = 0, score=None,
-                          recip_step: float = 1.0, blocks=None):
+                          recip_step: float = 1.0, blocks=None, champ=None,
+                          facet: int = 0, scale: float = 1.0):
     """The chain form of the planar kernel: per pixel the target ray from
     the axis features (``tmode`` affine, sph or cyl as for
     ``resample_inline``, or ster / fish on planar features), its pickup
@@ -1029,17 +1073,25 @@ def resample_planar_chain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
     and ``score`` keeps its contents (the compact grid: the caller fills
     them with 0 and ``synopsis.LOWEST``); an empty list launches
     nothing. ``resample_planar_chain.blocks`` counts the blocks launched.
-    Returns ``out``. CUDA tensors go through the kernel; CPU tensors
-    through ``resample_planar_chain_plain``."""
+    The champion mode, the voronoi route's merge overlay (K2's
+    ``merge_mask`` with the champion plane as the mask): with ``champ``
+    (the stitch's (1, H, W) uint8 champion plane,
+    ``champion_planes``) only the pixels whose champion is ``facet`` are
+    written, every other pixel keeps its contents, and no score is
+    written; counted in ``resample_planar_chain.champion_launches``. A
+    pixel written holds ``scale`` (the facet's brighten) times the
+    spline's value. Returns ``out``. CUDA tensors go through the kernel;
+    CPU tensors through ``resample_planar_chain_plain``."""
     _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
                  face_rows, 1)
     _check_score(out, score)
     _check_blocks(out, blocks)
+    _check_champ(out, champ, facet, 1, score)
     if blocks is not None and blocks.numel() == 0:
         return out
     kw = dict(degree=degree, tmode=tmode, pick=pick, row0=row0,
               face_rows=face_rows, score=score, recip_step=recip_step,
-              blocks=blocks)
+              blocks=blocks, champ=champ, facet=facet, scale=scale)
     if out.device.type == "cpu":
         return resample_planar_chain_plain(out, coeff, xfeat, yfeat, bmats,
                                            **kw)
@@ -1054,35 +1106,47 @@ def resample_planar_chain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
         err = fn(out.data_ptr(), None if score is None else score.data_ptr(),
                  coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
                  bmats.data_ptr(), _wmat(degree), ints, floats,
-                 *_list_args(blocks), h, w, hp, wp,
+                 *_list_args(blocks), _ptr(champ), h, w, hp, wp,
                  int(row0), int(face_rows), int(degree), int(nch),
-                 _CHAIN_TMODES[tmode], float(recip_step), _bf16(coeff), stream)
+                 _CHAIN_TMODES[tmode], float(recip_step), int(facet),
+                 float(scale), _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_planar_chain kernel launch failed: "
                            f"CUDA error {err}")
     resample_planar_chain.launches += 1
     resample_planar_chain.blocks += _launched(out, blocks)
+    resample_planar_chain.champion_launches += champ is not None
     return out
 
 
 resample_planar_chain.launches = 0
 resample_planar_chain.blocks = 0
+resample_planar_chain.champion_launches = 0
 
 
 def resample_planar_chain_plain(out, coeff, xfeat, yfeat, bmats, *,
                                 degree: int, tmode: str, pick: ChainPickup,
                                 row0: int = 0, face_rows: int = 0,
                                 score=None, recip_step: float = 1.0,
-                                blocks=None):
+                                blocks=None, champ=None, facet: int = 0,
+                                scale: float = 1.0):
     """The planar chain kernel's computation in plain PyTorch, with its
     signature: ``chain_rays`` and ``chain_coords``, the score from the
     ray's z where asked, then ``resample_planar_plain`` under the
-    validity mask over a zero canvas; with ``blocks``, written into the
-    listed blocks only (``_listed``). Runs on any device."""
+    validity mask over a zero canvas, scaled; with ``blocks``, written
+    into the listed blocks only (``_listed``); with ``champ``, into the
+    pixels ``facet`` champions only (``_championed``). Runs on any
+    device."""
     _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
                  face_rows, 1)
     _check_score(out, score)
     _check_blocks(out, blocks)
+    _check_champ(out, champ, facet, 1, score)
+    if champ is not None:
+        return _championed(resample_planar_chain_plain, out, blocks,
+                           champ[0] == facet, coeff, xfeat, yfeat, bmats,
+                           degree=degree, tmode=tmode, pick=pick, row0=row0,
+                           face_rows=face_rows, scale=scale)
     if blocks is not None:
         return _listed(resample_planar_chain_plain, out, score, blocks,
                        coeff, xfeat, yfeat, bmats, degree=degree,
@@ -1096,7 +1160,8 @@ def resample_planar_chain_plain(out, coeff, xfeat, yfeat, bmats, *,
     out.zero_()
     return resample_planar_plain(out, coeff, sx.contiguous(),
                                  sy.contiguous(), degree=degree,
-                                 merge_mask=mask.to(torch.float32))
+                                 merge_mask=mask.to(torch.float32),
+                                 scale=scale)
 
 
 def twined_chain_operands(xfeat, yfeat, bmats, spread, *, tmode: str,
@@ -1130,9 +1195,10 @@ def twined_ray_operands(p0, p10, p01, spread, *, pick: ChainPickup,
     ``tap_weights`` (K, H, W) uint8, each tap's deflected validity (with
     ``tap_valid``, else None), and ``wrap_x``. An IR source's three
     pickups are taken in the centre ray's face. ``score`` is None, or
-    with ``recip_step`` (a one-tap spread only) the tap's voronoi score:
-    ``synopsis.facet_score`` of its deflected ray (not renormalised, as
-    ``synopsis.twined`` scores it) under the tap's validity."""
+    with ``recip_step`` the (K, H, W) voronoi scores of the taps:
+    ``synopsis.facet_score`` of each tap's deflected ray (not
+    renormalised, as ``synopsis.twined`` scores it) under the tap's
+    validity (every ray valid without ``tap_valid``)."""
     du, dv = SYN.derivative_rays(p0, p10, p01, precise)
     if precise:
         p10 = tuple(a + b for a, b in zip(p0, du))
@@ -1177,8 +1243,8 @@ def twined_ray_operands(p0, p10, p01, spread, *, pick: ChainPickup,
         if tap_valid:
             tap_weights = torch.stack(hits).to(torch.uint8)
         if recip_step is not None:
-            _one_tap(len(taps))
-            score = SYN.facet_score(taps[0][2], hits[0], recip_step)
+            score = torch.stack([SYN.facet_score(ray[2], hit, recip_step)
+                                 for ray, hit in zip(taps, hits)])
     return dict(sx=(x0 + pick.pad).contiguous(),
                 sy=(y0 + pick.pad).contiguous(), dux=dux, duy=duy, dvx=dvx,
                 dvy=dvy, tap_weights=tap_weights, score=score,
@@ -1193,7 +1259,8 @@ def _one_tap(n_taps):
 
 
 def _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
-                        n_taps, tmode, pick, face_rows, tap_valid, score):
+                        n_taps, tmode, pick, face_rows, tap_valid, score,
+                        champ, facet):
     _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
                  face_rows, 2)
     _spread_taps(spread, n_taps, out.device)
@@ -1202,6 +1269,13 @@ def _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
     _check_score(out, score)
     if score is not None:
         _one_tap(n_taps)
+    _check_champ(out, champ, facet, n_taps, score)
+    if champ is not None and tap_valid:
+        raise ValueError("a champion's tap is valid by construction: the "
+                         "tapsel mode tests no tap (tap_valid off)")
+    if champ is not None and out.shape[2] not in (1, 3):
+        raise ValueError("the tapsel mode serves voronoi stitches: 1 or 3 "
+                         "channels")
 
 
 def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
@@ -1209,7 +1283,9 @@ def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
                           pick: ChainPickup, row0: int = 0,
                           face_rows: int = 0, precise: bool = False,
                           tap_valid: bool = False, score=None,
-                          recip_step: float = 1.0, blocks=None):
+                          recip_step: float = 1.0, blocks=None, champ=None,
+                          facet: int = 0, scale: float = 1.0,
+                          accumulate: bool = False):
     """The chain form of the planar twined kernel: per pixel the three
     rays of the ninepack from the doubled feature sets (as for
     ``resample_inline_twined``, plus the ster / fish modes), the
@@ -1223,18 +1299,29 @@ def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
     (not renormalised) times ``recip_step`` where the tap counts,
     ``synopsis.LOWEST`` where it misses; ``out`` is the same bit for bit
     with or without it. ``blocks`` as for ``resample_planar_chain``
-    (counted in ``resample_twined_chain.blocks``). Returns ``out``. CUDA
-    tensors go through the kernel; CPU tensors through
+    (counted in ``resample_twined_chain.blocks``). The tapsel mode, the
+    TPU kernel's champion-routed tap weights: with ``champ`` (the
+    stitch's (n_taps, H, W) uint8 champion planes, ``champion_planes``)
+    tap k counts only where its champion is ``facet``, no tap is tested
+    against the window (``tap_valid`` off: a champion's tap is valid),
+    no score is written and a pixel with no such tap keeps its
+    contents; counted in ``resample_twined_chain.tapsel_launches``. A
+    pixel written holds ``scale`` (the facet's brighten) times its sum,
+    added to what ``out`` held with ``accumulate``: the voronoi route
+    adds each facet's champion taps into one frame. Returns ``out``.
+    CUDA tensors go through the kernel; CPU tensors through
     ``resample_twined_chain_plain``."""
     _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
-                        n_taps, tmode, pick, face_rows, tap_valid, score)
+                        n_taps, tmode, pick, face_rows, tap_valid, score,
+                        champ, facet)
     _check_blocks(out, blocks)
     if blocks is not None and blocks.numel() == 0:
         return out
     kw = dict(degree=degree, n_taps=n_taps, tmode=tmode, pick=pick,
               row0=row0, face_rows=face_rows, precise=precise,
               tap_valid=tap_valid, score=score, recip_step=recip_step,
-              blocks=blocks)
+              blocks=blocks, champ=champ, facet=facet, scale=scale,
+              accumulate=accumulate)
     if out.device.type == "cpu":
         return resample_twined_chain_plain(out, coeff, xfeat, yfeat, bmats,
                                            spread, **kw)
@@ -1249,20 +1336,23 @@ def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
         err = fn(out.data_ptr(), None if score is None else score.data_ptr(),
                  coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
                  bmats.data_ptr(), spread.data_ptr(), _wmat(degree), ints,
-                 floats, *_list_args(blocks), h, w, hp, wp, int(row0),
-                 int(face_rows), int(degree), int(nch), _CHAIN_TMODES[tmode],
-                 int(n_taps), int(precise), int(tap_valid),
-                 float(recip_step), _bf16(coeff), stream)
+                 floats, *_list_args(blocks), _ptr(champ), h, w, hp, wp,
+                 int(row0), int(face_rows), int(degree), int(nch),
+                 _CHAIN_TMODES[tmode], int(n_taps), int(precise),
+                 int(tap_valid), float(recip_step), int(facet), float(scale),
+                 int(accumulate), _bf16(coeff), stream)
     if err != 0:
         raise RuntimeError(f"resample_twined_chain kernel launch failed: "
                            f"CUDA error {err}")
     resample_twined_chain.launches += 1
     resample_twined_chain.blocks += _launched(out, blocks)
+    resample_twined_chain.tapsel_launches += champ is not None
     return out
 
 
 resample_twined_chain.launches = 0
 resample_twined_chain.blocks = 0
+resample_twined_chain.tapsel_launches = 0
 
 
 def resample_twined_chain_plain(out, coeff, xfeat, yfeat, bmats, spread, *,
@@ -1270,33 +1360,47 @@ def resample_twined_chain_plain(out, coeff, xfeat, yfeat, bmats, spread, *,
                                 pick: ChainPickup, row0: int = 0,
                                 face_rows: int = 0, precise: bool = False,
                                 tap_valid: bool = False, score=None,
-                                recip_step: float = 1.0, blocks=None):
+                                recip_step: float = 1.0, blocks=None,
+                                champ=None, facet: int = 0,
+                                scale: float = 1.0,
+                                accumulate: bool = False):
     """The twined chain kernel's computation in plain PyTorch, with its
     signature: ``twined_chain_operands`` (the score, where asked, by
     ``synopsis.facet_score`` of ``synopsis.deflect`` of the chain's
-    rays), then ``resample_twined_plain`` on them; with ``blocks``,
-    written into the listed blocks only (``_listed``). Runs on any
-    device."""
+    rays), then ``resample_twined_plain`` on them, each tap weighted by
+    its validity or, with ``champ``, by ``champ[k] == facet``; the sum
+    scaled and, with ``accumulate``, added to ``out``; written where some
+    tap counts with ``champ``, else everywhere, and with ``blocks`` in
+    the listed blocks only. Runs on any device."""
     _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
-                        n_taps, tmode, pick, face_rows, tap_valid, score)
+                        n_taps, tmode, pick, face_rows, tap_valid, score,
+                        champ, facet)
     _check_blocks(out, blocks)
-    if blocks is not None:
-        return _listed(resample_twined_chain_plain, out, score, blocks,
-                       coeff, xfeat, yfeat, bmats, spread, degree=degree,
-                       n_taps=n_taps, tmode=tmode, pick=pick, row0=row0,
-                       face_rows=face_rows, precise=precise,
-                       tap_valid=tap_valid, recip_step=recip_step)
     ops = twined_chain_operands(
         xfeat, yfeat, bmats, spread, tmode=tmode, pick=pick, row0=row0,
         face_rows=face_rows, precise=precise, tap_valid=tap_valid,
         recip_step=None if score is None else recip_step)
+    tapw = ops["tap_weights"] if champ is None \
+        else (champ == facet).to(torch.uint8)
+    val = resample_twined_plain(
+        torch.empty_like(out), coeff,
+        *(ops[k] for k in ("sx", "sy", "dux", "duy", "dvx", "dvy")),
+        spread, degree=degree, n_taps=n_taps, tap_weights=tapw,
+        wrap_x=ops["wrap_x"], scale=scale)
+    write = torch.ones(out.shape[:2], dtype=torch.bool, device=out.device)
+    if champ is not None:
+        write = tapw.bool().any(0)
+    if blocks is not None:
+        listed = block_pixels(blocks, *out.shape[:2])
+        write = write & listed
+    if accumulate:
+        val = out + val
+    out.copy_(torch.where(write[..., None], val, out))
     if score is not None:
-        score.copy_(ops["score"])
-    return resample_twined_plain(
-        out, coeff, *(ops[k] for k in ("sx", "sy", "dux", "duy", "dvx",
-                                       "dvy")),
-        spread, degree=degree, n_taps=n_taps,
-        tap_weights=ops["tap_weights"], wrap_x=ops["wrap_x"])
+        one = ops["score"][0]
+        score.copy_(one if blocks is None else torch.where(listed, one,
+                                                           score))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1358,6 +1462,24 @@ def _list_args(blocks):
     points: (None, 0) for the whole window."""
     return (None, 0) if blocks is None else (blocks.data_ptr(),
                                             blocks.numel())
+
+
+def _ptr(t):
+    """The device pointer of an optional tensor (None: null)."""
+    return None if t is None else t.data_ptr()
+
+
+def _championed(plain, out, blocks, own, *args, **kw):
+    """A chain form's plain version in its champion mode: the window
+    computed into a fresh buffer by ``plain``, then written into ``out``
+    where ``own`` ((H, W) bool: the facet is the pixel's champion) holds
+    and, with ``blocks``, in the listed blocks only, every other pixel
+    keeping its contents, as the kernel leaves them."""
+    if blocks is not None:
+        own = own & block_pixels(blocks, *out.shape[:2])
+    full = plain(torch.empty_like(out), *args, **kw)
+    out.copy_(torch.where(own[..., None], full, out))
+    return out
 
 
 def _launched(out, blocks):
@@ -1479,3 +1601,218 @@ def chain_blocks_plain(xfeat, yfeat, bmats, *, tmode: str,
             face_rows=face_rows, precise=precise,
             tap_valid=True)["tap_weights"].bool().any(0)
     return list_blocks(hit)
+
+
+# ---------------------------------------------------------------------------
+# the champion pass of the voronoi route: per pixel and tap, which facet
+# the stitch's synopsis takes (the TPU kernel's champ operand)
+# ---------------------------------------------------------------------------
+
+def _check_planes(best, champ):
+    if best.dim() != 3 or champ.shape != best.shape \
+            or best.dtype != torch.float32 or champ.dtype != torch.uint8 \
+            or not best.is_contiguous() or not champ.is_contiguous() \
+            or best.device != champ.device:
+        raise ValueError("best and champ must be contiguous (K, H, W) "
+                         "float32 and uint8 planes on one device")
+
+
+def _check_champion(best, champ, xfeat, yfeat, bmats, tmode, pick,
+                    face_rows, spread, n_taps, tap_valid, facet):
+    _check_planes(best, champ)
+    if not isinstance(pick, ChainPickup) or pick.smode not in _CHAIN_SMODES:
+        raise ValueError("pick must be a ChainPickup with smode cubemap, "
+                         "biatan6 or mount")
+    if tmode not in _CHAIN_TMODES:
+        raise ValueError(f"unknown tmode {tmode!r}")
+    _check_bmats(xfeat, xfeat, yfeat, bmats, face_rows)
+    sets = 1 if spread is None else 2
+    nfx, nfy = _feature_rows(tmode)
+    if tuple(xfeat.shape) != (sets * nfx, best.shape[2]) \
+            or tuple(yfeat.shape) != (sets * nfy, best.shape[1]) \
+            or xfeat.device != best.device:
+        raise ValueError(f"features {tuple(xfeat.shape)}/"
+                         f"{tuple(yfeat.shape)} do not fit the planes "
+                         f"{tuple(best.shape)}")
+    if spread is None:
+        if best.shape[0] != 1:
+            raise ValueError("an untwined stitch has one champion plane")
+    else:
+        _spread_taps(spread, n_taps, best.device)
+        if best.shape[0] != n_taps:
+            raise ValueError(f"{best.shape[0]} champion planes for "
+                             f"{n_taps} taps")
+    if tap_valid and (spread is None or pick.smode != "mount"):
+        raise ValueError("tap_valid is for twined mount sources only")
+    if not 0 <= facet < NO_CHAMPION:
+        raise ValueError(f"facet {facet} outside 0..{NO_CHAMPION - 1}")
+
+
+def champion_merge(best, champ, score, facet: int):
+    """The champion rule, in place: where ``score`` ((K, H, W) float32,
+    a facet's voronoi scores) is strictly greater than ``best``, it
+    becomes the best and ``facet`` the champion, so that the first facet
+    in facet order wins a tie (``torch.max``, JAX ``argmax``) and a
+    score of ``synopsis.LOWEST`` never wins. The champion pass's plain
+    version and the route's merge of a translated facet's scores."""
+    better = score > best
+    best.copy_(torch.where(better, score, best))
+    champ.copy_(torch.where(better, torch.tensor(facet, dtype=torch.uint8,
+                                                 device=champ.device), champ))
+
+
+def chain_scores(xfeat, yfeat, bmats, *, tmode: str, pick: ChainPickup,
+                 row0: int = 0, face_rows: int = 0, spread=None,
+                 n_taps: int = 0, precise: bool = False,
+                 tap_valid: bool = False, recip_step: float = 1.0):
+    """The (K, H, W) voronoi scores of a chain launch's rays, as the chain
+    forms' score outputs give them: untwined (one plane), the centre
+    ray's (``planar_chain_coords``' validity and z); twined, each tap's
+    deflected ray's (``twined_chain_operands``: its validity with
+    ``tap_valid``, every ray otherwise)."""
+    if spread is None:
+        ray = chain_rays(xfeat, yfeat, bmats, tmode=tmode, row0=row0,
+                         face_rows=face_rows)
+        hit = chain_coords(pick, *ray)[2]
+        return SYN.facet_score(ray[2], hit, recip_step)[None]
+    return twined_chain_operands(
+        xfeat, yfeat, bmats, spread, tmode=tmode, pick=pick, row0=row0,
+        face_rows=face_rows, precise=precise, tap_valid=tap_valid,
+        recip_step=recip_step)["score"]
+
+
+def champion_planes(best, champ, xfeat, yfeat, bmats, *, facet: int,
+                    tmode: str, pick: ChainPickup, row0: int = 0,
+                    face_rows: int = 0, spread=None, n_taps: int = 0,
+                    precise: bool = False, tap_valid: bool = False,
+                    recip_step: float = 1.0, blocks=None):
+    """One facet's turn of the champion pass (csrc/champion.cu): its
+    voronoi scores of the chain launch with these operands
+    (``chain_scores``: untwined one plane, twined one a tap of
+    ``spread``) merged into the (K, H, W) float32 ``best`` and uint8
+    ``champ`` planes by ``champion_merge``'s rule. The caller starts
+    the planes at ``synopsis.LOWEST`` and ``NO_CHAMPION`` and runs the
+    facets in order. With ``blocks`` (the facet's coverage list,
+    ``chain_blocks``) only the listed 32x8 blocks are scored: the facet
+    scores ``LOWEST`` everywhere else. Returns ``champ``. CUDA tensors
+    go through the kernel (``champion_planes.launches``; an empty list
+    launches nothing); CPU tensors through ``champion_planes_plain``."""
+    _check_champion(best, champ, xfeat, yfeat, bmats, tmode, pick,
+                    face_rows, spread, n_taps, tap_valid, facet)
+    _check_blocks(champ, blocks)
+    kw = dict(facet=facet, tmode=tmode, pick=pick, row0=row0,
+              face_rows=face_rows, spread=spread, n_taps=n_taps,
+              precise=precise, tap_valid=tap_valid, recip_step=recip_step,
+              blocks=blocks)
+    if blocks is not None and blocks.numel() == 0:
+        return champ
+    if champ.device.type == "cpu":
+        return champion_planes_plain(best, champ, xfeat, yfeat, bmats, **kw)
+    if champ.device.type != "cuda":
+        raise ValueError(f"unsupported device {champ.device}")
+    fn = _CHAMPION.get("envutil_champion")
+    h, w = champ.shape[1:]
+    ints, floats = _pickup_arrays(pick)
+    with torch.cuda.device(champ.device):
+        stream = torch.cuda.current_stream(champ.device).cuda_stream
+        err = fn(best.data_ptr(), champ.data_ptr(), xfeat.data_ptr(),
+                 yfeat.data_ptr(), bmats.data_ptr(), _ptr(spread), ints,
+                 floats, *_list_args(blocks), h, w, int(row0),
+                 int(face_rows), _CHAIN_TMODES[tmode], int(n_taps),
+                 int(precise), int(tap_valid), int(facet), float(recip_step),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"champion kernel launch failed: CUDA error {err}")
+    champion_planes.launches += 1
+    return champ
+
+
+champion_planes.launches = 0
+
+
+def champion_planes_plain(best, champ, xfeat, yfeat, bmats, *, facet: int,
+                          tmode: str, pick: ChainPickup, row0: int = 0,
+                          face_rows: int = 0, spread=None, n_taps: int = 0,
+                          precise: bool = False, tap_valid: bool = False,
+                          recip_step: float = 1.0, blocks=None):
+    """The champion kernel's computation in plain PyTorch, with its
+    signature: ``chain_scores``, LOWEST outside the listed ``blocks``,
+    then ``champion_merge``. Runs on any device."""
+    _check_champion(best, champ, xfeat, yfeat, bmats, tmode, pick,
+                    face_rows, spread, n_taps, tap_valid, facet)
+    _check_blocks(champ, blocks)
+    score = chain_scores(xfeat, yfeat, bmats, tmode=tmode, pick=pick,
+                         row0=row0, face_rows=face_rows, spread=spread,
+                         n_taps=n_taps, precise=precise, tap_valid=tap_valid,
+                         recip_step=recip_step)
+    if blocks is not None:
+        listed = block_pixels(blocks, *champ.shape[1:])
+        score = torch.where(listed, score, SYN.LOWEST)
+    champion_merge(best, champ, score, facet)
+    return champ
+
+
+def _check_lists(champ, n_facets):
+    if champ.dim() != 3 or champ.dtype != torch.uint8 \
+            or not champ.is_contiguous():
+        raise ValueError("champ must be contiguous (K, H, W) uint8 planes")
+    if not 1 <= n_facets <= NO_CHAMPION:
+        raise ValueError(f"{n_facets} facets: the champion planes name "
+                         f"1..{NO_CHAMPION}")
+
+
+def champion_lists(champ, n_facets: int):
+    """Per facet f < ``n_facets``, its champion list: the int32 indices
+    by * nbx + bx, ascending, of the 32x8 blocks of the window in which
+    f champions some pixel at some tap of the (K, H, W) uint8 planes
+    ``champ`` (``block_grid``; no margin: the planes are exact). A
+    facet's champion-mode launch covers these blocks only, a sublist of
+    its coverage list. Returns a tuple of ``n_facets`` lists on
+    ``champ``'s device; on the card the counts are read back once (a
+    synchronisation: the lists are built once per plan). CUDA tensors
+    go through the kernel (csrc/champion.cu, counted in
+    ``champion_lists.launches``); CPU tensors through
+    ``champion_lists_plain``."""
+    _check_lists(champ, n_facets)
+    if champ.device.type == "cpu":
+        return champion_lists_plain(champ, n_facets)
+    if champ.device.type != "cuda":
+        raise ValueError(f"unsupported device {champ.device}")
+    fn = _CHAMPION.get("envutil_champion_lists")
+    k, h, w = champ.shape
+    nby, nbx = block_grid(h, w)
+    n = nby * nbx
+    flags = torch.empty(n_facets * n, dtype=torch.uint8, device=champ.device)
+    listed = torch.empty(n_facets * (n + 1), dtype=torch.int32,
+                         device=champ.device)
+    blocks, count = listed[:n_facets * n].view(n_facets, n), \
+        listed[n_facets * n:]
+    with torch.cuda.device(champ.device):
+        stream = torch.cuda.current_stream(champ.device).cuda_stream
+        err = fn(champ.data_ptr(), flags.data_ptr(), blocks.data_ptr(),
+                 count.data_ptr(), h, w, int(k), int(n_facets), stream)
+    if err != 0:
+        raise RuntimeError(f"champion_lists kernel launch failed: CUDA "
+                           f"error {err}")
+    champion_lists.launches += 1
+    return tuple(blocks[f, :c] for f, c in enumerate(count.tolist()))
+
+
+champion_lists.launches = 0
+
+
+def champion_lists_plain(champ, n_facets: int):
+    """``champion_lists`` in plain PyTorch, with its signature: per facet
+    the blocks of its pixels (at any tap), reduced by block. Runs on any
+    device."""
+    _check_lists(champ, n_facets)
+    k, h, w = champ.shape
+    nby, nbx = block_grid(h, w)
+    bx, by = CHAIN_BLOCK
+    grid = torch.full((k, nby * by, nbx * bx), NO_CHAMPION,
+                      dtype=torch.uint8, device=champ.device)
+    grid[:, :h, :w] = champ
+    tiles = grid.view(k, nby, by, nbx, bx).permute(1, 3, 0, 2, 4).reshape(
+        nby * nbx, -1)
+    return tuple(torch.nonzero((tiles == f).any(1)).reshape(-1).to(
+        torch.int32) for f in range(n_facets))

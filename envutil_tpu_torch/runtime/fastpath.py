@@ -41,15 +41,34 @@ with a twined form taken when the plan carries a spread:
   planar kernel (``resample_planar``) or of the planar twined kernel
   (``resample_twined``), the latter with per-pixel tap weights.
 
-A stitch of several facets (``multi_frame``) renders each facet into
-its slot of a pixel stack by one launch of those kernels, with a
-voronoi score plane per facet where the synopsis needs one, and
-combines the stacks in PyTorch (``models/synopsis``), as the JAX package
-combines its per-facet frames in XLA. A twined stitch does so once per
-tap of the spread, each facet through a one-tap launch of its twined
-kernel, and sums the taps' combines with their weights: the exact
-path's ``synopsis.twined``, where every facet's ray deflects and the
-champion is chosen anew for each tap.
+A voronoi stitch (a panorama of opaque facets whose tables all have
+the plan's channels: ``champion_route``) takes ``voronoi_frame``, the
+counterpart of the JAX package's tapsel route (``_pertap_build``: one
+union-tap kernel instance per facet, each tap weighted by
+``champ[k] == fi``): the champion planes (``champion_planes``: per
+pixel and tap of the spread, the facet of the best voronoi score, from
+the champion pass, ops/resample.champion_planes) are built once per
+plan, and each frame is one launch per facet into one frame buffer
+filled with 0: the planar chain kernel in its champion mode (K2's merge
+overlay: only the pixels the facet champions are written) untwined,
+the twined chain kernel in its tapsel mode (each tap counted where the
+facet champions it, added into the frame) twined, or the planes forms
+with the champion planes as merge mask or tap weights for a translated
+facet; each over the facet's champion list, brightened by the kernel.
+Regrouped by facet, the per-tap sum of champions sum_k w_k v_{champ_k,
+k} is sum_f sum_k w_k [champ_k = f] v_fk: no pixel stack, no combine.
+
+Every other stitch (voronoi_plus, hdr_merge, mixed channels) takes
+``multi_frame``: it renders each facet into its slot of a pixel stack by
+one launch of those kernels, with a voronoi score plane per facet where
+the synopsis needs one, and combines the stacks in PyTorch
+(``models/synopsis``), as the JAX package combines its per-facet frames
+in XLA. A twined stitch does so once per tap of the spread, each facet
+through a one-tap launch of its twined kernel, and sums the taps'
+combines with their weights: the exact path's ``synopsis.twined``,
+where every facet's ray deflects and the champion is chosen anew for
+each tap. On a voronoi stitch it is the reference the tests and
+chip_smoke.py hold ``voronoi_frame`` against.
 
 The chain forms run on a compact grid, the TPU kernels' ``tiles``
 (JAX ``plan_passes`` marks a facet's tiles without a hit ``ZERO_PASS``
@@ -550,21 +569,25 @@ def _covers_every_ray(src):
         or src.static.full_fisheye
 
 
-def twined_coords(plan, window, src, recip_step=None):
+def twined_coords(plan, window, src, recip_step=None, tap_valid=None):
     """Operands of the planar twined kernel over ``window`` for a twined
     plan with a generic chain, as the dict of
     ``ops/resample.twined_ray_operands``: the stepper's ninepack through
     the chain, then the twined chain's source half, with per-tap validity
-    planes for a source that does not cover every ray, and with
-    ``recip_step`` (a one-tap plan) the tap's voronoi score."""
+    planes for a source that does not cover every ray (unless
+    ``tap_valid`` is False: the voronoi route weights the taps by its
+    champion planes), and with ``recip_step`` the taps' voronoi
+    scores."""
     device = src.spl.coeff.device
     rays = ST.target_ninepack(plan.projection, plan.width, plan.height,
                               plan.extent, normalize=True,
                               planar_to_ray=_generic_chain(plan),
                               window=window, device=device)
+    if tap_valid is None:
+        tap_valid = not _covers_every_ray(src)
     return R.twined_ray_operands(
         *rays, _spread_tensor(plan.spread, device), pick=_pickup(src),
-        precise=plan.twine_precise, tap_valid=not _covers_every_ray(src),
+        precise=plan.twine_precise, tap_valid=tap_valid,
         recip_step=recip_step)
 
 
@@ -703,7 +726,7 @@ def planes_launch(plan, src, out, score=None):
             n_taps=len(plan.spread), tap_weights=ops["tap_weights"],
             wrap_x=ops["wrap_x"])
         if score is not None:
-            score.copy_(ops["score"])
+            score.copy_(ops["score"][0])
         return
     sx, sy, mask, z = coords(plan, frame_window(plan), src)
     if score is not None:
@@ -804,6 +827,16 @@ def facet_into(plan, src, slot, score=None, filled=False):
     return what
 
 
+def _stitch_device(sources, device):
+    """The one device of a stitch's tables (and the render's)."""
+    dev = sources[0].spl.coeff.device
+    if any(s.spl.coeff.device != dev for s in sources) or (
+            device is not None and torch.device(device) != dev):
+        raise ValueError("the sources must live on one device, the "
+                         "render's")
+    return dev
+
+
 def multi_frame(plan, sources, device=None, log=None):
     """Render a stitch of several sources: the counterpart of the JAX
     ``fused_multi_frame`` followed by ``_combine_stack`` and, twined, of
@@ -824,11 +857,7 @@ def multi_frame(plan, sources, device=None, log=None):
     device; ``log``, a list, receives each launch's kernel name, tap by
     tap and facet by facet."""
     _check_kernel_job(plan, sources)
-    dev = sources[0].spl.coeff.device
-    if any(s.spl.coeff.device != dev for s in sources) or (
-            device is not None and torch.device(device) != dev):
-        raise ValueError("the sources must live on one device, the "
-                         "render's")
+    dev = _stitch_device(sources, device)
     syn = SYN.pick_synopsis(plan.synopsis, plan.nchannels)
     y0, y1, x0, x1 = frame_window(plan)
     shape = (len(sources), y1 - y0, x1 - x0)
@@ -870,14 +899,242 @@ def multi_frame(plan, sources, device=None, log=None):
     return acc
 
 
+def champion_route(plan, sources):
+    """Why a stitch does not take ``voronoi_frame`` (a message), or None
+    where it does: a panorama of opaque facets (``pick_synopsis`` gives
+    voronoi: 1 or 3 channels) whose tables all hold the plan's channels,
+    so that no channel adaptation stands between a facet's value and the
+    frame, of fewer than ``ops/resample.NO_CHAMPION`` facets (the
+    champion planes name a facet in a byte). voronoi_plus, hdr_merge and
+    mixed channels take ``multi_frame``, as the JAX package's
+    ``tapsel_ok`` keeps them from its tapsel route."""
+    if SYN.pick_synopsis(plan.synopsis, plan.nchannels) is not SYN.voronoi:
+        return f"{plan.synopsis} of {plan.nchannels} channels is no voronoi"
+    if any(src.spl is None or src.spl.coeff.shape[-1] != plan.nchannels
+           for src in sources):
+        return "a facet has no table or other channels than the frame"
+    if len(sources) >= R.NO_CHAMPION:
+        return (f"{len(sources)} facets: the champion planes name at most "
+                f"{R.NO_CHAMPION - 1}")
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class Champions:
+    """A voronoi stitch's champion planes (``champion_planes``):
+    ``planes`` (K, H, W) uint8, per pixel of the window and tap of the
+    spread (K = 1 untwined) the facet whose voronoi score is best,
+    ``ops/resample.NO_CHAMPION`` where none covers it; ``lists``, per
+    facet its champion list (``ops/resample.champion_lists``); and
+    ``masks``, for each facet on the planes forms (a translated facet)
+    its champion pixels as the planes form takes them: untwined an
+    (H, W) float32 merge mask, twined (K, H, W) uint8 tap weights."""
+    planes: torch.Tensor
+    lists: tuple
+    masks: dict
+
+
+# per plan, the champion planes of its voronoi stitch
+_CHAMPIONS = weakref.WeakKeyDictionary()
+
+
+def champion_planes(plan, sources):
+    """The ``Champions`` of a voronoi stitch: built once per plan and set
+    of source layouts (counted in ``champion_planes.builds``) and kept
+    as long as the plan lives, as ``block_list`` keeps its lists: they
+    depend on the geometry alone (the rays, the facets' bases, windows
+    and recip_step). The build is the champion pass: the best scores
+    (float32, freed after the build) start at ``synopsis.LOWEST`` and
+    the champions at NO_CHAMPION, then each facet in facet order merges
+    its scores at every tap (``ops/resample.champion_planes``, one
+    launch of the champion kernel over the facet's coverage list,
+    ``block_list``; a translated facet's scores come from the coordinate
+    pass, ``coords`` or ``twined_coords``, and merge by
+    ``ops/resample.champion_merge``); then one ``champion_lists``. The
+    JAX package computes its champion stack in every frame
+    (``_pertap_build``)."""
+    spl_keys = tuple((src.static, tuple(src.spl.core_shape), src.spl.pad,
+                      tuple(src.spl.bcs), src.spl.coeff.device)
+                     for src in sources)
+    per_plan = _CHAMPIONS.setdefault(plan, {})
+    if spl_keys not in per_plan:
+        per_plan[spl_keys] = _build_champions(plan, sources)
+        champion_planes.builds += 1
+    return per_plan[spl_keys]
+
+
+champion_planes.builds = 0
+
+
+def _build_champions(plan, sources):
+    """``champion_planes``' build."""
+    dev = sources[0].spl.coeff.device
+    y0, y1, x0, x1 = frame_window(plan)
+    shape = (1 if plan.spread is None else len(plan.spread), y1 - y0,
+             x1 - x0)
+    best = torch.full(shape, SYN.LOWEST, dtype=torch.float32, device=dev)
+    champ = torch.full(shape, R.NO_CHAMPION, dtype=torch.uint8, device=dev)
+    planes_facets = []
+    for fi, (fp, src) in enumerate(zip(facet_plans(plan), sources)):
+        rs = src.static.recip_step
+        if route(fp, src, score=True) == "planes":
+            planes_facets.append(fi)
+            if fp.spread is None:
+                _sx, _sy, mask, z = coords(fp, frame_window(fp), src)
+                score = SYN.facet_score(z, mask, rs)[None]
+            else:
+                score = twined_coords(fp, frame_window(fp), src, rs)["score"]
+            R.champion_merge(best, champ, score, fi)
+            continue
+        ops = chain_operands(fp, src)
+        kw = {k: ops[k] for k in ("tmode", "pick", "row0", "face_rows")}
+        if fp.spread is not None:
+            kw.update({k: ops[k] for k in ("spread", "n_taps", "precise",
+                                            "tap_valid")})
+        R.champion_planes(best, champ, ops["xfeat"], ops["yfeat"],
+                          ops["bmats"], facet=fi, recip_step=rs,
+                          blocks=block_list(fp, src), **kw)
+    del best
+    masks = {}
+    for fi in planes_facets:
+        own = champ == fi
+        masks[fi] = own[0].to(torch.float32) if plan.spread is None \
+            else own.to(torch.uint8)
+    return Champions(champ, R.champion_lists(champ, len(sources)), masks)
+
+
+def champion_launch(fplan, src, frame, champs, facet):
+    """The voronoi route's launch of one facet (``fplan``, its entry of
+    ``facet_plans``, the ``facet``-th) into ``frame`` (H, W, nchannels):
+    only the pixels and taps it champions (``champs``, the stitch's
+    ``Champions``), brightened by the kernel (``scale``): the planar
+    chain kernel's champion mode untwined, the twined chain kernel's
+    tapsel mode twined (adding into the frame), each over the facet's
+    champion list; for a translated facet, the coordinate pass and the
+    planes form with its champion mask (``resample_planar``'s merge
+    mask, ``resample_twined``'s tap weights, adding). A facet that
+    champions no pixel launches nothing. Returns the kernel's name, or
+    None."""
+    blocks = champs.lists[facet]
+    if blocks.numel() == 0:
+        return None
+    coeff, scale = src.spl.coeff, src.static.brighten
+    form = "twined" if fplan.spread is not None else "planar"
+    if route(fplan, src, score=True) == "planes":
+        window = frame_window(fplan)
+        mask = champs.masks[facet]
+        if fplan.spread is None:
+            sx, sy, _mask, _z = coords(fplan, window, src)
+            R.resample_planar(frame, coeff, sx, sy, degree=src.spl.degree,
+                              merge_mask=mask, scale=scale)
+        else:
+            ops = twined_coords(fplan, window, src, tap_valid=False)
+            R.resample_twined(
+                frame, coeff, *(ops[k] for k in _TWINED_PLANES),
+                _spread_tensor(fplan.spread, coeff.device),
+                degree=src.spl.degree, n_taps=len(fplan.spread),
+                tap_weights=mask, wrap_x=ops["wrap_x"], scale=scale,
+                accumulate=True)
+        return f"resample_{form} after the coordinate pass"
+    ops = chain_operands(fplan, src)
+    tensors = [ops.pop(k) for k in ("xfeat", "yfeat", "bmats")]
+    if fplan.spread is None:
+        R.resample_planar_chain(frame, coeff, *tensors, blocks=blocks,
+                                champ=champs.planes, facet=facet,
+                                scale=scale, **ops)
+    else:
+        ops["tap_valid"] = False
+        R.resample_twined_chain(frame, coeff, *tensors, ops.pop("spread"),
+                                blocks=blocks, champ=champs.planes,
+                                facet=facet, scale=scale, accumulate=True,
+                                **ops)
+    return f"resample_{form}_chain"
+
+
+def voronoi_frame(plan, sources, device=None, log=None):
+    """Render a voronoi stitch (``champion_route``) without a pixel stack
+    or a combine: the counterpart of the JAX package's tapsel route
+    (``_render_fast_multi_pertap`` through ``_pertap_build``). The
+    stitch's ``champion_planes`` (built at its first frame), one
+    (H, W, nchannels) frame filled with 0, then per facet, in facet
+    order on one stream, one ``champion_launch``: each pixel (twined,
+    each tap of it) is written by its champion alone, brightened; a
+    twined pixel sums its taps' champions' values over the facets'
+    launches. The same as ``multi_frame``'s combine of the stacks, whose
+    twined route brightens each tap and then sums where this one sums
+    and then brightens (a few ulps). Returns the frame on the sources'
+    device; ``log``, a list, receives each facet's kernel name (None for
+    a facet that champions no pixel)."""
+    _check_kernel_job(plan, sources)
+    why = champion_route(plan, sources)
+    if why is not None:
+        raise ValueError(f"the voronoi route does not take this stitch: "
+                         f"{why}")
+    dev = _stitch_device(sources, device)
+    champs = champion_planes(plan, sources)
+    frame = torch.zeros(champs.planes.shape[1:] + (plan.nchannels,),
+                        dtype=torch.float32, device=dev)
+    for fi, (fplan, src) in enumerate(zip(facet_plans(plan), sources)):
+        what = champion_launch(fplan, src, frame, champs, fi)
+        if log is not None:
+            log.append(what)
+    return frame
+
+
+def stitch_frame(plan, sources, device=None, log=None):
+    """A stitch's frame on the kernels: ``voronoi_frame`` where
+    ``champion_route`` takes it, else ``multi_frame``; ``log`` as
+    theirs."""
+    if champion_route(plan, sources) is None:
+        return voronoi_frame(plan, sources, device, log)
+    return multi_frame(plan, sources, device, log)
+
+
+def _voronoi_text(plan, sources, log, built):
+    """What ``--verbose`` prints of a ``voronoi_frame``: each facet's
+    launch on its champion list, the champion pass where this frame
+    built it, and the frame."""
+    champs = champion_planes(plan, sources)
+    y0, y1, x0, x1 = frame_window(plan)
+    nby, nbx = R.block_grid(y1 - y0, x1 - x0)
+    k = champs.planes.shape[0]
+    if built:
+        listed = [block_list(fp, src) for fp, src in
+                  zip(facet_plans(plan), sources)]
+        print(f"fastpath: champion pass: {len(sources)} facets x {k} "
+              f"tap{'s' if k > 1 else ''} over "
+              + ", ".join("all" if b is None else str(b.numel())
+                          for b in listed)
+              + f" of {nby * nbx} 32x8 blocks, champion planes "
+              f"{tuple(champs.planes.shape)} uint8")
+    for fi, what in enumerate(log):
+        if what is None:
+            how = "no champion pixel, no launch"
+        elif not what.endswith("_chain"):
+            how = (f"1 launch of {what} over the window, the champion "
+                   f"planes as its " + ("tap weights" if plan.spread
+                                        else "merge mask"))
+        else:
+            how = (f"1 launch of {what} in its "
+                   + ("tapsel" if plan.spread else "champion")
+                   + f" mode over {champs.lists[fi].numel()} of "
+                   f"{nby * nbx} 32x8 blocks")
+        print(f"fastpath: facet {fi}: {how}")
+    print(f"fastpath: voronoi of {len(sources)} facets, champion-routed"
+          + ("" if plan.spread is None else f" over {k} taps")
+          + f": {sum(w is not None for w in log)} launches into one "
+          f"{y1 - y0}x{x1 - x0} frame, no stack, no combine")
+
+
 def frame_tensor(plan, sources, verbose: bool = False,
                  device=None) -> torch.Tensor:
     """The CUDA render path of ``render.render_frame``, up to the frame
     on the card: one frame through ``exact_frame`` where ``exact_route``
     names a reason, else through one ``launch`` (the route
     ``fused_frame`` or ``planar_frame`` takes), or for several sources
-    ``multi_frame``; returned as the (H, W, C) float32 tensor on the
-    sources' device, enqueued and not waited for. ``device`` is the
+    ``stitch_frame`` (``voronoi_frame`` or ``multi_frame``); returned as
+    the (H, W, C) float32 tensor on the sources' device, enqueued and
+    not waited for. ``device`` is the
     render's (paint sources have no table to take it from). Raises
     ``NotImplementedError`` for jobs the port does not cover."""
     reason = uncovered(plan, sources)
@@ -893,8 +1150,13 @@ def frame_tensor(plan, sources, verbose: bool = False,
         return img
     if len(sources) > 1:
         log = []
-        img = multi_frame(plan, sources, log=log)
-        if verbose:
+        routed = champion_route(plan, sources)
+        built = champion_planes.builds
+        img = stitch_frame(plan, sources, log=log)
+        if verbose and routed is None:
+            _voronoi_text(plan, sources, log,
+                          champion_planes.builds > built)
+        elif verbose:
             n_f = len(sources)
             taps = plan.spread or ((0.0, 0.0, 1.0),)
             fplans = [facet_plans(plan)] if plan.spread is None else \
@@ -910,7 +1172,8 @@ def frame_tensor(plan, sources, verbose: bool = False,
                   + ("" if plan.spread is None else
                      f" per tap, {len(taps)} taps")
                   + f", {len(log)} launches over "
-                  f"{img.shape[0]}x{img.shape[1]} px")
+                  f"{img.shape[0]}x{img.shape[1]} px on the stack route: "
+                  f"{routed}")
         return img
     src = sources[0]
     out = _frame_buffer(plan, src, None, None)

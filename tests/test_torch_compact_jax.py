@@ -3,9 +3,11 @@ the pixels of each facet's block list (``fastpath.block_list``) hold
 every pixel of the JAX ``_coords`` validity mask, the coverage from
 which the JAX planner lists a facet's tiles (``plan_passes`` marks every
 tile without a hit ``ZERO_PASS``), on a small config-5-like stitch; and
-``fastpath.multi_frame`` on the lists (the kernels' plain versions) is
-bit-equal to itself on full-window launches and agrees with the JAX
-``render_frame``, untwined and twined at 2x2 taps.
+the stitch on the lists (the kernels' plain versions; a voronoi stitch
+through ``fastpath.voronoi_frame``, whose champion pass runs over the
+lists, and through ``fastpath.multi_frame``) is bit-equal to itself on
+full-window launches and agrees with the JAX ``render_frame``,
+untwined and twined at 2x2 taps.
 
 Tables are built by the JAX package and carried over as numpy
 (tests/test_torch_synopsis.py ``_stitch``): three 64x48 rectilinear
@@ -28,6 +30,8 @@ Tolerances, each with its reason:
   the ray, a second-order term in the tap offset at 1.9-degree pixels;
   the compact grid moves no pixel, which the bit-equality above holds.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -77,19 +81,25 @@ def test_lists_hold_the_jax_coverage():
 
 @pytest.mark.parametrize("twined", [False, True])
 def test_multi_frame_on_lists(twined, monkeypatch):
-    """``multi_frame`` with the block lists against ``multi_frame`` with
-    full-window launches (``block_list`` answering None), bit for bit,
-    and against the JAX ``render_frame`` (1e-5 untwined; twined, the
-    twined chain form's route bound), with every facet's launch on its
-    list (a twined stitch: F x K one-tap launches on F lists)."""
+    """The voronoi stitch through ``stitch_frame`` (``voronoi_frame``: one
+    launch a facet, the champion pass over each facet's block list) and
+    through ``multi_frame`` (a twined stitch: F x K one-tap launches on F
+    lists), each against itself with full-window launches
+    (``block_list`` answering None; the voronoi route's champion pass
+    then runs over every block, on a plan made anew), bit for bit, and
+    against the JAX ``render_frame`` (1e-5 untwined; twined, the twined
+    chain form's route bound)."""
     spread = BOX2 if twined else None
     jsrcs, tsrcs, jplan, tplan = _stitch(CONFIG5, spread)
     builds = FP.block_list.builds
     log = []
-    listed = FP.multi_frame(tplan, tsrcs, log=log).numpy()
+    listed = FP.stitch_frame(tplan, tsrcs, log=log).numpy()
     assert FP.block_list.builds == builds + len(tsrcs)
     kernel = "resample_twined_chain" if twined else "resample_planar_chain"
-    assert log == [kernel] * (len(tsrcs) * (4 if twined else 1))
+    assert log == [kernel] * len(tsrcs)
+    stack_log = []
+    stacked = FP.multi_frame(tplan, tsrcs, log=stack_log).numpy()
+    assert stack_log == [kernel] * (len(tsrcs) * (4 if twined else 1))
     fplans = FP.facet_plans(tplan) if not twined \
         else FP.tap_plans(tplan)[0][1]
     assert all(FP.blocks_text(fp, s, kernel).startswith(" over ")
@@ -97,8 +107,11 @@ def test_multi_frame_on_lists(twined, monkeypatch):
                for fp, s in zip(fplans, tsrcs))
     with monkeypatch.context() as m:
         m.setattr(FP, "block_list", lambda plan, src: None)
-        full = FP.multi_frame(tplan, tsrcs).numpy()
+        full = FP.stitch_frame(dataclasses.replace(tplan), tsrcs).numpy()
+        full_stacked = FP.multi_frame(tplan, tsrcs).numpy()
     np.testing.assert_array_equal(listed, full)
+    np.testing.assert_array_equal(stacked, full_stacked)
+    assert float(np.abs(listed - stacked).max()) <= JAX_TOL
     want = np.asarray(jrender_frame(jplan, jsrcs))
     skip = (TS._excluded if twined else _excluded)(tplan, tsrcs).numpy()
     n_skip = int(skip.sum())

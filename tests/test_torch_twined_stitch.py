@@ -1,8 +1,11 @@
 """Twined stitches on the port's card route, on the CPU: a stitch of
-several facets under a twining spread through ``fastpath.multi_frame``
-(per tap of the spread, one one-tap launch per facet into the stacks,
-run here as the kernels' plain versions, then the synopsis of the
-stacks, summed over the taps with their weights) against the JAX
+several facets under a twining spread through ``fastpath.stitch_frame``
+(a voronoi stitch through ``voronoi_frame``: the champion planes, then
+one tapsel launch per facet into one frame; the others through
+``multi_frame``: per tap of the spread, one one-tap launch per facet
+into the stacks, then the synopsis of the stacks, summed over the taps
+with their weights; the kernels run here as their plain versions)
+against the JAX
 package's ``render_frame`` (its exact graph on the CPU) and the port's
 exact path, for voronoi, voronoi_plus (alpha), hdr_merge and
 ``--twine_precise``; the twined chain form's score output; and a
@@ -143,15 +146,17 @@ STITCHES = {
 
 @pytest.mark.parametrize("name", list(STITCHES))
 def test_twined_stitch_route_matches_jax(name):
-    """A twined stitch through ``multi_frame`` (the card route: per tap,
-    one one-tap launch per facet, as plain versions here, then the
-    combine, summed over the taps) against the port's exact path and
-    the JAX ``render_frame``; the launches per tap and facet: F x K, each
+    """A twined stitch through ``stitch_frame`` (the card route, as plain
+    versions here) against the port's exact path and the JAX
+    ``render_frame``. A voronoi stitch takes ``voronoi_frame``: F
+    launches, one a facet, the twined chain form in its tapsel mode.
+    The others take ``multi_frame``: per tap, one one-tap launch per
+    facet, then the combine, summed over the taps, F x K launches, each
     facet's kernel as ``launch`` chooses it (the twined chain form with
-    its score for voronoi, the inline twined kernel for full-spherical
-    hdr_merge brackets, the planes form for a translated facet). A
-    ``--twine_precise`` stitch takes ``exact_frame`` instead
-    (``render_fast``: one exact launch, no kernel)."""
+    its score for voronoi_plus, the inline twined kernel for
+    full-spherical hdr_merge brackets). A ``--twine_precise`` stitch
+    takes ``exact_frame`` instead (``render_fast``: one exact launch, no
+    kernel)."""
     case, twine, precise, tol, kernel, with_jax = STITCHES[name]
     spread = _spread(twine)
     jsrcs, tsrcs, jplan, tplan = _stitch(case, spread, precise, with_jax)
@@ -162,16 +167,19 @@ def test_twined_stitch_route_matches_jax(name):
     print(f"{name}: {n_skip} px excluded (near-tied scores, window edges)")
     assert n_skip <= MAX_EXCLUDED_PX * len(spread)
     log = []
+    launches = len(tsrcs) * twine ** 2
     if kernel == "exact_frame":
         assert FP.exact_route(tplan, tsrcs) is not None
         FP.exact_frame.launches = 0
         fast = FP.render_fast(tplan, tsrcs)
         assert FP.exact_frame.launches == 1
         np.testing.assert_array_equal(fast, exact)
-        log = ["exact_frame"] * (len(tsrcs) * twine ** 2)
+        log = ["exact_frame"] * launches
     else:
         assert FP.exact_route(tplan, tsrcs) is None
-        fast = FP.multi_frame(tplan, tsrcs, device="cpu", log=log)
+        if FP.champion_route(tplan, tsrcs) is None:
+            launches = len(tsrcs)
+        fast = FP.stitch_frame(tplan, tsrcs, device="cpu", log=log)
     err = _max_diff(fast, exact, ~skip)
     print(f"{name}: card route vs exact path {err:.3e} (bound {tol:g})")
     assert err <= tol
@@ -179,7 +187,7 @@ def test_twined_stitch_route_matches_jax(name):
         want = np.asarray(jrender_frame(jplan, jsrcs))
         assert _max_diff(exact, want, ~skip) <= JAX_TOL
         assert _max_diff(fast, want, ~skip) <= tol + JAX_TOL
-    assert len(log) == len(tsrcs) * twine ** 2
+    assert len(log) == launches
     assert set(log) == {kernel}
     assert (np.asarray(fast) != 0).any(axis=-1).mean() > 0.1
 
