@@ -37,6 +37,7 @@ from ..core.conventions import Projection
 from ..core.facet import Facet
 from ..core.metrics import CubemapMetrics, Extent, get_extent
 from ..ops import spline as S
+from ..runtime import spans as SP
 from ..runtime.platform import resolve_device
 from . import lens as L
 
@@ -202,31 +203,42 @@ def make_mount_source(fct: Facet, img: np.ndarray, spline_degree: int,
                       device=None) -> FacetSource:
     """source_t + mount_t construction (environment.h:594-962); the
     spline is prefiltered on ``device`` (CUDA unless the caller asks
-    for the CPU)."""
-    device = resolve_device(device)
-    if img.ndim != 3:
-        raise ValueError(
-            f"mount source expects (H, W, C) pixel data, got {img.shape}")
-    if fct.has_lens_crop or fct.has_pto_mask:
-        img = synthesize_alpha(img, fct, verbose)
-    nch = img.shape[-1]
+    for the CPU). While ``runtime/spans`` records, the call is a span
+    and the image's copy to ``device`` inside it a span ``upload``."""
+    s = SP.begin("make_mount_source") if SP.on else -1
+    try:
+        device = resolve_device(device)
+        if img.ndim != 3:
+            raise ValueError(
+                f"mount source expects (H, W, C) pixel data, got {img.shape}")
+        if fct.has_lens_crop or fct.has_pto_mask:
+            img = synthesize_alpha(img, fct, verbose)
+        nch = img.shape[-1]
 
-    bc0 = S.REFLECT
-    if fct.projection in (Projection.SPHERICAL, Projection.CYLINDRICAL):
-        if abs(fct.hfov - 2.0 * math.pi) < 1e-6:
-            bc0 = S.PERIODIC
+        bc0 = S.REFLECT
+        if fct.projection in (Projection.SPHERICAL, Projection.CYLINDRICAL):
+            if abs(fct.hfov - 2.0 * math.pi) < 1e-6:
+                bc0 = S.PERIODIC
 
-    spherical = is_full_spherical(fct)
-    if verbose:
-        kind = "spherical" if spherical else "ordinary"
-        print(f"applying {kind} b-spline prefilter, degree "
-              f"{prefilter_degree}")
-    image = torch.from_numpy(
-        np.ascontiguousarray(img, np.float32)).to(device)
-    spl = S.make_spline(image, spline_degree, prefilter_degree,
-                        bcs=(S.REFLECT, bc0), spherical=spherical)
+        spherical = is_full_spherical(fct)
+        if verbose:
+            kind = "spherical" if spherical else "ordinary"
+            print(f"applying {kind} b-spline prefilter, degree "
+                  f"{prefilter_degree}")
+        up = SP.begin("upload") if SP.on else -1
+        try:
+            image = torch.from_numpy(
+                np.ascontiguousarray(img, np.float32)).to(device)
+        finally:
+            if up >= 0:
+                SP.end(up)
+        spl = S.make_spline(image, spline_degree, prefilter_degree,
+                            bcs=(S.REFLECT, bc0), spherical=spherical)
 
-    return FacetSource(static=mount_static(fct, nch), spl=spl)
+        return FacetSource(static=mount_static(fct, nch), spl=spl)
+    finally:
+        if s >= 0:
+            SP.end(s)
 
 
 def mount_static(fct: Facet, nch: int) -> SourceStatic:

@@ -45,11 +45,12 @@ keeps its list per plan.
 Each wrapper launches its hand-written kernel (csrc/resample_*.cu,
 built with nvcc at first use by ops/kernels.py) for CUDA tensors,
 raises if it cannot, and takes its plain version only for CPU tensors;
-``<wrapper>.launches`` counts kernel launches. A launch enters the card
-``out`` lives on (``torch.cuda.device``), so that the launch, the
-kernel's shared-memory attribute and the stream belong to that card
-whichever card is current (a band of a ``--mesh`` frame on its own
-card).
+``<wrapper>.launches`` counts kernel launches, and while
+``runtime/spans`` records, each call is a span of the wrapper's name.
+A launch enters the card ``out`` lives on (``torch.cuda.device``), so
+that the launch, the kernel's shared-memory attribute and the stream
+belong to that card whichever card is current (a band of a ``--mesh``
+frame on its own card).
 The kernel source notes say what bounds each and what its design
 leaves for later.
 
@@ -116,6 +117,7 @@ import torch
 from ..core import geometry as geo
 from ..models import lens as _lens
 from ..models import synopsis as SYN
+from ..runtime import spans as SP
 from . import basis as _basis
 from . import kernels as K
 from . import spline as S
@@ -262,35 +264,40 @@ def resample_inline(out, coeff, xfeat, yfeat, bmats, *, degree: int,
     the kernel's staging budget per block (a multiple of 16); 0 makes
     every block gather from global memory, which the tests use to hold
     the kernel's two branches against each other."""
-    _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
-           row0, face_rows, smode)
-    _check_budget(window_bytes)
-    if out.device.type == "cpu":
-        return resample_inline_plain(out, coeff, xfeat, yfeat, bmats,
-                                     degree=degree, tmode=tmode,
-                                     consts=consts, row0=row0,
-                                     face_rows=face_rows, smode=smode)
-    if out.device.type != "cuda":
-        raise ValueError(f"unsupported device {out.device}")
-    fn = _INLINE.get("envutil_resample_inline")
-    (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts[:11]
-    section_px = consts[11] if smode != "sph" else 0.0
-    h, w, nch = out.shape
-    hp, wp, _ = coeff.shape
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(
-            out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
-            yfeat.data_ptr(), bmats.data_ptr(), _wmat(degree), h, w, hp, wp,
-            int(row0), int(face_rows), int(degree), int(nch), _TMODES[tmode],
-            _SMODES[smode], _GATES[gate_x], glx, gux, _GATES[gate_y], gly, guy,
-            kx, cx, ky, cy, pad, section_px, int(window_bytes), _bf16(coeff),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"resample_inline kernel launch failed: CUDA "
-                           f"error {err}")
-    resample_inline.launches += 1
-    return out
+    s = SP.begin("resample_inline") if SP.on else -1
+    try:
+        _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
+               row0, face_rows, smode)
+        _check_budget(window_bytes)
+        if out.device.type == "cpu":
+            return resample_inline_plain(out, coeff, xfeat, yfeat, bmats,
+                                         degree=degree, tmode=tmode,
+                                         consts=consts, row0=row0,
+                                         face_rows=face_rows, smode=smode)
+        if out.device.type != "cuda":
+            raise ValueError(f"unsupported device {out.device}")
+        fn = _INLINE.get("envutil_resample_inline")
+        (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts[:11]
+        section_px = consts[11] if smode != "sph" else 0.0
+        h, w, nch = out.shape
+        hp, wp, _ = coeff.shape
+        with torch.cuda.device(out.device):
+            stream = torch.cuda.current_stream(out.device).cuda_stream
+            err = fn(
+                out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
+                yfeat.data_ptr(), bmats.data_ptr(), _wmat(degree), h, w,
+                hp, wp, int(row0), int(face_rows), int(degree), int(nch),
+                _TMODES[tmode], _SMODES[smode], _GATES[gate_x], glx, gux,
+                _GATES[gate_y], gly, guy, kx, cx, ky, cy, pad, section_px,
+                int(window_bytes), _bf16(coeff), stream)
+        if err != 0:
+            raise RuntimeError(f"resample_inline kernel launch failed: CUDA "
+                               f"error {err}")
+        resample_inline.launches += 1
+        return out
+    finally:
+        if s >= 0:
+            SP.end(s)
 
 
 resample_inline.launches = 0
@@ -497,36 +504,41 @@ def resample_inline_twined(out, coeff, xfeat, yfeat, bmats, spread, *,
     ``precise`` takes the derivative rays in the centre ray's tangent
     plane (--twine_precise). CUDA tensors go through the kernel; CPU
     tensors through ``resample_inline_twined_plain``."""
-    _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
-           row0, face_rows, smode, sets=2)
-    _spread_taps(spread, n_taps, out.device)
-    kw = dict(degree=degree, n_taps=n_taps, tmode=tmode, consts=consts,
-              row0=row0, face_rows=face_rows, smode=smode, precise=precise)
-    if out.device.type == "cpu":
-        return resample_inline_twined_plain(out, coeff, xfeat, yfeat, bmats,
-                                            spread, **kw)
-    if out.device.type != "cuda":
-        raise ValueError(f"unsupported device {out.device}")
-    fn = _INLINE_TWINED.get("envutil_resample_inline_twined")
-    (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts[:11]
-    section_px = consts[11] if smode != "sph" else 0.0
-    h, w, nch = out.shape
-    hp, wp, _ = coeff.shape
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(
-            out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
-            yfeat.data_ptr(), bmats.data_ptr(), spread.data_ptr(),
-            _wmat(degree), h, w, hp, wp, int(row0), int(face_rows),
-            int(degree), int(nch), _TMODES[tmode], _SMODES[smode],
-            int(n_taps), int(precise), _GATES[gate_x], glx, gux,
-            _GATES[gate_y], gly, guy, kx, cx, ky, cy, pad, section_px,
-            _bf16(coeff), stream)
-    if err != 0:
-        raise RuntimeError(f"resample_inline_twined kernel launch failed: "
-                           f"CUDA error {err}")
-    resample_inline_twined.launches += 1
-    return out
+    s = SP.begin("resample_inline_twined") if SP.on else -1
+    try:
+        _check(out, coeff, xfeat, yfeat, bmats, degree, tmode, consts,
+               row0, face_rows, smode, sets=2)
+        _spread_taps(spread, n_taps, out.device)
+        kw = dict(degree=degree, n_taps=n_taps, tmode=tmode, consts=consts,
+                  row0=row0, face_rows=face_rows, smode=smode, precise=precise)
+        if out.device.type == "cpu":
+            return resample_inline_twined_plain(out, coeff, xfeat, yfeat,
+                                                bmats, spread, **kw)
+        if out.device.type != "cuda":
+            raise ValueError(f"unsupported device {out.device}")
+        fn = _INLINE_TWINED.get("envutil_resample_inline_twined")
+        (kx, cx, ky, cy, gate_x, glx, gux, gate_y, gly, guy, pad) = consts[:11]
+        section_px = consts[11] if smode != "sph" else 0.0
+        h, w, nch = out.shape
+        hp, wp, _ = coeff.shape
+        with torch.cuda.device(out.device):
+            stream = torch.cuda.current_stream(out.device).cuda_stream
+            err = fn(
+                out.data_ptr(), coeff.data_ptr(), xfeat.data_ptr(),
+                yfeat.data_ptr(), bmats.data_ptr(), spread.data_ptr(),
+                _wmat(degree), h, w, hp, wp, int(row0), int(face_rows),
+                int(degree), int(nch), _TMODES[tmode], _SMODES[smode],
+                int(n_taps), int(precise), _GATES[gate_x], glx, gux,
+                _GATES[gate_y], gly, guy, kx, cx, ky, cy, pad, section_px,
+                _bf16(coeff), stream)
+        if err != 0:
+            raise RuntimeError(f"resample_inline_twined kernel launch failed: "
+                               f"CUDA error {err}")
+        resample_inline_twined.launches += 1
+        return out
+    finally:
+        if s >= 0:
+            SP.end(s)
 
 
 resample_inline_twined.launches = 0
@@ -725,27 +737,32 @@ def resample_planar(out, coeff, sx, sy, *, degree: int, merge_mask=None,
     A pixel written holds ``scale`` times the spline's value (the
     voronoi route's brighten). CUDA tensors go through the kernel; CPU
     tensors through ``resample_planar_plain``."""
-    _check_planar(out, coeff, sx, sy, degree, merge_mask)
-    if out.device.type == "cpu":
-        return resample_planar_plain(out, coeff, sx, sy, degree=degree,
-                                     merge_mask=merge_mask, scale=scale)
-    if out.device.type != "cuda":
-        raise ValueError(f"unsupported device {out.device}")
-    fn = _PLANAR.get("envutil_resample_planar")
-    h, w, nch = out.shape
-    hp, wp, _ = coeff.shape
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(out.data_ptr(), coeff.data_ptr(), sx.data_ptr(),
-                 sy.data_ptr(),
-                 None if merge_mask is None else merge_mask.data_ptr(),
-                 _wmat(degree), h, w, hp, wp, int(degree), int(nch),
-                 float(scale), _bf16(coeff), stream)
-    if err != 0:
-        raise RuntimeError(f"resample_planar kernel launch failed: CUDA "
-                           f"error {err}")
-    resample_planar.launches += 1
-    return out
+    s = SP.begin("resample_planar") if SP.on else -1
+    try:
+        _check_planar(out, coeff, sx, sy, degree, merge_mask)
+        if out.device.type == "cpu":
+            return resample_planar_plain(out, coeff, sx, sy, degree=degree,
+                                         merge_mask=merge_mask, scale=scale)
+        if out.device.type != "cuda":
+            raise ValueError(f"unsupported device {out.device}")
+        fn = _PLANAR.get("envutil_resample_planar")
+        h, w, nch = out.shape
+        hp, wp, _ = coeff.shape
+        with torch.cuda.device(out.device):
+            stream = torch.cuda.current_stream(out.device).cuda_stream
+            err = fn(out.data_ptr(), coeff.data_ptr(), sx.data_ptr(),
+                     sy.data_ptr(),
+                     None if merge_mask is None else merge_mask.data_ptr(),
+                     _wmat(degree), h, w, hp, wp, int(degree), int(nch),
+                     float(scale), _bf16(coeff), stream)
+        if err != 0:
+            raise RuntimeError(f"resample_planar kernel launch failed: CUDA "
+                               f"error {err}")
+        resample_planar.launches += 1
+        return out
+    finally:
+        if s >= 0:
+            SP.end(s)
 
 
 resample_planar.launches = 0
@@ -831,36 +848,41 @@ def resample_twined(out, coeff, sx, sy, dux, duy, dvx, dvy, spread, *,
     route's translated facet adds its champion taps (``tap_weights`` its
     champion planes) brightened into the frame. CUDA tensors go through
     the kernel; CPU tensors through ``resample_twined_plain``."""
-    planes = (sx, sy, dux, duy, dvx, dvy)
-    _check_twined(out, coeff, planes, spread, degree, n_taps, merge_mask,
-                  tap_weights, wrap_x)
-    if out.device.type == "cpu":
-        return resample_twined_plain(
-            out, coeff, *planes, spread, degree=degree, n_taps=n_taps,
-            merge_mask=merge_mask, tap_weights=tap_weights, wrap_x=wrap_x,
-            scale=scale, accumulate=accumulate)
-    if out.device.type != "cuda":
-        raise ValueError(f"unsupported device {out.device}")
-    fn = _TWINED.get("envutil_resample_twined")
-    h, w, nch = out.shape
-    hp, wp, _ = coeff.shape
-    lower, period = (0.0, 0.0) if wrap_x is None else wrap_x
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(out.data_ptr(), coeff.data_ptr(),
-                 *(t.data_ptr() for t in planes), spread.data_ptr(),
-                 None if merge_mask is None else merge_mask.data_ptr(),
-                 None if tap_weights is None else tap_weights.data_ptr(),
-                 _wmat(degree), h, w, hp, wp, int(degree), int(nch),
-                 int(n_taps), int(tap_weights is not None
-                     and tap_weights.dtype != torch.float32),
-                 float(lower), float(period), float(scale), int(accumulate),
-                 _bf16(coeff), stream)
-    if err != 0:
-        raise RuntimeError(f"resample_twined kernel launch failed: CUDA "
-                           f"error {err}")
-    resample_twined.launches += 1
-    return out
+    s = SP.begin("resample_twined") if SP.on else -1
+    try:
+        planes = (sx, sy, dux, duy, dvx, dvy)
+        _check_twined(out, coeff, planes, spread, degree, n_taps, merge_mask,
+                      tap_weights, wrap_x)
+        if out.device.type == "cpu":
+            return resample_twined_plain(
+                out, coeff, *planes, spread, degree=degree, n_taps=n_taps,
+                merge_mask=merge_mask, tap_weights=tap_weights, wrap_x=wrap_x,
+                scale=scale, accumulate=accumulate)
+        if out.device.type != "cuda":
+            raise ValueError(f"unsupported device {out.device}")
+        fn = _TWINED.get("envutil_resample_twined")
+        h, w, nch = out.shape
+        hp, wp, _ = coeff.shape
+        lower, period = (0.0, 0.0) if wrap_x is None else wrap_x
+        with torch.cuda.device(out.device):
+            stream = torch.cuda.current_stream(out.device).cuda_stream
+            err = fn(out.data_ptr(), coeff.data_ptr(),
+                     *(t.data_ptr() for t in planes), spread.data_ptr(),
+                     None if merge_mask is None else merge_mask.data_ptr(),
+                     None if tap_weights is None else tap_weights.data_ptr(),
+                     _wmat(degree), h, w, hp, wp, int(degree), int(nch),
+                     int(n_taps), int(tap_weights is not None
+                         and tap_weights.dtype != torch.float32),
+                     float(lower), float(period), float(scale),
+                     int(accumulate), _bf16(coeff), stream)
+        if err != 0:
+            raise RuntimeError(f"resample_twined kernel launch failed: CUDA "
+                               f"error {err}")
+        resample_twined.launches += 1
+        return out
+    finally:
+        if s >= 0:
+            SP.end(s)
 
 
 resample_twined.launches = 0
@@ -1082,41 +1104,47 @@ def resample_planar_chain(out, coeff, xfeat, yfeat, bmats, *, degree: int,
     pixel written holds ``scale`` (the facet's brighten) times the
     spline's value. Returns ``out``. CUDA tensors go through the kernel;
     CPU tensors through ``resample_planar_chain_plain``."""
-    _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
-                 face_rows, 1)
-    _check_score(out, score)
-    _check_blocks(out, blocks)
-    _check_champ(out, champ, facet, 1, score)
-    if blocks is not None and blocks.numel() == 0:
+    s = SP.begin("resample_planar_chain") if SP.on else -1
+    try:
+        _check_chain(out, coeff, xfeat, yfeat, bmats, degree, tmode, pick,
+                     face_rows, 1)
+        _check_score(out, score)
+        _check_blocks(out, blocks)
+        _check_champ(out, champ, facet, 1, score)
+        if blocks is not None and blocks.numel() == 0:
+            return out
+        kw = dict(degree=degree, tmode=tmode, pick=pick, row0=row0,
+                  face_rows=face_rows, score=score, recip_step=recip_step,
+                  blocks=blocks, champ=champ, facet=facet, scale=scale)
+        if out.device.type == "cpu":
+            return resample_planar_chain_plain(out, coeff, xfeat, yfeat, bmats,
+                                               **kw)
+        if out.device.type != "cuda":
+            raise ValueError(f"unsupported device {out.device}")
+        fn = _PLANAR.get("envutil_resample_planar_chain")
+        h, w, nch = out.shape
+        hp, wp, _ = coeff.shape
+        ints, floats = _pickup_arrays(pick)
+        with torch.cuda.device(out.device):
+            stream = torch.cuda.current_stream(out.device).cuda_stream
+            err = fn(out.data_ptr(),
+                     None if score is None else score.data_ptr(),
+                     coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
+                     bmats.data_ptr(), _wmat(degree), ints, floats,
+                     *_list_args(blocks), _ptr(champ), h, w, hp, wp,
+                     int(row0), int(face_rows), int(degree), int(nch),
+                     _CHAIN_TMODES[tmode], float(recip_step), int(facet),
+                     float(scale), _bf16(coeff), stream)
+        if err != 0:
+            raise RuntimeError(f"resample_planar_chain kernel launch failed: "
+                               f"CUDA error {err}")
+        resample_planar_chain.launches += 1
+        resample_planar_chain.blocks += _launched(out, blocks)
+        resample_planar_chain.champion_launches += champ is not None
         return out
-    kw = dict(degree=degree, tmode=tmode, pick=pick, row0=row0,
-              face_rows=face_rows, score=score, recip_step=recip_step,
-              blocks=blocks, champ=champ, facet=facet, scale=scale)
-    if out.device.type == "cpu":
-        return resample_planar_chain_plain(out, coeff, xfeat, yfeat, bmats,
-                                           **kw)
-    if out.device.type != "cuda":
-        raise ValueError(f"unsupported device {out.device}")
-    fn = _PLANAR.get("envutil_resample_planar_chain")
-    h, w, nch = out.shape
-    hp, wp, _ = coeff.shape
-    ints, floats = _pickup_arrays(pick)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(out.data_ptr(), None if score is None else score.data_ptr(),
-                 coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
-                 bmats.data_ptr(), _wmat(degree), ints, floats,
-                 *_list_args(blocks), _ptr(champ), h, w, hp, wp,
-                 int(row0), int(face_rows), int(degree), int(nch),
-                 _CHAIN_TMODES[tmode], float(recip_step), int(facet),
-                 float(scale), _bf16(coeff), stream)
-    if err != 0:
-        raise RuntimeError(f"resample_planar_chain kernel launch failed: "
-                           f"CUDA error {err}")
-    resample_planar_chain.launches += 1
-    resample_planar_chain.blocks += _launched(out, blocks)
-    resample_planar_chain.champion_launches += champ is not None
-    return out
+    finally:
+        if s >= 0:
+            SP.end(s)
 
 
 resample_planar_chain.launches = 0
@@ -1311,43 +1339,49 @@ def resample_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, *,
     adds each facet's champion taps into one frame. Returns ``out``.
     CUDA tensors go through the kernel; CPU tensors through
     ``resample_twined_chain_plain``."""
-    _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
-                        n_taps, tmode, pick, face_rows, tap_valid, score,
-                        champ, facet)
-    _check_blocks(out, blocks)
-    if blocks is not None and blocks.numel() == 0:
+    s = SP.begin("resample_twined_chain") if SP.on else -1
+    try:
+        _check_twined_chain(out, coeff, xfeat, yfeat, bmats, spread, degree,
+                            n_taps, tmode, pick, face_rows, tap_valid, score,
+                            champ, facet)
+        _check_blocks(out, blocks)
+        if blocks is not None and blocks.numel() == 0:
+            return out
+        kw = dict(degree=degree, n_taps=n_taps, tmode=tmode, pick=pick,
+                  row0=row0, face_rows=face_rows, precise=precise,
+                  tap_valid=tap_valid, score=score, recip_step=recip_step,
+                  blocks=blocks, champ=champ, facet=facet, scale=scale,
+                  accumulate=accumulate)
+        if out.device.type == "cpu":
+            return resample_twined_chain_plain(out, coeff, xfeat, yfeat, bmats,
+                                               spread, **kw)
+        if out.device.type != "cuda":
+            raise ValueError(f"unsupported device {out.device}")
+        fn = _TWINED.get("envutil_resample_twined_chain")
+        h, w, nch = out.shape
+        hp, wp, _ = coeff.shape
+        ints, floats = _pickup_arrays(pick)
+        with torch.cuda.device(out.device):
+            stream = torch.cuda.current_stream(out.device).cuda_stream
+            err = fn(out.data_ptr(),
+                     None if score is None else score.data_ptr(),
+                     coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
+                     bmats.data_ptr(), spread.data_ptr(), _wmat(degree), ints,
+                     floats, *_list_args(blocks), _ptr(champ), h, w, hp, wp,
+                     int(row0), int(face_rows), int(degree), int(nch),
+                     _CHAIN_TMODES[tmode], int(n_taps), int(precise),
+                     int(tap_valid), float(recip_step), int(facet),
+                     float(scale), int(accumulate), _bf16(coeff), stream)
+        if err != 0:
+            raise RuntimeError(f"resample_twined_chain kernel launch failed: "
+                               f"CUDA error {err}")
+        resample_twined_chain.launches += 1
+        resample_twined_chain.blocks += _launched(out, blocks)
+        resample_twined_chain.tapsel_launches += champ is not None
         return out
-    kw = dict(degree=degree, n_taps=n_taps, tmode=tmode, pick=pick,
-              row0=row0, face_rows=face_rows, precise=precise,
-              tap_valid=tap_valid, score=score, recip_step=recip_step,
-              blocks=blocks, champ=champ, facet=facet, scale=scale,
-              accumulate=accumulate)
-    if out.device.type == "cpu":
-        return resample_twined_chain_plain(out, coeff, xfeat, yfeat, bmats,
-                                           spread, **kw)
-    if out.device.type != "cuda":
-        raise ValueError(f"unsupported device {out.device}")
-    fn = _TWINED.get("envutil_resample_twined_chain")
-    h, w, nch = out.shape
-    hp, wp, _ = coeff.shape
-    ints, floats = _pickup_arrays(pick)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(out.data_ptr(), None if score is None else score.data_ptr(),
-                 coeff.data_ptr(), xfeat.data_ptr(), yfeat.data_ptr(),
-                 bmats.data_ptr(), spread.data_ptr(), _wmat(degree), ints,
-                 floats, *_list_args(blocks), _ptr(champ), h, w, hp, wp,
-                 int(row0), int(face_rows), int(degree), int(nch),
-                 _CHAIN_TMODES[tmode], int(n_taps), int(precise),
-                 int(tap_valid), float(recip_step), int(facet), float(scale),
-                 int(accumulate), _bf16(coeff), stream)
-    if err != 0:
-        raise RuntimeError(f"resample_twined_chain kernel launch failed: "
-                           f"CUDA error {err}")
-    resample_twined_chain.launches += 1
-    resample_twined_chain.blocks += _launched(out, blocks)
-    resample_twined_chain.tapsel_launches += champ is not None
-    return out
+    finally:
+        if s >= 0:
+            SP.end(s)
 
 
 resample_twined_chain.launches = 0
@@ -1543,40 +1577,47 @@ def chain_blocks(xfeat, yfeat, bmats, *, tmode: str, pick: ChainPickup,
     CUDA tensors go through the kernel (csrc/chain_blocks.cu,
     ``chain_blocks.launches`` counts its launches); CPU tensors through
     ``chain_blocks_plain``."""
-    _check_cover(xfeat, yfeat, bmats, tmode, pick, face_rows, spread,
-                 n_taps)
-    kw = dict(tmode=tmode, pick=pick, row0=row0, face_rows=face_rows,
-              spread=spread, n_taps=n_taps, precise=precise)
-    device = xfeat.device
-    if device.type == "cpu":
-        return chain_blocks_plain(xfeat, yfeat, bmats, **kw)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    fn = _BLOCKS.get("envutil_chain_blocks")
-    h, w = yfeat.shape[1], xfeat.shape[1]
-    nby, nbx = block_grid(h, w)
-    n = nby * nbx
-    # one scratch allocation: the flags (2n bytes), then, 16-byte
-    # aligned, the list and its count (n + 1 ints); the list returned is
-    # a view of it
-    at = -(-2 * n // 16) * 16
-    scratch = torch.empty(at + 4 * (n + 1), dtype=torch.uint8, device=device)
-    flags = scratch[:2 * n]
-    listed = scratch[at:].view(torch.int32)
-    blocks, count = listed[:n], listed[n:]
-    ints, floats = _pickup_arrays(pick)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(flags.data_ptr(), blocks.data_ptr(), count.data_ptr(),
-                 xfeat.data_ptr(), yfeat.data_ptr(), bmats.data_ptr(),
-                 None if spread is None else spread.data_ptr(), ints, floats,
-                 h, w, int(row0), int(face_rows), _CHAIN_TMODES[tmode],
-                 int(n_taps), int(precise), stream)
-    if err != 0:
-        raise RuntimeError(f"chain_blocks kernel launch failed: CUDA error "
-                           f"{err}")
-    chain_blocks.launches += 1
-    return blocks[:int(count.item())]
+    s = SP.begin("chain_blocks") if SP.on else -1
+    try:
+        _check_cover(xfeat, yfeat, bmats, tmode, pick, face_rows, spread,
+                     n_taps)
+        kw = dict(tmode=tmode, pick=pick, row0=row0, face_rows=face_rows,
+                  spread=spread, n_taps=n_taps, precise=precise)
+        device = xfeat.device
+        if device.type == "cpu":
+            return chain_blocks_plain(xfeat, yfeat, bmats, **kw)
+        if device.type != "cuda":
+            raise ValueError(f"unsupported device {device}")
+        fn = _BLOCKS.get("envutil_chain_blocks")
+        h, w = yfeat.shape[1], xfeat.shape[1]
+        nby, nbx = block_grid(h, w)
+        n = nby * nbx
+        # one scratch allocation: the flags (2n bytes), then, 16-byte
+        # aligned, the list and its count (n + 1 ints); the list returned is
+        # a view of it
+        at = -(-2 * n // 16) * 16
+        scratch = torch.empty(at + 4 * (n + 1), dtype=torch.uint8,
+                              device=device)
+        flags = scratch[:2 * n]
+        listed = scratch[at:].view(torch.int32)
+        blocks, count = listed[:n], listed[n:]
+        ints, floats = _pickup_arrays(pick)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(flags.data_ptr(), blocks.data_ptr(), count.data_ptr(),
+                     xfeat.data_ptr(), yfeat.data_ptr(), bmats.data_ptr(),
+                     None if spread is None else spread.data_ptr(),
+                     ints, floats,
+                     h, w, int(row0), int(face_rows), _CHAIN_TMODES[tmode],
+                     int(n_taps), int(precise), stream)
+        if err != 0:
+            raise RuntimeError(f"chain_blocks kernel launch failed: CUDA "
+                               f"error {err}")
+        chain_blocks.launches += 1
+        return blocks[:int(count.item())]
+    finally:
+        if s >= 0:
+            SP.end(s)
 
 
 chain_blocks.launches = 0
@@ -1697,34 +1738,41 @@ def champion_planes(best, champ, xfeat, yfeat, bmats, *, facet: int,
     scores ``LOWEST`` everywhere else. Returns ``champ``. CUDA tensors
     go through the kernel (``champion_planes.launches``; an empty list
     launches nothing); CPU tensors through ``champion_planes_plain``."""
-    _check_champion(best, champ, xfeat, yfeat, bmats, tmode, pick,
-                    face_rows, spread, n_taps, tap_valid, facet)
-    _check_blocks(champ, blocks)
-    kw = dict(facet=facet, tmode=tmode, pick=pick, row0=row0,
-              face_rows=face_rows, spread=spread, n_taps=n_taps,
-              precise=precise, tap_valid=tap_valid, recip_step=recip_step,
-              blocks=blocks)
-    if blocks is not None and blocks.numel() == 0:
+    s = SP.begin("champion_planes") if SP.on else -1
+    try:
+        _check_champion(best, champ, xfeat, yfeat, bmats, tmode, pick,
+                        face_rows, spread, n_taps, tap_valid, facet)
+        _check_blocks(champ, blocks)
+        kw = dict(facet=facet, tmode=tmode, pick=pick, row0=row0,
+                  face_rows=face_rows, spread=spread, n_taps=n_taps,
+                  precise=precise, tap_valid=tap_valid, recip_step=recip_step,
+                  blocks=blocks)
+        if blocks is not None and blocks.numel() == 0:
+            return champ
+        if champ.device.type == "cpu":
+            return champion_planes_plain(best, champ, xfeat, yfeat, bmats,
+                                         **kw)
+        if champ.device.type != "cuda":
+            raise ValueError(f"unsupported device {champ.device}")
+        fn = _CHAMPION.get("envutil_champion")
+        h, w = champ.shape[1:]
+        ints, floats = _pickup_arrays(pick)
+        with torch.cuda.device(champ.device):
+            stream = torch.cuda.current_stream(champ.device).cuda_stream
+            err = fn(best.data_ptr(), champ.data_ptr(), xfeat.data_ptr(),
+                     yfeat.data_ptr(), bmats.data_ptr(), _ptr(spread), ints,
+                     floats, *_list_args(blocks), h, w, int(row0),
+                     int(face_rows), _CHAIN_TMODES[tmode], int(n_taps),
+                     int(precise), int(tap_valid), int(facet),
+                     float(recip_step), stream)
+        if err != 0:
+            raise RuntimeError(f"champion kernel launch failed: CUDA error "
+                               f"{err}")
+        champion_planes.launches += 1
         return champ
-    if champ.device.type == "cpu":
-        return champion_planes_plain(best, champ, xfeat, yfeat, bmats, **kw)
-    if champ.device.type != "cuda":
-        raise ValueError(f"unsupported device {champ.device}")
-    fn = _CHAMPION.get("envutil_champion")
-    h, w = champ.shape[1:]
-    ints, floats = _pickup_arrays(pick)
-    with torch.cuda.device(champ.device):
-        stream = torch.cuda.current_stream(champ.device).cuda_stream
-        err = fn(best.data_ptr(), champ.data_ptr(), xfeat.data_ptr(),
-                 yfeat.data_ptr(), bmats.data_ptr(), _ptr(spread), ints,
-                 floats, *_list_args(blocks), h, w, int(row0),
-                 int(face_rows), _CHAIN_TMODES[tmode], int(n_taps),
-                 int(precise), int(tap_valid), int(facet), float(recip_step),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"champion kernel launch failed: CUDA error {err}")
-    champion_planes.launches += 1
-    return champ
+    finally:
+        if s >= 0:
+            SP.end(s)
 
 
 champion_planes.launches = 0
@@ -1773,29 +1821,35 @@ def champion_lists(champ, n_facets: int):
     go through the kernel (csrc/champion.cu, counted in
     ``champion_lists.launches``); CPU tensors through
     ``champion_lists_plain``."""
-    _check_lists(champ, n_facets)
-    if champ.device.type == "cpu":
-        return champion_lists_plain(champ, n_facets)
-    if champ.device.type != "cuda":
-        raise ValueError(f"unsupported device {champ.device}")
-    fn = _CHAMPION.get("envutil_champion_lists")
-    k, h, w = champ.shape
-    nby, nbx = block_grid(h, w)
-    n = nby * nbx
-    flags = torch.empty(n_facets * n, dtype=torch.uint8, device=champ.device)
-    listed = torch.empty(n_facets * (n + 1), dtype=torch.int32,
-                         device=champ.device)
-    blocks, count = listed[:n_facets * n].view(n_facets, n), \
-        listed[n_facets * n:]
-    with torch.cuda.device(champ.device):
-        stream = torch.cuda.current_stream(champ.device).cuda_stream
-        err = fn(champ.data_ptr(), flags.data_ptr(), blocks.data_ptr(),
-                 count.data_ptr(), h, w, int(k), int(n_facets), stream)
-    if err != 0:
-        raise RuntimeError(f"champion_lists kernel launch failed: CUDA "
-                           f"error {err}")
-    champion_lists.launches += 1
-    return tuple(blocks[f, :c] for f, c in enumerate(count.tolist()))
+    s = SP.begin("champion_lists") if SP.on else -1
+    try:
+        _check_lists(champ, n_facets)
+        if champ.device.type == "cpu":
+            return champion_lists_plain(champ, n_facets)
+        if champ.device.type != "cuda":
+            raise ValueError(f"unsupported device {champ.device}")
+        fn = _CHAMPION.get("envutil_champion_lists")
+        k, h, w = champ.shape
+        nby, nbx = block_grid(h, w)
+        n = nby * nbx
+        flags = torch.empty(n_facets * n, dtype=torch.uint8,
+                            device=champ.device)
+        listed = torch.empty(n_facets * (n + 1), dtype=torch.int32,
+                             device=champ.device)
+        blocks, count = listed[:n_facets * n].view(n_facets, n), \
+            listed[n_facets * n:]
+        with torch.cuda.device(champ.device):
+            stream = torch.cuda.current_stream(champ.device).cuda_stream
+            err = fn(champ.data_ptr(), flags.data_ptr(), blocks.data_ptr(),
+                     count.data_ptr(), h, w, int(k), int(n_facets), stream)
+        if err != 0:
+            raise RuntimeError(f"champion_lists kernel launch failed: CUDA "
+                               f"error {err}")
+        champion_lists.launches += 1
+        return tuple(blocks[f, :c] for f, c in enumerate(count.tolist()))
+    finally:
+        if s >= 0:
+            SP.end(s)
 
 
 champion_lists.launches = 0

@@ -102,6 +102,11 @@ kernel, whose taps deflect in source-coordinate space where
 ``--twine_precise`` deflects the ray (the inline twined kernel deflects
 the ray, and keeps its precise jobs). The plan decides it, never a
 kernel's failure.
+
+While ``spans`` records, each ``frame_tensor`` call is a span that
+starts the next frame, and the build branch of each per-plan pass a
+span: ``operands_build`` (``_operands``), ``block_list_build`` and
+``champion_planes_build``; a plan's cache hit records nothing.
 """
 
 from __future__ import annotations
@@ -120,6 +125,7 @@ from ..models import stepper as ST
 from ..models import synopsis as SYN
 from ..ops import resample as R
 from ..ops import spline as S
+from . import spans as SP
 
 # per-face in_face_to_ray as a linear map of (fx, fy, 1)
 # (geometry.in_face_to_ray / geometry.h:577-637)
@@ -359,9 +365,14 @@ def _operands(plan, static, core_shape, pad, bcs, device):
     per_plan = _OPERANDS.setdefault(plan, {})
     key = (static, core_shape, pad, bcs, device)
     if key not in per_plan:
-        per_plan[key] = _build_operands(plan, static, core_shape, pad, bcs,
-                                        device)
-        _operands.builds += 1
+        s = SP.begin("operands_build") if SP.on else -1
+        try:
+            per_plan[key] = _build_operands(plan, static, core_shape, pad,
+                                            bcs, device)
+            _operands.builds += 1
+        finally:
+            if s >= 0:
+                SP.end(s)
     return per_plan[key]
 
 
@@ -653,11 +664,16 @@ def block_list(plan, src):
            spl.coeff.device)
     per_plan = _BLOCK_LISTS.setdefault(owner, {})
     if key not in per_plan:
-        feats, kw = cover_operands(owner, src)
-        blocks = R.chain_blocks(*feats, **kw)
-        nby, nbx = R.block_grid(feats[1].shape[1], feats[0].shape[1])
-        per_plan[key] = None if blocks.numel() == nby * nbx else blocks
-        block_list.builds += 1
+        s = SP.begin("block_list_build") if SP.on else -1
+        try:
+            feats, kw = cover_operands(owner, src)
+            blocks = R.chain_blocks(*feats, **kw)
+            nby, nbx = R.block_grid(feats[1].shape[1], feats[0].shape[1])
+            per_plan[key] = None if blocks.numel() == nby * nbx else blocks
+            block_list.builds += 1
+        finally:
+            if s >= 0:
+                SP.end(s)
     return per_plan[key]
 
 
@@ -958,8 +974,13 @@ def champion_planes(plan, sources):
                      for src in sources)
     per_plan = _CHAMPIONS.setdefault(plan, {})
     if spl_keys not in per_plan:
-        per_plan[spl_keys] = _build_champions(plan, sources)
-        champion_planes.builds += 1
+        s = SP.begin("champion_planes_build") if SP.on else -1
+        try:
+            per_plan[spl_keys] = _build_champions(plan, sources)
+            champion_planes.builds += 1
+        finally:
+            if s >= 0:
+                SP.end(s)
     return per_plan[spl_keys]
 
 
@@ -1137,55 +1158,60 @@ def frame_tensor(plan, sources, verbose: bool = False,
     not waited for. ``device`` is the
     render's (paint sources have no table to take it from). Raises
     ``NotImplementedError`` for jobs the port does not cover."""
-    reason = uncovered(plan, sources)
-    if reason is not None:
-        raise NotImplementedError(
-            f"no CUDA kernel for this job yet: {reason}")
-    why = exact_route(plan, sources)
-    if why is not None:
-        img = exact_frame(plan, sources, device)
+    s = SP.begin("frame_tensor", frame=True) if SP.on else -1
+    try:
+        reason = uncovered(plan, sources)
+        if reason is not None:
+            raise NotImplementedError(
+                f"no CUDA kernel for this job yet: {reason}")
+        why = exact_route(plan, sources)
+        if why is not None:
+            img = exact_frame(plan, sources, device)
+            if verbose:
+                print(f"fastpath: the exact path over {img.shape[0]}x"
+                      f"{img.shape[1]} px on {img.device} ({why})")
+            return img
+        if len(sources) > 1:
+            log = []
+            routed = champion_route(plan, sources)
+            built = champion_planes.builds
+            img = stitch_frame(plan, sources, log=log)
+            if verbose and routed is None:
+                _voronoi_text(plan, sources, log,
+                              champion_planes.builds > built)
+            elif verbose:
+                n_f = len(sources)
+                taps = plan.spread or ((0.0, 0.0, 1.0),)
+                fplans = [facet_plans(plan)] if plan.spread is None else \
+                    [one for _w, one in tap_plans(plan)]
+                for ti, (cx, cy, w) in enumerate(taps):
+                    at = "" if plan.spread is None else \
+                        f"tap {ti} ({cx:g}, {cy:g}, weight {w:g}): "
+                    for fi, what in enumerate(log[ti * n_f:(ti + 1) * n_f]):
+                        grid = blocks_text(fplans[ti][fi], sources[fi], what)
+                        print(f"fastpath: {at}facet {fi}: 1 launch of {what}"
+                              f"{grid}")
+                print(f"fastpath: {plan.synopsis} of {n_f} facets"
+                      + ("" if plan.spread is None else
+                         f" per tap, {len(taps)} taps")
+                      + f", {len(log)} launches over "
+                      f"{img.shape[0]}x{img.shape[1]} px on the stack route: "
+                      f"{routed}")
+            return img
+        src = sources[0]
+        out = _frame_buffer(plan, src, None, None)
+        what = launch(plan, src, out)
+        img = _finish(plan, src, out)
         if verbose:
-            print(f"fastpath: the exact path over {img.shape[0]}x"
-                  f"{img.shape[1]} px on {img.device} ({why})")
+            taps = f", {len(plan.spread)} taps" if plan.spread is not None \
+                else ""
+            print(f"fastpath: 1 launch of {what} over "
+                  f"{img.shape[0]}x{img.shape[1]} px{taps}"
+                  f"{blocks_text(plan, src, what)}")
         return img
-    if len(sources) > 1:
-        log = []
-        routed = champion_route(plan, sources)
-        built = champion_planes.builds
-        img = stitch_frame(plan, sources, log=log)
-        if verbose and routed is None:
-            _voronoi_text(plan, sources, log,
-                          champion_planes.builds > built)
-        elif verbose:
-            n_f = len(sources)
-            taps = plan.spread or ((0.0, 0.0, 1.0),)
-            fplans = [facet_plans(plan)] if plan.spread is None else \
-                [one for _w, one in tap_plans(plan)]
-            for ti, (cx, cy, w) in enumerate(taps):
-                at = "" if plan.spread is None else \
-                    f"tap {ti} ({cx:g}, {cy:g}, weight {w:g}): "
-                for fi, what in enumerate(log[ti * n_f:(ti + 1) * n_f]):
-                    grid = blocks_text(fplans[ti][fi], sources[fi], what)
-                    print(f"fastpath: {at}facet {fi}: 1 launch of {what}"
-                          f"{grid}")
-            print(f"fastpath: {plan.synopsis} of {n_f} facets"
-                  + ("" if plan.spread is None else
-                     f" per tap, {len(taps)} taps")
-                  + f", {len(log)} launches over "
-                  f"{img.shape[0]}x{img.shape[1]} px on the stack route: "
-                  f"{routed}")
-        return img
-    src = sources[0]
-    out = _frame_buffer(plan, src, None, None)
-    what = launch(plan, src, out)
-    img = _finish(plan, src, out)
-    if verbose:
-        taps = f", {len(plan.spread)} taps" if plan.spread is not None \
-            else ""
-        print(f"fastpath: 1 launch of {what} over "
-              f"{img.shape[0]}x{img.shape[1]} px{taps}"
-              f"{blocks_text(plan, src, what)}")
-    return img
+    finally:
+        if s >= 0:
+            SP.end(s)
 
 
 def render_fast(plan, sources, verbose: bool = False,
